@@ -1,0 +1,49 @@
+"""spira_tpu_torch — the PyTorch/CUDA port of spira_tpu.
+
+The JAX package ``spira_tpu`` is the reference; this package grows beside it
+slice by slice (see ROADMAP.md).  This slice is the forward render of
+sphere and small-triangle scenes: the scene model, the plain PyTorch tracer,
+and a hand-written CUDA megakernel for Hopper (``csrc/megakernel.cu``),
+behind the same ``render`` entry point.  Nothing here imports JAX.
+"""
+
+from .core import pcg, vecmath
+from .core.convert import camera_from_numpy, scene_from_numpy
+from .render import render, render_flat_engine, render_hdr, select_engine
+from .scene.camera import Camera, default_camera, make_camera
+from .scene.geometry import Spheres, Triangles, make_spheres, make_triangles
+from .scene.materials import Materials, make_materials
+from .scene.scene import (
+    Scene,
+    cornell_camera,
+    create_cornell_box,
+    create_scene,
+    make_scene,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "Materials",
+    "Scene",
+    "Spheres",
+    "Triangles",
+    "camera_from_numpy",
+    "cornell_camera",
+    "create_cornell_box",
+    "create_scene",
+    "default_camera",
+    "make_camera",
+    "make_materials",
+    "make_scene",
+    "make_spheres",
+    "make_triangles",
+    "pcg",
+    "render",
+    "render_flat_engine",
+    "render_hdr",
+    "scene_from_numpy",
+    "select_engine",
+    "vecmath",
+]

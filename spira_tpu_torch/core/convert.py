@@ -1,0 +1,74 @@
+"""Build the port's scene and camera from objects with numpy leaves.
+
+The JAX package's scene and camera are pytrees.  Mapped to numpy (for
+example ``jax.tree_util.tree_map(np.asarray, scene)``), their fields are
+read here by name, so the port renders exactly the reference's values: a
+camera rebuilt through ``tan`` and ``deg2rad`` may differ by an ULP between
+frameworks.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..scene.camera import Camera
+from ..scene.geometry import Spheres, Triangles
+from ..scene.materials import Materials
+from ..scene.scene import Scene
+
+
+def _t(x, device, dtype=None):
+    if x is None:
+        return None
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def scene_from_numpy(obj, device=None) -> Scene:
+    """Scene from an object with the JAX Scene's fields as numpy arrays."""
+    for table in ("bvh", "packed", "wide"):
+        if getattr(obj, table, None) is not None:
+            raise NotImplementedError(
+                f"scene carries a {table!r} table; the port's BVH tables "
+                "come with the mesh slice (ROADMAP queue 1, item 8)"
+            )
+    sph, tri, mats = obj.spheres, obj.triangles, obj.materials
+    f32 = np.float32
+    return Scene(
+        spheres=Spheres(
+            centers=_t(sph.centers, device, f32),
+            radii=_t(sph.radii, device, f32),
+            material=_t(sph.material, device, np.int32),
+        ),
+        triangles=Triangles(
+            v0=_t(tri.v0, device, f32),
+            e1=_t(tri.e1, device, f32),
+            e2=_t(tri.e2, device, f32),
+            normal=_t(tri.normal, device, f32),
+            material=_t(tri.material, device, np.int32),
+        ),
+        materials=Materials(
+            albedo=_t(mats.albedo, device, f32),
+            emission=_t(mats.emission, device, f32),
+            metallic=_t(mats.metallic, device, f32),
+            roughness=_t(mats.roughness, device, f32),
+            ior=_t(mats.ior, device, f32),
+            transmission=_t(mats.transmission, device, f32),
+            cauchy_b=_t(getattr(mats, "cauchy_b", None), device, f32),
+        ),
+    )
+
+
+def camera_from_numpy(obj, device=None) -> Camera:
+    """Camera from an object with the JAX Camera's fields as numpy arrays."""
+    f32 = np.float32
+    return Camera(
+        origin=_t(obj.origin, device, f32),
+        lower_left_corner=_t(obj.lower_left_corner, device, f32),
+        horizontal=_t(obj.horizontal, device, f32),
+        vertical=_t(obj.vertical, device, f32),
+        u=_t(obj.u, device, f32),
+        v=_t(obj.v, device, f32),
+        lens_radius=_t(obj.lens_radius, device, f32),
+        has_lens=bool(obj.has_lens),
+    )

@@ -1,0 +1,138 @@
+"""Top-level render entry points: engine choice, HDR render, tone-mapped
+image.
+
+Counterpart of the entry points of :mod:`spira_tpu.render` for the slice
+the port has: sphere and small-triangle scenes (at most
+``FUSED_TRI_LIMIT`` triangles, no BVH), physical semantics, RGB, full
+shading.  The engines are
+
+* ``cuda``  — the hand-written CUDA megakernel, for scenes on a CUDA device;
+* ``fused`` — the plain PyTorch tracer, on any device.
+
+Every other path of the JAX renderer raises ``NotImplementedError`` naming
+the ROADMAP item (queue 1) that brings it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .io import image as img_io
+from .kernels.megakernel import (
+    FUSED_TRI_LIMIT,
+    render_flat_fused,
+    render_flat_megakernel,
+)
+
+ENGINES = ("cuda", "fused")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to spira_tpu_torch yet (ROADMAP.md queue 1, "
+        f"{item})"
+    )
+
+
+def select_engine(
+    scene, semantics: str, spectral: bool, engine: str = "auto", camera=None
+):
+    """Resolve the execution engine: ``cuda`` for a scene on a CUDA device,
+    ``fused`` for one on the CPU, or the engine named."""
+    if spectral:
+        raise _not_ported("spectral=True", "item 12, the spectral slice")
+    if semantics != "physical":
+        raise _not_ported(
+            f"semantics={semantics!r}", "item 10, the wavefront estimator"
+        )
+    for table in ("bvh", "packed"):
+        if getattr(scene, table, None) is not None:
+            raise _not_ported(
+                f"a scene with a {table!r} table", "items 8-9, the mesh slice"
+            )
+    if engine == "auto":
+        if not (
+            scene.triangles.count <= FUSED_TRI_LIMIT
+            and (scene.spheres.count + scene.triangles.count) > 0
+        ):
+            raise _not_ported(
+                f"a scene with {scene.triangles.count} triangles and no BVH "
+                f"(the fused engines take at most {FUSED_TRI_LIMIT})",
+                "items 8-10, the mesh slice and the wavefront estimator",
+            )
+        return "cuda" if scene.device.type == "cuda" else "fused"
+    if engine not in ENGINES:
+        raise _not_ported(
+            f"engine {engine!r} (the port has {', '.join(ENGINES)})",
+            "items 9-13",
+        )
+    return engine
+
+
+def render_flat_engine(
+    scene, camera, *, width, height, spp=16, max_depth=4, seed=0,
+    semantics="physical", inclusive_uv=True, spectral=False, engine="auto",
+):
+    """Flat (H*W, 3) bottom-up HDR render with engine dispatch."""
+    engine = select_engine(scene, semantics, spectral, engine, camera=camera)
+    fn = render_flat_megakernel if engine == "cuda" else render_flat_fused
+    return fn(
+        scene, camera, width=width, height=height, spp=spp,
+        max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
+    )
+
+
+def render_hdr(scene, camera, width, height, **kw):
+    """Render to an (H, W, 3) top-down HDR image tensor."""
+    flat = render_flat_engine(scene, camera, width=width, height=height, **kw)
+    return img_io.assemble_image(flat, width, height)
+
+
+def render(
+    scene,
+    camera,
+    width: int,
+    height: int,
+    *,
+    samples_per_pixel: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    semantics: str = "physical",
+    tonemap: str = "gamma",
+    inclusive_uv: bool = True,
+    spectral: bool = False,
+    engine: str = "auto",
+    shading: str = "full",
+    output_path: str | None = None,
+) -> np.ndarray:
+    """Render, tone map, optionally save; returns (H, W, 3) uint8, top-down.
+
+    ``output_path`` ending in ``.exr`` saves the HDR image, ``.ppm`` a PPM,
+    anything else a PNG.
+    """
+    if shading != "full":
+        raise _not_ported(
+            f"shading={shading!r}", "item 13, the preview renderers"
+        )
+    hdr = render_hdr(
+        scene,
+        camera,
+        width,
+        height,
+        spp=samples_per_pixel,
+        max_depth=max_depth,
+        seed=seed,
+        semantics=semantics,
+        inclusive_uv=inclusive_uv,
+        spectral=spectral,
+        engine=engine,
+    )
+    out = img_io.to_uint8(img_io.TONEMAPS[tonemap](hdr))
+    if output_path is not None:
+        if output_path.endswith(".exr"):
+            img_io.save_exr(output_path, hdr)
+        elif output_path.endswith(".ppm"):
+            img_io.save_ppm(output_path, out)
+        else:
+            img_io.save_png(output_path, out)
+    return out

@@ -1,0 +1,162 @@
+"""Scene dataclass and the built-in scenes.
+
+Counterpart of :mod:`spira_tpu.scene.scene`.  ``create_mesh_scene`` needs
+BVH construction and comes with the mesh slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..core.types import tensor_dataclass
+from .camera import make_camera
+from .geometry import (
+    Spheres,
+    Triangles,
+    concat_triangles,
+    empty_spheres,
+    empty_triangles,
+    make_spheres,
+    make_triangles,
+)
+from .materials import Materials, make_materials
+
+
+@tensor_dataclass
+class Scene:
+    """spheres + triangle soup + materials.
+
+    ``bvh`` and ``packed`` mirror the JAX scene's acceleration tables.  The
+    port has no BVH yet, so a scene that carries either is refused by the
+    renderer.
+    """
+
+    spheres: Spheres
+    triangles: Triangles
+    materials: Materials
+    bvh: Optional[Any] = None
+    packed: Optional[Any] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.materials.albedo.device
+
+
+def make_scene(
+    spheres=None, triangles=None, materials=None, bvh=None, packed=None,
+) -> Scene:
+    device = materials.albedo.device if materials is not None else None
+    return Scene(
+        spheres=spheres if spheres is not None else empty_spheres(device),
+        triangles=(
+            triangles if triangles is not None else empty_triangles(device)
+        ),
+        materials=materials,
+        bvh=bvh,
+        packed=packed,
+    )
+
+
+def create_scene(device=None) -> Scene:
+    """The reference demo scene: diffuse red, grey ground, mirror metal,
+    glass-like metal 0.9, white light with emission 5."""
+    materials = make_materials(
+        [
+            dict(albedo=(0.7, 0.3, 0.3), metallic=0.0, roughness=0.5),
+            dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),
+            dict(albedo=(0.8, 0.8, 0.8), metallic=1.0, roughness=0.0),
+            dict(albedo=(0.8, 0.8, 1.0), metallic=0.9, roughness=0.0),
+            dict(
+                albedo=(1.0, 1.0, 1.0),
+                emission=(5.0, 5.0, 5.0),
+                metallic=0.0,
+                roughness=0.0,
+            ),
+        ],
+        device=device,
+    )
+    spheres = make_spheres(
+        [
+            ((0.0, 0.0, 0.0), 0.5, 0),
+            ((0.0, -100.5, 0.0), 100.0, 1),
+            ((1.0, 0.0, 0.0), 0.5, 2),
+            ((-1.0, 0.0, 0.0), 0.5, 3),
+            ((0.0, 5.0, 0.0), 1.0, 4),
+        ],
+        device=device,
+    )
+    return make_scene(spheres=spheres, materials=materials)
+
+
+def create_cornell_box(light_emission=(15.0, 15.0, 15.0), device=None):
+    """Cornell-style box: emissive area light at the ceiling, colored
+    diffuse walls, one metal and one dielectric sphere, in a 2×2×2 box
+    centered at the origin (12 triangles, 2 spheres)."""
+    materials = make_materials(
+        [
+            dict(albedo=(0.73, 0.73, 0.73)),  # 0 white walls
+            dict(albedo=(0.65, 0.05, 0.05)),  # 1 red left wall
+            dict(albedo=(0.12, 0.45, 0.15)),  # 2 green right wall
+            dict(albedo=(1.0, 1.0, 1.0), emission=light_emission),  # 3 light
+            dict(albedo=(0.9, 0.9, 0.9), metallic=1.0, roughness=0.05),  # 4
+            dict(  # 5 glass sphere (dielectric, dispersive flint-like glass)
+                albedo=(1.0, 1.0, 1.0),
+                metallic=1.0,
+                roughness=0.0,
+                ior=1.5,
+                transmission=1.0,
+                cauchy_b=0.0042,
+            ),
+        ],
+        device=device,
+    )
+
+    def quad(p0, p1, p2, p3, mat):
+        verts = np.asarray([p0, p1, p2, p3], np.float32)
+        faces = np.asarray([[0, 1, 2], [0, 2, 3]], np.int64)
+        return make_triangles(verts, faces, mat, device=device)
+
+    s = 1.0  # half-extent
+    quads = [
+        # floor (normal up)
+        quad((-s, -s, -s), (s, -s, -s), (s, -s, s), (-s, -s, s), 0),
+        # ceiling
+        quad((-s, s, -s), (-s, s, s), (s, s, s), (s, s, -s), 0),
+        # back wall (z = -s)
+        quad((-s, -s, -s), (-s, s, -s), (s, s, -s), (s, -s, -s), 0),
+        # left wall (x = -s) red
+        quad((-s, -s, s), (-s, s, s), (-s, s, -s), (-s, -s, -s), 1),
+        # right wall (x = s) green
+        quad((s, -s, -s), (s, s, -s), (s, s, s), (s, -s, s), 2),
+        # ceiling light patch
+        quad(
+            (-0.35, s - 1e-3, -0.35),
+            (-0.35, s - 1e-3, 0.35),
+            (0.35, s - 1e-3, 0.35),
+            (0.35, s - 1e-3, -0.35),
+            3,
+        ),
+    ]
+    spheres = make_spheres(
+        [
+            ((-0.45, -0.7, -0.35), 0.3, 4),  # metal
+            ((0.45, -0.7, 0.25), 0.3, 5),  # glass
+        ],
+        device=device,
+    )
+    return make_scene(spheres=spheres, triangles=concat_triangles(quads),
+                      materials=materials)
+
+
+def cornell_camera(aspect_ratio=1.0, device=None):
+    return make_camera(
+        lookfrom=(0.0, 0.0, 3.4),
+        lookat=(0.0, 0.0, 0.0),
+        vup=(0.0, 1.0, 0.0),
+        vfov=40.0,
+        aspect_ratio=aspect_ratio,
+        device=device,
+    )
