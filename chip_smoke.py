@@ -1,25 +1,34 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save DIR]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card and toolchain: requires CUDA, prints the card's name and power
-   limit, the torch/CUDA versions, and builds the kernels from ``csrc/``;
-2. each kernel against its plain PyTorch version on the card, same scene
-   tables and seed, with the tolerances stated in ``CASES``;
-3. the main path: ``spira_tpu_torch.render`` of the demo scene at 640x360,
-   spp 16, depth 4, on ``cuda``, with the kernel's launch count read around
-   it and the image checked against the plain version's render;
+   limit, the torch/CUDA versions, and builds the kernels from ``csrc/``
+   (one nvcc per source, all started together);
+2. each kernel against its plain PyTorch version on the card, same tables
+   and seed, with the tolerances stated beside each case: the sphere
+   megakernel (``SPHERE_CASES``), the packed-BVH nearest-hit query on
+   random and primary rays of the 72,960-triangle bunny, and the
+   packed-BVH path tracer (``BVH_CASES``);
+3. the main paths, through the user's entry points, each with every launch
+   count set to 0 just before and read just after: ``render`` of the bunny
+   at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), ``intersect_tile``
+   on the bunny's primary rays, and ``render`` of the sphere demo scene at
+   the same shape (engine ``cuda``); each image is checked against the
+   plain version's render;
 4. timing with CUDA events (one warm-up, median of ``REPEATS``), and a
-   torch.profiler breakdown of the main-path wrapper's time on the card.
+   torch.profiler breakdown of the main-path wrappers' time on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
+paths' PNGs there.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -29,15 +38,20 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 REPEATS = 5
 MAIN = dict(width=640, height=360, spp=16, max_depth=4)
-#: (name, scene function, camera function, shape, tolerances).  Depth 1 sees
-#: only primary hits and raygen jitter; deeper paths may take another branch
-#: where a transcendental differs in its last bit, which moves a whole path.
-CASES = (
+#: the shape the kernel table of PERF.md times the BVH kernel and its
+#: plain version at
+BVH_TIMED = dict(width=640, height=360, spp=4, max_depth=4)
+#: sphere megakernel cases: (name, scene function, camera function, shape,
+#: tolerances).  Depth 1 sees only primary hits and raygen jitter; deeper
+#: paths may take another branch where a transcendental differs in its
+#: last bit, which moves a whole path.
+SPHERE_CASES = (
     ("a: demo 640x360 spp1 d1", "create_scene", "default_camera",
      dict(width=640, height=360, spp=1, max_depth=1),
      dict(atol=1e-5, frac=0.999, mean_rel=0.005)),
@@ -47,6 +61,22 @@ CASES = (
      dict(width=256, height=256, spp=16, max_depth=6),
      dict(atol=1e-4, frac=0.99, mean_rel=0.005)),
 )
+#: packed-BVH path tracer cases: (name, scene key, shape).  At least 99% of
+#: pixel-channels within 1e-4 and channel means within 0.5%.
+BVH_TOL = dict(atol=1e-4, frac=0.99, mean_rel=0.005)
+BVH_CASES = (
+    ("d: bunny 640x360 spp1 d2", "bunny",
+     dict(width=640, height=360, spp=1, max_depth=2)),
+    ("e: bunny 640x360 spp4 d4", "bunny", BVH_TIMED),
+    ("f: mesh 256x256 spp4 d4", "mesh",
+     dict(width=256, height=256, spp=4, max_depth=4)),
+)
+#: nearest-hit query limits: miss sets equal but for this share of rays;
+#: t on common hits to this relative tolerance; material id equal on this
+#: share; normal within NORMAL_ATOL on this share.
+MISS_SHARE, T_RTOL, MID_SHARE = 1e-4, 1e-5, 0.9999
+NORMAL_ATOL, NORMAL_SHARE = 1e-5, 0.999
+N_RANDOM_RAYS = 1 << 16
 
 
 def log(*args):
@@ -110,14 +140,21 @@ def device_breakdown(fn, runs=REPEATS):
     )
 
 
-def compare(sp, mk, name, scene_fn, cam_fn, shape, tol, device):
-    scene = getattr(sp, scene_fn)(device=device)
-    w, h = shape["width"], shape["height"]
-    cam = getattr(sp, cam_fn)(w / h, device=device)
-    kernel = mk.render_flat_megakernel(scene, cam, seed=7, **shape)
-    plain = mk.render_flat_fused(scene, cam, seed=7, **shape)
-    torch.cuda.synchronize()
-    if kernel.shape != (w * h, 3) or not torch.isfinite(kernel).all():
+def log_breakdown(card, what, breakdown):
+    if breakdown["idle_share"] is None:
+        log(f"[profile] {what}: no device time in the trace: not measured")
+        return
+    top = list(breakdown["kernels_ms_per_call"].items())[:4]
+    log(f"[profile] {card}: {what} wrapper "
+        f"{breakdown['wall_ms_per_call']:.4f} ms/call on the host, "
+        f"{breakdown['device_ms_per_call']:.4f} ms/call on the card, "
+        f"idle share {breakdown['idle_share']:.4f}; top kernels "
+        f"(ms/call): {[(k, round(v, 5)) for k, v in top]}")
+
+
+def check_images(name, kernel, plain, tol):
+    """Hold a kernel's flat HDR buffer against the plain version's."""
+    if kernel.shape != plain.shape or not torch.isfinite(kernel).all():
         raise AssertionError(f"{name}: kernel output bad shape or not finite")
     diff = (kernel - plain).abs()
     max_abs = float(diff.max())
@@ -135,7 +172,88 @@ def compare(sp, mk, name, scene_fn, cam_fn, shape, tol, device):
                 mean_rel=rel)
 
 
+def compare_sphere(sp, mk, name, scene_fn, cam_fn, shape, tol, device):
+    scene = getattr(sp, scene_fn)(device=device)
+    w, h = shape["width"], shape["height"]
+    cam = getattr(sp, cam_fn)(w / h, device=device)
+    kernel = mk.render_flat_megakernel(scene, cam, seed=7, **shape)
+    plain = mk.render_flat_fused(scene, cam, seed=7, **shape)
+    torch.cuda.synchronize()
+    return check_images(name, kernel, plain, tol)
+
+
+def primary_rays(cam, width, height):
+    """Pinhole rays through the pixel centres, bottom-up rows: (N, 3)
+    origins and unit directions."""
+    dev = cam.origin.device
+    v = (torch.arange(height, device=dev, dtype=torch.float32) + 0.5) / height
+    u = (torch.arange(width, device=dev, dtype=torch.float32) + 0.5) / width
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    d = (cam.lower_left_corner + uu.reshape(-1, 1) * cam.horizontal
+         + vv.reshape(-1, 1) * cam.vertical - cam.origin)
+    d = d / d.norm(dim=1, keepdim=True)
+    return cam.origin.expand_as(d).contiguous(), d.contiguous()
+
+
+def random_rays(n, device, seed=0):
+    """Origins in a box around the bunny; half the directions aimed at it,
+    half uniform on the sphere."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.tensor([-1.2, 0.0, -1.2])
+    hi = torch.tensor([1.2, 1.4, 1.2])
+    o = lo + (hi - lo) * torch.rand(n, 3, generator=g)
+    d = torch.randn(n, 3, generator=g)
+    d[::2] = torch.tensor([0.0, 0.45, 0.0]) - o[::2] + 0.3 * d[::2]
+    d = d / d.norm(dim=1, keepdim=True)
+    return o.to(device), d.to(device)
+
+
+def compare_intersect(bk, name, packed, o, d):
+    kt, kn, kmid = bk.intersect_tile(packed, o, d)
+    pt, pn, pmid = bk.intersect_packed_plain(packed, o, d)
+    torch.cuda.synchronize()
+    n = o.shape[0]
+    kmiss, pmiss = kt >= 1e19, pt >= 1e19
+    miss_share = float((kmiss != pmiss).float().mean())
+    both = ~kmiss & ~pmiss
+    t_err = (kt[both] - pt[both]).abs()
+    t_rel = float((t_err / pt[both].abs()).max()) if both.any() else 0.0
+    mid_share = float((kmid == pmid).float().mean())
+    n_share = float(((kn - pn).abs().amax(dim=1) <= NORMAL_ATOL)
+                    .float().mean())
+    log(f"[compare] {name}: {n} rays, {int(both.sum())} common hits, miss "
+        f"sets differ on {miss_share:.2e} (limit {MISS_SHARE:g}), t max rel "
+        f"{t_rel:.2e} (limit {T_RTOL:g}), mat id equal on {mid_share:.6f} "
+        f"(limit {MID_SHARE}), normal within {NORMAL_ATOL:g} on "
+        f"{n_share:.6f} (limit {NORMAL_SHARE})")
+    if not torch.isfinite(kt).all() or kn.shape != (n, 3):
+        raise AssertionError(f"{name}: kernel output bad shape or not finite")
+    if (miss_share > MISS_SHARE or t_rel > T_RTOL or mid_share < MID_SHARE
+            or n_share < NORMAL_SHARE):
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return dict(case=name, rays=n, common_hits=int(both.sum()),
+                max_abs_err=float(t_err.max()) if both.any() else 0.0,
+                t_max_rel=t_rel, miss_share=miss_share, mid_share=mid_share,
+                normal_share=n_share)
+
+
+def reset_counts(mk, bk):
+    mk.render_flat_megakernel.launches = 0
+    bk.render_flat_bvh_megakernel.launches = 0
+    bk.intersect_tile.launches = 0
+
+
+def counts(mk, bk):
+    return dict(megakernel=mk.render_flat_megakernel.launches,
+                bvh_megakernel=bk.render_flat_bvh_megakernel.launches,
+                bvh_intersect=bk.intersect_tile.launches)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--save", help="also write the main paths' PNGs "
+                        "into this directory")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card only", file=sys.stderr)
@@ -144,102 +262,225 @@ def main() -> int:
     # ---- 1. card and toolchain
     import spira_tpu_torch as sp
     from spira_tpu_torch import _build
+    from spira_tpu_torch.io import image as img_io
+    from spira_tpu_torch.kernels import bvh_megakernel as bk
     from spira_tpu_torch.kernels import megakernel as mk
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    lib = _build.load("megakernel")
-    log(f"[build] megakernel: {lib.build_seconds:.1f} s "
-        f"({'built' if lib.build_seconds else 'cached'}) -> {lib.path.name}")
+    names = ("megakernel", "bvh_megakernel")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(_build.load, names)))
+    for name, lib in libs.items():
+        log(f"[build] {name}: {lib.build_seconds:.1f} s "
+            f"({'built' if lib.build_seconds else 'cached'}) -> "
+            f"{lib.path.name}")
 
-    # ---- 2. kernel against its plain version on the card
-    checks = [compare(sp, mk, *case, device) for case in CASES]
-
-    # ---- 3. the main path, through the user's entry point
+    t0 = time.perf_counter()
+    bunny, info = sp.create_bunny_scene(allow_download=False, device=device)
+    mesh = sp.attach_packed(sp.create_mesh_scene()).to(device)
+    log(f"[scene] bunny {info}, pair records {bunny.packed.n_pairs}, tri "
+        f"rows {bunny.packed.n_rows}, depth {bunny.packed.depth}, max leaf "
+        f"{bunny.packed.max_leaf}, tables "
+        f"{4 * (bunny.packed.pairs.numel() + bunny.packed.tri_rows.numel())}"
+        f" bytes; mesh {mesh.triangles.count} triangles, depth "
+        f"{mesh.packed.depth}, max leaf {mesh.packed.max_leaf}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
     w, h = MAIN["width"], MAIN["height"]
-    scene = sp.create_scene(device=device)
-    cam = sp.default_camera(w / h, device=device)
-    args = dict(samples_per_pixel=MAIN["spp"], max_depth=MAIN["max_depth"])
-    with tempfile.TemporaryDirectory() as tmp:
-        png = os.path.join(tmp, "chip_smoke.png")
-        mk.render_flat_megakernel.launches = 0
-        img = sp.render(scene, cam, w, h, output_path=png, **args)
+    bunny_cam = sp.bunny_camera(w / h, device=device)
+    mesh_cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                              aspect_ratio=1.0, device=device)
+    scenes = dict(bunny=(bunny, bunny_cam), mesh=(mesh, mesh_cam))
+
+    # ---- 2. each kernel against its plain version on the card
+    sphere_checks = [compare_sphere(sp, mk, *case, device)
+                     for case in SPHERE_CASES]
+    rays = dict(random=random_rays(N_RANDOM_RAYS, device),
+                primary=primary_rays(bunny_cam, w, h))
+    isect_checks = [
+        compare_intersect(bk, f"bunny {key} rays", bunny.packed, *rays[key])
+        for key in ("random", "primary")]
+    bvh_checks = []
+    for name, key, shape in BVH_CASES:
+        scene, cam = scenes[key]
+        kernel = bk.render_flat_bvh_megakernel(scene, cam, **shape)
+        plain = bk.render_flat_bvh_fused(scene, cam, **shape)
         torch.cuda.synchronize()
-        launches = mk.render_flat_megakernel.launches
-        png_bytes = os.path.getsize(png)
-    plain_img = sp.render(scene, cam, w, h, engine="fused", **args)
-    level_gap = abs(float(img.mean()) - float(plain_img.mean()))
-    log(f"[main] render {w}x{h} spp{MAIN['spp']} d{MAIN['max_depth']}: "
-        f"image {img.shape} {img.dtype}, mean {img.mean():.4f} "
-        f"(plain {plain_img.mean():.4f}), std {img.std():.4f}, "
-        f"png {png_bytes} bytes, megakernel launches {launches}")
-    if launches < 1:
-        raise AssertionError("main path did not launch the megakernel")
-    if img.shape != (h, w, 3) or img.std() == 0 or png_bytes == 0:
-        raise AssertionError("main path image is empty or constant")
-    if level_gap > 1.0:
-        raise AssertionError(f"uint8 means differ by {level_gap} > 1 level")
+        bvh_checks.append(check_images(name, kernel, plain, BVH_TOL))
+
+    # ---- 3. the main paths, through the user's entry points
+    main_args = dict(samples_per_pixel=MAIN["spp"],
+                     max_depth=MAIN["max_depth"])
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = args.save or tmp
+        os.makedirs(out_dir, exist_ok=True)
+        # the bunny, engine "auto" -> cuda_bvh
+        png = os.path.join(out_dir, "chip_smoke_bunny.png")
+        reset_counts(mk, bk)
+        img = sp.render(bunny, bunny_cam, w, h, output_path=png, **main_args)
+        torch.cuda.synchronize()
+        got = counts(mk, bk)
+        launches["bvh_megakernel"] = got["bvh_megakernel"]
+        # the plain version at the same spp: a noisier spp-4 image sits
+        # about 1.6 levels lower after the concave tone map
+        plain_img = img_io.to_uint8(img_io.TONEMAPS["gamma"](
+            img_io.assemble_image(bk.render_flat_bvh_fused(
+                bunny, bunny_cam, **MAIN), w, h)))
+        gap = abs(float(img.mean()) - float(plain_img.mean()))
+        log(f"[main] bunny render {w}x{h} spp{MAIN['spp']} "
+            f"d{MAIN['max_depth']}: image {img.shape} {img.dtype}, mean "
+            f"{img.mean():.4f} (plain {plain_img.mean():.4f}), std "
+            f"{img.std():.4f}, png "
+            f"{os.path.getsize(png)} bytes, launches {got}")
+        if got["bvh_megakernel"] < 1:
+            raise AssertionError("bunny path did not launch bvh_megakernel")
+        if img.shape != (h, w, 3) or img.std() == 0:
+            raise AssertionError("bunny image is empty or constant")
+        if gap > 1.0:
+            raise AssertionError(f"bunny uint8 means differ by {gap} > 1")
+
+        # the nearest-hit query on the bunny's primary rays
+        reset_counts(mk, bk)
+        t, n, mid = bk.intersect_tile(bunny.packed, *rays["primary"])
+        torch.cuda.synchronize()
+        got = counts(mk, bk)
+        launches["bvh_intersect"] = got["bvh_intersect"]
+        hits = t < 1e19
+        log(f"[main] bunny primary rays {w}x{h}: {int(hits.sum())} hits, "
+            f"{int((mid == 0).sum())} on the mesh, launches {got}")
+        if got["bvh_intersect"] < 1:
+            raise AssertionError("intersect path did not launch its kernel")
+        if not (0 < int((mid == 0).sum()) < t.numel()):
+            raise AssertionError("primary rays miss the bunny or hit all")
+
+        # the sphere demo scene, engine "auto" -> cuda
+        demo = sp.create_scene(device=device)
+        demo_cam = sp.default_camera(w / h, device=device)
+        png = os.path.join(out_dir, "chip_smoke_demo.png")
+        reset_counts(mk, bk)
+        img = sp.render(demo, demo_cam, w, h, output_path=png, **main_args)
+        torch.cuda.synchronize()
+        got = counts(mk, bk)
+        launches["megakernel"] = got["megakernel"]
+        plain_img = sp.render(demo, demo_cam, w, h, engine="fused",
+                              **main_args)
+        gap = abs(float(img.mean()) - float(plain_img.mean()))
+        log(f"[main] demo render {w}x{h} spp{MAIN['spp']} "
+            f"d{MAIN['max_depth']}: image {img.shape} {img.dtype}, mean "
+            f"{img.mean():.4f} (plain {plain_img.mean():.4f}), std "
+            f"{img.std():.4f}, png {os.path.getsize(png)} bytes, "
+            f"launches {got}")
+        if got["megakernel"] < 1:
+            raise AssertionError("demo path did not launch the megakernel")
+        if img.shape != (h, w, 3) or img.std() == 0:
+            raise AssertionError("demo image is empty or constant")
+        if gap > 1.0:
+            raise AssertionError(f"demo uint8 means differ by {gap} > 1")
 
     # ---- 4. timing
-    def kernel_run(width, height, spp, max_depth):
-        return lambda: mk.render_flat_megakernel(
-            scene, cam, width=width, height=height, spp=spp,
-            max_depth=max_depth)
-
-    def plain_run(width, height, spp, max_depth):
-        return lambda: mk.render_flat_fused(
-            scene, cam, width=width, height=height, spp=spp,
-            max_depth=max_depth)
-
     def mrays(shape, ms):
-        rays = shape["width"] * shape["height"] * shape["spp"] \
+        rays_ = shape["width"] * shape["height"] * shape["spp"] \
             * shape["max_depth"]
-        return rays / (ms * 1e-3) / 1e6
+        return rays_ / (ms * 1e-3) / 1e6
 
-    k_ms = time_ms(kernel_run(**MAIN))
-    p_ms = time_ms(plain_run(**MAIN))
+    def run(fn, scene, cam, shape):
+        return lambda: fn(scene, cam, **shape)
+
+    bvh_k = time_ms(run(bk.render_flat_bvh_megakernel, bunny, bunny_cam,
+                        BVH_TIMED))
+    bvh_p = time_ms(run(bk.render_flat_bvh_fused, bunny, bunny_cam,
+                        BVH_TIMED))
+    bvh_full = time_ms(run(bk.render_flat_bvh_megakernel, bunny, bunny_cam,
+                           MAIN))
+    log(f"[time] {card}: bunny 640x360 spp4 d4 kernel {bvh_k:.3f} ms "
+        f"({mrays(BVH_TIMED, bvh_k):.1f} Mrays/s), plain {bvh_p:.3f} ms "
+        f"({mrays(BVH_TIMED, bvh_p):.2f} Mrays/s), kernel/plain "
+        f"{bvh_k / bvh_p:.5f}")
+    log(f"[time] {card}: bunny 640x360 spp16 d4 kernel {bvh_full:.3f} ms "
+        f"({mrays(MAIN, bvh_full):.1f} Mrays/s)")
+    isect_k = time_ms(lambda: bk.intersect_tile(bunny.packed,
+                                                *rays["primary"]))
+    isect_p = time_ms(lambda: bk.intersect_packed_plain(bunny.packed,
+                                                        *rays["primary"]))
+    log(f"[time] {card}: bunny primary rays 640x360 intersect kernel "
+        f"{isect_k:.4f} ms ({w * h / (isect_k * 1e-3) / 1e6:.1f} Mrays/s), "
+        f"plain {isect_p:.3f} ms, kernel/plain {isect_k / isect_p:.5f}")
+    sph_k = time_ms(run(mk.render_flat_megakernel, demo, demo_cam, MAIN))
+    sph_p = time_ms(run(mk.render_flat_fused, demo, demo_cam, MAIN))
     big = dict(width=1920, height=1080, spp=256, max_depth=4)
-    big_ms = time_ms(kernel_run(**big))
-    log(f"[time] {card}: 640x360 spp16 d4 kernel {k_ms:.3f} ms "
-        f"({mrays(MAIN, k_ms):.1f} Mrays/s), plain {p_ms:.3f} ms "
-        f"({mrays(MAIN, p_ms):.1f} Mrays/s), kernel/plain "
-        f"{k_ms / p_ms:.4f}")
-    log(f"[time] {card}: 1920x1080 spp256 d4 kernel {big_ms:.3f} ms "
-        f"({mrays(big, big_ms):.1f} Mrays/s)")
-    if k_ms > p_ms:
-        log("[time] the kernel is SLOWER than the plain version")
-    if not all(math.isfinite(x) for x in (k_ms, p_ms, big_ms)):
+    sph_big = time_ms(run(mk.render_flat_megakernel, demo, demo_cam, big))
+    log(f"[time] {card}: demo 640x360 spp16 d4 kernel {sph_k:.3f} ms "
+        f"({mrays(MAIN, sph_k):.1f} Mrays/s), plain {sph_p:.3f} ms "
+        f"({mrays(MAIN, sph_p):.1f} Mrays/s), kernel/plain "
+        f"{sph_k / sph_p:.4f}")
+    log(f"[time] {card}: demo 1920x1080 spp256 d4 kernel {sph_big:.3f} ms "
+        f"({mrays(big, sph_big):.1f} Mrays/s)")
+    times = (bvh_k, bvh_p, bvh_full, isect_k, isect_p, sph_k, sph_p, sph_big)
+    if not all(math.isfinite(x) for x in times):
         raise AssertionError("timing failed")
-    # where the wrapper's time goes: the megakernel against the small
+    for name, k, p in (("bvh_megakernel", bvh_k, bvh_p),
+                       ("bvh_intersect", isect_k, isect_p),
+                       ("megakernel", sph_k, sph_p)):
+        if k > p:
+            log(f"[time] {name} is SLOWER than its plain version")
+    # where the wrappers' time goes: the kernel against the small
     # table-packing launches before it, and the card's idle share
-    breakdown = device_breakdown(kernel_run(**MAIN))
-    if breakdown["idle_share"] is None:
-        log("[profile] no device time in the trace: not measured")
-    else:
-        top = list(breakdown["kernels_ms_per_call"].items())[:4]
-        log(f"[profile] {card}: 640x360 spp16 d4 wrapper "
-            f"{breakdown['wall_ms_per_call']:.4f} ms/call on the host, "
-            f"{breakdown['device_ms_per_call']:.4f} ms/call on the card, "
-            f"idle share {breakdown['idle_share']:.4f}; top kernels "
-            f"(ms/call): {[(k, round(v, 5)) for k, v in top]}")
+    bvh_prof = device_breakdown(run(bk.render_flat_bvh_megakernel, bunny,
+                                    bunny_cam, MAIN))
+    log_breakdown(card, "bunny 640x360 spp16 d4", bvh_prof)
+    sph_prof = device_breakdown(run(mk.render_flat_megakernel, demo,
+                                    demo_cam, MAIN))
+    log_breakdown(card, "demo 640x360 spp16 d4", sph_prof)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
 
-    main_check = checks[1]
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
-        "source": "spira_tpu_torch/csrc/megakernel.cu",
-        "replaces": "spira_tpu/kernels/megakernel.py:504",
-        "launches": launches,
-        "max_abs_err": main_check["max_abs_err"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "ms_1920x1080_spp256": big_ms,
-        "profile_640x360_spp16_d4": breakdown,
-        "checks": checks,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "megakernel",
+            "route": "cuda",
+            "source": "spira_tpu_torch/csrc/megakernel.cu",
+            "replaces": "spira_tpu/kernels/megakernel.py:504",
+            "launches": launches["megakernel"],
+            "max_abs_err": sphere_checks[1]["max_abs_err"],
+            "ms": sph_k,
+            "plain_ms": sph_p,
+            "shape": "demo 640x360 spp16 d4",
+            "ms_1920x1080_spp256": sph_big,
+            "profile_640x360_spp16_d4": sph_prof,
+            "checks": sphere_checks,
+        },
+        {
+            "name": "bvh_megakernel",
+            "route": "cuda",
+            "source": "spira_tpu_torch/csrc/bvh_megakernel.cu",
+            "replaces": "spira_tpu/kernels/bvh_megakernel.py:1036",
+            "launches": launches["bvh_megakernel"],
+            "max_abs_err": bvh_checks[1]["max_abs_err"],
+            "ms": bvh_k,
+            "plain_ms": bvh_p,
+            "shape": "bunny 640x360 spp4 d4",
+            "ms_640x360_spp16_d4": bvh_full,
+            "mrays_640x360_spp16_d4": mrays(MAIN, bvh_full),
+            "profile_640x360_spp16_d4": bvh_prof,
+            "checks": bvh_checks,
+        },
+        {
+            "name": "bvh_intersect",
+            "route": "cuda",
+            "source": "spira_tpu_torch/csrc/bvh_megakernel.cu",
+            "replaces": "spira_tpu/kernels/bvh_megakernel.py:1134",
+            "launches": launches["bvh_intersect"],
+            "max_abs_err": isect_checks[1]["max_abs_err"],
+            "ms": isect_k,
+            "plain_ms": isect_p,
+            "shape": "bunny primary rays 640x360",
+            "checks": isect_checks,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

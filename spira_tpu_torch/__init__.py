@@ -1,15 +1,20 @@
 """spira_tpu_torch — the PyTorch/CUDA port of spira_tpu.
 
 The JAX package ``spira_tpu`` is the reference; this package grows beside it
-slice by slice (see ROADMAP.md).  This slice is the forward render of
-sphere and small-triangle scenes: the scene model, the plain PyTorch tracer,
-and a hand-written CUDA megakernel for Hopper (``csrc/megakernel.cu``),
-behind the same ``render`` entry point.  Nothing here imports JAX.
+slice by slice (see ROADMAP.md).  It has the forward render of sphere and
+small-triangle scenes and of mesh scenes through a packed BVH: the scene
+model, the BVH builders and packers, the plain PyTorch tracers, and
+hand-written CUDA kernels for Hopper (``csrc/megakernel.cu``,
+``csrc/bvh_megakernel.cu``), behind the same ``render`` entry point.
+Nothing here imports JAX.
 """
 
+from .accel.bvh import build_two_level
+from .accel.pairs import attach_packed
 from .core import pcg, vecmath
 from .core.convert import camera_from_numpy, scene_from_numpy
 from .render import render, render_flat_engine, render_hdr, select_engine
+from .scene.bunny import bunny_camera, create_bunny_scene
 from .scene.camera import Camera, default_camera, make_camera
 from .scene.geometry import Spheres, Triangles, make_spheres, make_triangles
 from .scene.materials import Materials, make_materials
@@ -17,6 +22,7 @@ from .scene.scene import (
     Scene,
     cornell_camera,
     create_cornell_box,
+    create_mesh_scene,
     create_scene,
     make_scene,
 )
@@ -29,9 +35,14 @@ __all__ = [
     "Scene",
     "Spheres",
     "Triangles",
+    "attach_packed",
+    "build_two_level",
+    "bunny_camera",
     "camera_from_numpy",
     "cornell_camera",
+    "create_bunny_scene",
     "create_cornell_box",
+    "create_mesh_scene",
     "create_scene",
     "default_camera",
     "make_camera",

@@ -4,7 +4,9 @@ The JAX package's scene and camera are pytrees.  Mapped to numpy (for
 example ``jax.tree_util.tree_map(np.asarray, scene)``), their fields are
 read here by name, so the port renders exactly the reference's values: a
 camera rebuilt through ``tan`` and ``deg2rad`` may differ by an ULP between
-frameworks.  Nothing here imports JAX.
+frameworks.  The BVH tables (``bvh``, a FlatBVH, and ``packed``, a
+PackedBVH) come across value-exact with their static fields.  Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..accel.bvh import FlatBVH
+from ..accel.pairs import PackedBVH
 from ..scene.camera import Camera
 from ..scene.geometry import Spheres, Triangles
 from ..scene.materials import Materials
@@ -24,14 +28,49 @@ def _t(x, device, dtype=None):
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
 
+def _bvh(obj, device):
+    if obj is None:
+        return None
+    return FlatBVH(
+        node_min=_t(obj.node_min, device, np.float32),
+        node_max=_t(obj.node_max, device, np.float32),
+        left=_t(obj.left, device, np.int32),
+        right=_t(obj.right, device, np.int32),
+        is_leaf=_t(obj.is_leaf, device, np.int32),
+        prim_idx=_t(obj.prim_idx, device, np.int32),
+        parent=_t(obj.parent, device, np.int32),
+        sibling=_t(obj.sibling, device, np.int32),
+        is_left=_t(obj.is_left, device, np.int32),
+        max_leaf=int(obj.max_leaf),
+        n_sph=int(obj.n_sph),
+    )
+
+
+def _packed(obj, device):
+    if obj is None:
+        return None
+    return PackedBVH(
+        pairs=_t(obj.pairs, device, np.float32),
+        tri_rows=_t(obj.tri_rows, device, np.float32),
+        prim_map=_t(obj.prim_map, device, np.int32),
+        root=int(obj.root),
+        n_rows=int(obj.n_rows),
+        n_pairs=int(obj.n_pairs),
+        max_leaf=int(obj.max_leaf),
+        depth=int(obj.depth),
+        form=str(obj.form),
+        fanout=int(obj.fanout),
+    )
+
+
 def scene_from_numpy(obj, device=None) -> Scene:
     """Scene from an object with the JAX Scene's fields as numpy arrays."""
-    for table in ("bvh", "packed", "wide"):
-        if getattr(obj, table, None) is not None:
-            raise NotImplementedError(
-                f"scene carries a {table!r} table; the port's BVH tables "
-                "come with the mesh slice (ROADMAP queue 1, item 8)"
-            )
+    if getattr(obj, "wide", None) is not None:
+        raise NotImplementedError(
+            "scene carries a 'wide' table; the wide and superleaf BVH "
+            "layouts come with the retired experiments (ROADMAP.md queue 1, "
+            "item 18)"
+        )
     sph, tri, mats = obj.spheres, obj.triangles, obj.materials
     f32 = np.float32
     return Scene(
@@ -56,6 +95,8 @@ def scene_from_numpy(obj, device=None) -> Scene:
             transmission=_t(mats.transmission, device, f32),
             cauchy_b=_t(getattr(mats, "cauchy_b", None), device, f32),
         ),
+        bvh=_bvh(getattr(obj, "bvh", None), device),
+        packed=_packed(getattr(obj, "packed", None), device),
     )
 
 

@@ -1,0 +1,166 @@
+// Packed-BVH path tracer and nearest-hit query for Hopper (sm_90a).
+//
+// spira_bvh_megakernel_render replaces spira_tpu/kernels/bvh_megakernel.py:
+// _kernel (the Pallas packet-BVH megakernel, launched by _launch through
+// pl.pallas_call): ray generation, the spp x bounce loop, the sphere
+// pre-pass and the BVH walk, scatter, Russian roulette and the mean over
+// samples in one launch.  spira_bvh_intersect replaces
+// _intersect_only_kernel: the nearest hit of a batch of rays.
+//
+// Work split: one thread per pixel (render) or per ray (intersect), 128
+// threads a block.  The render kernel copies the camera, sphere and
+// material tables (a few hundred bytes) into shared memory; the pair
+// records and leaf rows stay in device memory (bvh.cuh).  The output is the
+// flat (H*W, 3) float32 buffer, bottom-up, with kernel #1's PCG counters,
+// so a scene renders the same on either kernel.
+//
+// What bounds it: dependent loads of the walk (each pop waits for a
+// 64-byte record, each leaf for its triangles) and divergence between the
+// threads of a warp, whose rays take different paths through the tree;
+// then fp32 ALU work of the slab and triangle tests.  The tables fit in L2,
+// so device-memory bandwidth is not the limit.  The design does nothing
+// more about that yet: packet or wide-BVH layouts, warp-coherent traversal
+// and TMA staging are later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -fmad=false -shared -Xcompiler -fPIC (see spira_tpu_torch/_build.py).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bvh.cuh"
+#include "trace.cuh"
+
+namespace spira {
+
+template <int kForm>
+__global__ void __launch_bounds__(128)
+    bvh_megakernel(const float* __restrict__ cam_g,
+                   const float* __restrict__ sph_g, int n_spheres,
+                   const float* __restrict__ mat_g, int n_mats,
+                   const float4* __restrict__ pairs,
+                   const float4* __restrict__ slots, int root,
+                   float* __restrict__ out, int width, int height, int spp,
+                   int max_depth, uint32_t seed, float du, float dv,
+                   float inv_spp, int has_lens) {
+  extern __shared__ float smem[];
+  float* cam = smem;
+  float* sph = cam + kCamFields;
+  float* mat = sph + n_spheres * kSphereFields;
+  const int n_sph = n_spheres * kSphereFields;
+  const int n_all = kCamFields + n_sph + n_mats * kMatFields;
+  for (int i = threadIdx.x; i < n_all; i += blockDim.x) {
+    float x;
+    if (i < kCamFields) {
+      x = cam_g[i];
+    } else if (i < kCamFields + n_sph) {
+      x = sph_g[i - kCamFields];
+    } else {
+      x = mat_g[i - kCamFields - n_sph];
+    }
+    smem[i] = x;
+  }
+  __syncthreads();
+
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(width) * height) return;
+  const int row = static_cast<int>(idx / width);  // from the image bottom
+  const int col = static_cast<int>(idx % width);
+
+  const PackedIntersect<kForm> intersect{sph, n_spheres, mat, pairs, slots,
+                                         root};
+  const Vec3 acc = trace_pixel(
+      intersect, cam, has_lens != 0, static_cast<uint32_t>(idx),
+      static_cast<float>(row), static_cast<float>(col), seed, spp, max_depth,
+      du, dv);
+  out[idx * 3 + 0] = acc.x * inv_spp;
+  out[idx * 3 + 1] = acc.y * inv_spp;
+  out[idx * 3 + 2] = acc.z * inv_spp;
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(128)
+    bvh_intersect(const float* __restrict__ origins,
+                  const float* __restrict__ dirs,
+                  const float* __restrict__ active, int n,
+                  const float4* __restrict__ pairs,
+                  const float4* __restrict__ slots, int root,
+                  float* __restrict__ t_out, float* __restrict__ n_out,
+                  int* __restrict__ mid_out, int* __restrict__ slot_out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  TriHit h{kInf, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
+  if (active == nullptr || active[i] > 0.5f) {
+    const Vec3 o = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
+    const Vec3 d = {dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2]};
+    walk_packed<kForm>(pairs, slots, root, o, d, h);
+  }
+  t_out[i] = h.t;
+  n_out[3 * i] = h.n.x;
+  n_out[3 * i + 1] = h.n.y;
+  n_out[3 * i + 2] = h.n.z;
+  mid_out[i] = static_cast<int>(h.mid);
+  if (slot_out != nullptr) slot_out[i] = h.slot;
+}
+
+constexpr int kThreads = 128;
+
+unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace spira
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// form_bw: 1 for Baldwin–Weber leaf rows, 0 for Möller–Trumbore.
+extern "C" int spira_bvh_megakernel_render(
+    const float* cam, const float* spheres, int n_spheres, const float* mats,
+    int n_mats, const float* pairs, const float* tri_rows, int root,
+    int form_bw, float* out, int width, int height, int spp, int max_depth,
+    uint32_t seed, float du, float dv, float inv_spp, int has_lens,
+    void* stream) {
+  using namespace spira;
+  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
+  const size_t smem = sizeof(float) * (kCamFields + n_spheres * kSphereFields +
+                                       n_mats * kMatFields);
+  const auto* p = reinterpret_cast<const float4*>(pairs);
+  const auto* s = reinterpret_cast<const float4*>(tri_rows);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (form_bw) {
+    bvh_megakernel<kFormBW><<<blocks, kThreads, smem, st>>>(
+        cam, spheres, n_spheres, mats, n_mats, p, s, root, out, width, height,
+        spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  } else {
+    bvh_megakernel<kFormMT><<<blocks, kThreads, smem, st>>>(
+        cam, spheres, n_spheres, mats, n_mats, p, s, root, out, width, height,
+        spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Nearest hit of n rays (origins, dirs: (n, 3) float32; active: (n,)
+// float32 or null).  Outputs t (1e20 on a miss), normal (n, 3), material id
+// (-1 on a miss) and, when slot is not null, the winner's tri-row slot.
+extern "C" int spira_bvh_intersect(const float* origins, const float* dirs,
+                                   const float* active, int n,
+                                   const float* pairs, const float* tri_rows,
+                                   int root, int form_bw, float* t,
+                                   float* normal, int* mid, int* slot,
+                                   void* stream) {
+  using namespace spira;
+  if (n <= 0) return 0;
+  const auto* p = reinterpret_cast<const float4*>(pairs);
+  const auto* s = reinterpret_cast<const float4*>(tri_rows);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (form_bw) {
+    bvh_intersect<kFormBW><<<blocks_for(n), kThreads, 0, st>>>(
+        origins, dirs, active, n, p, s, root, t, normal, mid, slot);
+  } else {
+    bvh_intersect<kFormMT><<<blocks_for(n), kThreads, 0, st>>>(
+        origins, dirs, active, n, p, s, root, t, normal, mid, slot);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

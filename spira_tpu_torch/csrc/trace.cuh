@@ -2,7 +2,7 @@
 //
 // `trace_pixel` is templated on its intersector, the counterpart of
 // `trace_tile(intersect_fn=...)` in spira_tpu_torch/kernels/megakernel.py:
-// the sphere/triangle brute force below, and the BVH walk of later kernels,
+// the sphere/triangle brute force below and the packed-BVH walk of bvh.cuh
 // share one copy of the raygen, shading, scatter and Russian-roulette code.
 //
 // The arithmetic follows the plain PyTorch tracer operation by operation,
@@ -62,6 +62,48 @@ struct SurfaceHit {
   const float* mat;
 };
 
+// Nearest sphere of the (S, 16) table closer than best_t: lowers best_t
+// and returns the sphere's index, or returns -1.
+__device__ __forceinline__ int nearest_sphere(const float* spheres,
+                                              int n_spheres, Vec3 o, Vec3 d,
+                                              float& best_t) {
+  int best = -1;
+  for (int k = 0; k < n_spheres; ++k) {
+    const float* s = spheres + k * kSphereFields;
+    const float ocx = o.x - s[0];
+    const float ocy = o.y - s[1];
+    const float ocz = o.z - s[2];
+    const float r = s[3];
+    const float half_b = ocx * d.x + ocy * d.y + ocz * d.z;
+    const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - r * r;
+    const float disc = half_b * half_b - c;
+    if (disc > 0.0f) {
+      const float sqrtd = sqrtf(disc);
+      const float root0 = -half_b - sqrtd;
+      const float root1 = -half_b + sqrtd;
+      const float root = root0 > kTMin ? root0 : root1;
+      if (root > kTMin && root < best_t) {
+        best_t = root;
+        best = k;
+      }
+    }
+  }
+  return best;
+}
+
+// The hit on sphere record `s` at distance t: point, unit normal, material.
+__device__ __forceinline__ SurfaceHit sphere_surface(const float* s, Vec3 o,
+                                                     Vec3 d, float t) {
+  SurfaceHit h;
+  h.hit = true;
+  h.p = {o.x + t * d.x, o.y + t * d.y, o.z + t * d.z};
+  const float inv_r = 1.0f / s[3];
+  h.n = norm3((h.p.x - s[0]) * inv_r, (h.p.y - s[1]) * inv_r,
+              (h.p.z - s[2]) * inv_r);
+  h.mat = s + kSphereMat;
+  return h;
+}
+
 // Brute force over every sphere, then every triangle, of tables that the
 // kernel holds in shared memory.
 struct BruteIntersect {
@@ -72,28 +114,8 @@ struct BruteIntersect {
 
   __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
     float best_t = kInf;
-    int best = -1;
+    int best = nearest_sphere(spheres, n_spheres, o, d, best_t);
     bool is_tri = false;
-    for (int k = 0; k < n_spheres; ++k) {
-      const float* s = spheres + k * kSphereFields;
-      const float ocx = o.x - s[0];
-      const float ocy = o.y - s[1];
-      const float ocz = o.z - s[2];
-      const float r = s[3];
-      const float half_b = ocx * d.x + ocy * d.y + ocz * d.z;
-      const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - r * r;
-      const float disc = half_b * half_b - c;
-      if (disc > 0.0f) {
-        const float sqrtd = sqrtf(disc);
-        const float root0 = -half_b - sqrtd;
-        const float root1 = -half_b + sqrtd;
-        const float root = root0 > kTMin ? root0 : root1;
-        if (root > kTMin && root < best_t) {
-          best_t = root;
-          best = k;
-        }
-      }
-    }
     for (int k = 0; k < n_tris; ++k) {
       // Möller–Trumbore
       const float* t = tris + k * kTriFields;
@@ -122,21 +144,20 @@ struct BruteIntersect {
       }
     }
 
-    SurfaceHit h;
-    h.hit = best_t < kInf;
-    if (!h.hit) return h;
-    h.p = {o.x + best_t * d.x, o.y + best_t * d.y, o.z + best_t * d.z};
-    if (is_tri) {
-      const float* t = tris + best * kTriFields;
-      h.n = {t[9], t[10], t[11]};
-      h.mat = t + kTriMat;
-    } else {
-      const float* s = spheres + best * kSphereFields;
-      const float inv_r = 1.0f / s[3];
-      h.n = norm3((h.p.x - s[0]) * inv_r, (h.p.y - s[1]) * inv_r,
-                  (h.p.z - s[2]) * inv_r);
-      h.mat = s + kSphereMat;
+    if (!(best_t < kInf)) {
+      SurfaceHit h;
+      h.hit = false;
+      return h;
     }
+    if (!is_tri) {
+      return sphere_surface(spheres + best * kSphereFields, o, d, best_t);
+    }
+    const float* t = tris + best * kTriFields;
+    SurfaceHit h;
+    h.hit = true;
+    h.p = {o.x + best_t * d.x, o.y + best_t * d.y, o.z + best_t * d.z};
+    h.n = {t[9], t[10], t[11]};
+    h.mat = t + kTriMat;
     return h;
   }
 };

@@ -1,0 +1,466 @@
+"""Packed-BVH path tracer (mesh scenes, physical semantics, RGB): the host
+side, the plain PyTorch walk, and the wrappers of the two CUDA kernels.
+
+Counterpart of :mod:`spira_tpu.kernels.bvh_megakernel`.  The JAX package
+walks the pair-record tree with a whole (tile_h, 128) packet of rays at
+once, driven by one scalar stack; on Hopper each ray walks the tree on its
+own (one thread per ray, a private stack).  Traversal order cannot change
+the nearest hit, so both give the same image up to ties between triangles
+at equal distance.
+
+* :func:`render_flat_bvh_megakernel` — the CUDA path tracer
+  (``csrc/bvh_megakernel.cu``, kernel ``spira_bvh_megakernel_render``) for
+  scenes on a CUDA device; for scenes on the CPU it runs
+  :func:`render_flat_bvh_fused`.
+* :func:`intersect_tile` — the CUDA nearest-hit query
+  (``spira_bvh_intersect``) for rays on a CUDA device; on the CPU,
+  :func:`intersect_packed_plain`.
+* The plain version: :func:`packed_walk`, a per-ray depth-first stack walk
+  vectorised over all rays in lockstep, and :func:`make_packed_intersect`,
+  the ``intersect_fn`` it gives :func:`megakernel.trace_tile`.
+
+The walk, shared by the kernel and the plain version: spheres first (their
+nearest hit seeds ``best_t``); then pop a pair record, slab-test both
+children against the ray's ``best_t`` at the pop (near side clamped at 0);
+visit hit leaves at once, nearer child first; push hit internal children
+far first, so the nearer one pops next.  Children are ordered by their
+clamped entry distance, the earlier slot winning a tie.  Leaf triangles are
+tested in slot order with a strict ``t < best_t``, so the first of equal
+hits wins in both versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..accel.pairs import TRI_STRIDE, TRIS_PER_ROW, check_stack_depth
+from . import megakernel as mk
+
+#: width of the material table (:func:`pack_materials`).
+N_MAT_FIELDS = 16
+
+
+def pack_materials(materials):
+    """(M, 16) material table: albedo, emission, metallic, roughness, ior,
+    transmission, then 6 zeros (differentiable in every field)."""
+    m = materials.count
+    return torch.cat(
+        [
+            materials.albedo,
+            materials.emission,
+            materials.metallic[:, None],
+            materials.roughness[:, None],
+            materials.ior[:, None],
+            materials.transmission[:, None],
+            materials.albedo.new_zeros((m, 6)),
+        ],
+        dim=1,
+    )
+
+
+def _require_tree(scene, mxu_leaf: bool = False):
+    """The tables the kernels walk: ``scene.packed``."""
+    if mxu_leaf:
+        raise NotImplementedError(
+            "mxu_leaf=True (Plücker superleaf leaves) is not ported to "
+            "spira_tpu_torch yet (ROADMAP.md queue 1, item 18)"
+        )
+    if scene.packed is None:
+        raise ValueError(
+            "scene has no packed BVH; call "
+            "spira_tpu_torch.accel.pairs.attach_packed"
+        )
+    return _check_packed(scene.packed)
+
+
+def _check_packed(packed):
+    """Refuse tables the walk cannot take: other record arities or leaf
+    forms, and trees deeper than the traversal stack."""
+    if packed.fanout != 2 or packed.form not in ("bw", "mt"):
+        raise ValueError(f"packed BVH with fanout {packed.fanout}, form "
+                         f"{packed.form!r}: the walk takes pair records in "
+                         "form 'bw' or 'mt'")
+    check_stack_depth(packed.depth)
+    return packed
+
+
+# ----------------------------------------------------------------------------
+# The plain version
+# ----------------------------------------------------------------------------
+
+def _slab(rec, half, o, inv, best):
+    """Slab test of one child of each record: (hit, clamped entry distance,
+    ptr, count)."""
+    b = 8 * half
+    t0 = (rec[:, b:b + 3] - o) * inv
+    t1 = (rec[:, b + 3:b + 6] - o) * inv
+    mn = torch.minimum(t0, t1)
+    mx = torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(mn[:, 0], mn[:, 1]), mn[:, 2])
+    tf = torch.minimum(torch.minimum(mx[:, 0], mx[:, 1]), mx[:, 2])
+    tn = torch.clamp(tn, min=0.0)
+    cnt = rec[:, b + 7]
+    hit = (tn <= torch.minimum(tf, best)) & (cnt > -0.5)
+    return hit, tn, rec[:, b + 6].long(), cnt
+
+
+def _leaf_hits(slots, form, max_leaf, ptr, cnt, o, d, best):
+    """Nearest hit among each ray's leaf triangles (slots ptr*8 + j,
+    j < cnt) that beats ``best``: (won, t, normal, mat, slot).  The first
+    of equal hits wins, as in a sequential strict-less scan."""
+    j = torch.arange(max_leaf, device=o.device)
+    slot = ptr[:, None] * TRIS_PER_ROW + j
+    valid = j < cnt[:, None]
+    f = slots[torch.where(valid, slot, 0)]  # (L, J, 16)
+    ox, oy, oz = (o[:, k, None] for k in range(3))
+    dx, dy, dz = (d[:, k, None] for k in range(3))
+    if form == "bw":
+        nbx, nby, nbz = f[..., 0], f[..., 1], f[..., 2]
+        den = nbx * dx + nby * dy + nbz * dz
+        num = f[..., 3] - (nbx * ox + nby * oy + nbz * oz)
+        r0 = 1.0 / den
+        tt = num * (r0 * (2.0 - den * r0))
+        px = ox + tt * dx
+        py = oy + tt * dy
+        pz = oz + tt * dz
+        uu = f[..., 4] * px + f[..., 5] * py + f[..., 6] * pz + f[..., 7]
+        vv = f[..., 8] * px + f[..., 9] * py + f[..., 10] * pz + f[..., 11]
+        ok = valid
+        nrm = f[..., 0:3]
+    else:
+        v0x, v0y, v0z = f[..., 0], f[..., 1], f[..., 2]
+        e1x, e1y, e1z = f[..., 3], f[..., 4], f[..., 5]
+        e2x, e2y, e2z = f[..., 6], f[..., 7], f[..., 8]
+        pvx = dy * e2z - dz * e2y
+        pvy = dz * e2x - dx * e2z
+        pvz = dx * e2y - dy * e2x
+        det = e1x * pvx + e1y * pvy + e1z * pvz
+        inv_det = 1.0 / det
+        tvx = ox - v0x
+        tvy = oy - v0y
+        tvz = oz - v0z
+        uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+        qvx = tvy * e1z - tvz * e1y
+        qvy = tvz * e1x - tvx * e1z
+        qvz = tvx * e1y - tvy * e1x
+        vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+        tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+        ok = valid & (torch.abs(det) > 1e-9)
+        nrm = f[..., 9:12]
+    ok = (ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt > mk.T_MIN) & (tt < best[:, None]))
+    k = torch.argmin(torch.where(ok, tt, torch.inf), dim=1, keepdim=True)
+    won = ok.gather(1, k)[:, 0]
+    pick = f.gather(1, k[:, :, None].expand(-1, 1, TRI_STRIDE))[:, 0]
+    return (won, tt.gather(1, k)[:, 0], nrm.gather(
+        1, k[:, :, None].expand(-1, 1, 3))[:, 0], pick[:, 12],
+        slot.gather(1, k)[:, 0])
+
+
+def packed_walk(packed, o, d, best, active=None):
+    """Nearest triangle hit of each ray over the packed tables, beating
+    ``best``: returns (t, normal (N,3), mat id as float (-1: none),
+    slot (-1: none)).  o, d: (N, 3); best: (N,) initial search bound;
+    ``active``: optional (N,) bool, rays left out keep ``best``.
+
+    Each ray walks depth first with its own stack; all rays advance in
+    lockstep, one record per ray and step, and a ray leaves the step set
+    when its stack empties."""
+    n_rays = o.shape[0]
+    dev = o.device
+    pairs = packed.pairs
+    slots = packed.tri_rows.reshape(-1, TRI_STRIDE)
+    inv = torch.where(d.abs() > 1e-12, 1.0 / d, 1e12)
+    t = best.clone()
+    nrm = torch.zeros_like(o)
+    mid = torch.full_like(best, -1.0)
+    slot = torch.full((n_rays,), -1, dtype=torch.long, device=dev)
+    # a depth-first walk holds at most one pending sibling per level
+    stack = torch.empty((n_rays, max(packed.depth, 1)), dtype=torch.long,
+                        device=dev)
+    stack[:, 0] = packed.root
+    sp = torch.ones(n_rays, dtype=torch.long, device=dev)
+    live = torch.arange(n_rays, device=dev)
+    if active is not None:
+        live = live[active]
+    while live.numel():
+        sp[live] -= 1
+        rec = pairs[stack[live, sp[live]]]
+        o_l, d_l, best_l = o[live], d[live], t[live]
+        h0, tn0, p0, c0 = _slab(rec, 0, o_l, inv[live], best_l)
+        h1, tn1, p1, c1 = _slab(rec, 1, o_l, inv[live], best_l)
+        near0 = tn0 <= tn1
+        near = (torch.where(near0, h0, h1), torch.where(near0, p0, p1),
+                torch.where(near0, c0, c1))
+        far = (torch.where(near0, h1, h0), torch.where(near0, p1, p0),
+               torch.where(near0, c1, c0))
+        for hit, ptr, cnt in (near, far):  # leaves, nearer first
+            sel = (hit & (cnt > 0.5)).nonzero()[:, 0]
+            if sel.numel():
+                g = live[sel]
+                won, tw, nw, mw, sw = _leaf_hits(
+                    slots, packed.form, packed.max_leaf, ptr[sel],
+                    cnt[sel], o_l[sel], d_l[sel], t[g])
+                g = g[won]
+                t[g] = tw[won]
+                nrm[g] = nw[won]
+                mid[g] = mw[won]
+                slot[g] = sw[won]
+        for hit, ptr, cnt in (far, near):  # internal children, far first
+            push = hit & (cnt == 0.0)
+            g = live[push]
+            stack[g, sp[g]] = ptr[push]
+            sp[g] += 1
+        live = live[sp[live] > 0]
+    return t, nrm, mid, slot
+
+
+def make_packed_intersect(spheres, packed, mat_table):
+    """The ``intersect_fn`` for :func:`megakernel.trace_tile` over a packed
+    mesh scene: the sphere loop seeds ``best_t``, the packed walk beats it,
+    and triangle hits take their material row from ``mat_table``
+    (:func:`pack_materials`)."""
+
+    def intersect(o3, d3, active=None):
+        st = mk.init_hit_state(d3[0])
+        st = mk.sphere_unroll(spheres, o3, d3, st)
+        t, nrm, mid, _ = packed_walk(packed, torch.stack(o3, -1),
+                                     torch.stack(d3, -1), st["best_t"],
+                                     active)
+        tri = mid >= 0.0
+        st["best_t"] = t
+        st["hit_is_tri"] = tri
+        st["tnx"], st["tny"], st["tnz"] = nrm.unbind(-1)
+        rows = mat_table[mid.clamp(min=0.0).long()]
+        mk._select_mats(st, tri, tuple(rows[:, k] for k in range(10)))
+        return mk.finish_intersect(o3, d3, st)
+
+    return intersect
+
+
+def render_flat_bvh_fused(
+    scene,
+    camera,
+    *,
+    width: int,
+    height: int,
+    spp: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    inclusive_uv: bool = True,
+):
+    """Plain-PyTorch packed-BVH render → flat (H*W, 3) bottom-up HDR
+    buffer, on the scene's device.  Same math, walk and RNG as the CUDA
+    kernel."""
+    packed = _require_tree(scene)
+    cam = mk.cam_tuple(mk.pack_camera(camera), camera.has_lens)
+    sph_arr = mk.pack_scene(scene)
+    spheres = [tuple(sph_arr[k, f] for f in range(14))
+               for k in range(scene.spheres.count)]
+    intersect = make_packed_intersect(spheres, packed,
+                                      pack_materials(scene.materials))
+    pixel = torch.arange(height * width, dtype=torch.int64,
+                         device=scene.device)
+    du, dv = mk._uv_scale(width, height, inclusive_uv)
+    r, g, b = mk.trace_tile(
+        pixel,
+        (pixel // width).to(torch.float32),
+        (pixel % width).to(torch.float32),
+        cam,
+        spheres,
+        seed=seed,
+        spp=spp,
+        max_depth=max_depth,
+        du=du,
+        dv=dv,
+        intersect_fn=intersect,
+    )
+    inv = mk._inv_spp(spp)
+    return torch.stack([r * inv, g * inv, b * inv], dim=-1)
+
+
+def intersect_packed_plain(packed, origins, dirs, active=None,
+                           with_slot=False):
+    """Plain-PyTorch nearest hit of (N, 3) rays over the packed tables:
+    (t (N,), normal (N, 3), mat id (N,) int32[, slot (N,) int32]), with
+    t = 1e20, normal 0 and mat id -1 on a miss."""
+    _check_packed(packed)
+    best = torch.full((origins.shape[0],), mk.INF, dtype=torch.float32,
+                      device=origins.device)
+    if active is not None:
+        active = active.to(torch.bool)
+    t, nrm, mid, slot = packed_walk(packed, origins, dirs, best, active)
+    out = (t, nrm, mid.to(torch.int32))
+    return out + (slot.to(torch.int32),) if with_slot else out
+
+
+# ----------------------------------------------------------------------------
+# The CUDA kernels
+# ----------------------------------------------------------------------------
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_RENDER_ARGTYPES = (
+    _VP, _VP, _I,  # cam, spheres, n_spheres
+    _VP, _I,  # mats, n_mats
+    _VP, _VP, _I, _I,  # pairs, tri_rows, root, form_bw
+    _VP, _I, _I, _I, _I,  # out, width, height, spp, max_depth
+    ctypes.c_uint32, _F, _F, _F, _I,  # seed, du, dv, inv_spp, has_lens
+    _VP,  # stream
+)
+_INTERSECT_ARGTYPES = (
+    _VP, _VP, _VP, _I,  # origins, dirs, active (or null), n
+    _VP, _VP, _I, _I,  # pairs, tri_rows, root, form_bw
+    _VP, _VP, _VP, _VP,  # t, normal, mid, slot (or null)
+    _VP,  # stream
+)
+
+
+def _fn(name, argtypes):
+    fn = getattr(_build.load("bvh_megakernel").lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tree_tables(packed, device):
+    for name, t, cols in (("pairs", packed.pairs, 16),
+                          ("tri_rows", packed.tri_rows,
+                           TRIS_PER_ROW * TRI_STRIDE)):
+        mk._check_table(f"packed {name}", t, device, cols)
+        if t.data_ptr() % 16:
+            raise ValueError(f"packed {name} must be 16-byte aligned")
+    if not 0 <= packed.root < packed.pairs.shape[0]:
+        raise ValueError(f"packed root {packed.root} outside the "
+                         f"{packed.pairs.shape[0]} pair records")
+
+
+def _launch_error(what, err):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def render_flat_bvh_megakernel(
+    scene,
+    camera,
+    *,
+    width: int,
+    height: int,
+    spp: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    inclusive_uv: bool = True,
+    mxu_leaf: bool = False,
+):
+    """Packed-BVH render → flat (H*W, 3) bottom-up HDR buffer.
+
+    Requires ``scene.packed`` (:func:`spira_tpu_torch.accel.pairs.
+    attach_packed`).  A scene on a CUDA device launches the CUDA kernel
+    (built on first use) and adds one to
+    ``render_flat_bvh_megakernel.launches``; a scene on the CPU runs
+    :func:`render_flat_bvh_fused`.  Same PCG stream as the sphere
+    megakernel.  Any other device, and any input the kernel does not
+    take, raises.
+    """
+    packed = _require_tree(scene, mxu_leaf)
+    device = scene.device
+    if device.type == "cpu":
+        return render_flat_bvh_fused(
+            scene, camera, width=width, height=height, spp=spp,
+            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"render_flat_bvh_megakernel runs on cuda or cpu, "
+                         f"not {device}")
+    if min(width, height, spp) < 1 or max_depth < 0:
+        raise ValueError(
+            f"need width, height, spp >= 1 and max_depth >= 0, got "
+            f"{width}x{height}, spp {spp}, max_depth {max_depth}"
+        )
+    with torch.no_grad():
+        cam = mk.pack_camera(camera).contiguous()
+        sph = mk.pack_scene(scene).contiguous()
+        mat = pack_materials(scene.materials).contiguous()
+    mk._check_table("camera table", cam, device, mk.N_CAM_FIELDS)
+    mk._check_table("sphere table", sph, device, mk.N_SPHERE_FIELDS)
+    mk._check_table("material table", mat, device, N_MAT_FIELDS)
+    _check_tree_tables(packed, device)
+    smem = 4 * (cam.numel() + sph.numel() + mat.numel())
+    if smem > mk._SMEM_LIMIT:
+        raise ValueError(
+            f"scene tables take {smem} bytes, over the kernel's "
+            f"{mk._SMEM_LIMIT}-byte shared-memory budget"
+        )
+    du, dv = mk._uv_scale(width, height, inclusive_uv)
+    out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
+    fn = _fn("spira_bvh_megakernel_render", _RENDER_ARGTYPES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            cam.data_ptr(), sph.data_ptr(), sph.shape[0], mat.data_ptr(),
+            mat.shape[0], packed.pairs.data_ptr(), packed.tri_rows.data_ptr(),
+            packed.root, int(packed.form == "bw"), out.data_ptr(), width,
+            height, spp, max_depth, seed & 0xFFFFFFFF, du, dv,
+            mk._inv_spp(spp), int(camera.has_lens), stream,
+        )
+    _launch_error("bvh_megakernel", err)
+    render_flat_bvh_megakernel.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last reset (set it to 0 to reset).
+render_flat_bvh_megakernel.launches = 0
+
+
+def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
+    """Nearest hit of (N, 3) rays over the packed tables: (t (N,),
+    normal (N, 3), mat id (N,) int32[, slot (N,) int32]), with t = 1e20,
+    normal 0, mat id -1 and slot -1 on a miss.  ``active``: optional (N,)
+    mask; inactive rays miss.
+
+    Rays on a CUDA device launch the CUDA kernel and add one to
+    ``intersect_tile.launches``; rays on the CPU run
+    :func:`intersect_packed_plain`.
+    """
+    device = origins.device
+    if device.type == "cpu":
+        return intersect_packed_plain(packed, origins, dirs, active,
+                                      with_slot)
+    if device.type != "cuda":
+        raise ValueError(f"intersect_tile runs on cuda or cpu, not {device}")
+    _check_packed(packed)
+    _check_tree_tables(packed, device)
+    n = origins.shape[0]
+    for name, t in (("origins", origins), ("dirs", dirs)):
+        mk._check_table(name, t, device, 3)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} rays, origins {n}")
+    act = None
+    if active is not None:
+        act = active.to(torch.float32).contiguous()
+        if act.device != device or act.shape != (n,):
+            raise ValueError(f"active must be ({n},) on {device}")
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    nrm = torch.empty((n, 3), dtype=torch.float32, device=device)
+    mid = torch.empty(n, dtype=torch.int32, device=device)
+    slot = torch.empty(n, dtype=torch.int32, device=device) if with_slot \
+        else None
+    fn = _fn("spira_bvh_intersect", _INTERSECT_ARGTYPES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            origins.data_ptr(), dirs.data_ptr(),
+            act.data_ptr() if act is not None else None, n,
+            packed.pairs.data_ptr(), packed.tri_rows.data_ptr(), packed.root,
+            int(packed.form == "bw"), t.data_ptr(), nrm.data_ptr(),
+            mid.data_ptr(), slot.data_ptr() if with_slot else None, stream,
+        )
+    _launch_error("bvh_intersect", err)
+    intersect_tile.launches += 1
+    return (t, nrm, mid, slot) if with_slot else (t, nrm, mid)
+
+
+#: Kernel launches since the count was last reset (set it to 0 to reset).
+intersect_tile.launches = 0

@@ -199,14 +199,15 @@ def finish_intersect(o3, d3, st):
 def make_brute_intersect(spheres, triangles=()):
     """The fused engines' intersector: loops over every primitive.
 
-    Returns ``intersect(o3, d3) -> (hit, p3, n3, mats10)`` where p3 is the
+    Returns ``intersect(o3, d3, active) -> (hit, p3, n3, mats10)`` where
+    ``active`` (which lanes carry a live path) is not needed here, p3 is the
     hit point (miss lanes clamped to t=1 so no inf propagates), n3 the unit
     geometric normal (miss lanes arbitrary — the caller masks), and mats10
     the per-lane material fields
     (ar, ag, ab, er, eg, eb, metallic, roughness, ior, transmission).
     """
 
-    def intersect(o3, d3):
+    def intersect(o3, d3, active=None):
         st = init_hit_state(d3[0])
         st = sphere_unroll(spheres, o3, d3, st)
         st = tri_unroll(triangles, o3, d3, st)
@@ -239,9 +240,11 @@ def trace_tile(
     16-scalar tuples (packed by :func:`pack_scene`); triangles: list of
     24-scalar tuples (packed by :func:`pack_triangles`).
 
-    ``intersect_fn`` (``(o3, d3) -> (hit, p3, n3, mats10)``) overrides the
-    nearest-hit query, so that other intersectors share the shading and
-    scatter math below.
+    ``intersect_fn`` (``(o3, d3, active) -> (hit, p3, n3, mats10)``)
+    overrides the nearest-hit query, so that other intersectors share the
+    shading and scatter math below; ``active`` marks the lanes whose path
+    is alive (the others' results are masked, so an intersector may skip
+    them).
     """
     (ox0, oy0, oz0, llcx, llcy, llcz, hx, hy, hz, vx, vy, vz) = cam[:12]
     if intersect_fn is None:
@@ -290,7 +293,7 @@ def trace_tile(
 
         for b in range(max_depth):
             hit, (px, py, pz), (nx, ny, nz), mats = intersect_fn(
-                (ox, oy, oz), (dx, dy, dz)
+                (ox, oy, oz), (dx, dy, dz), alive
             )
             (m_ar, m_ag, m_ab, m_er, m_eg, m_eb, m_metal, m_rough, m_ior,
              m_trans) = mats

@@ -1,13 +1,17 @@
 """Top-level render entry points: engine choice, HDR render, tone-mapped
 image.
 
-Counterpart of the entry points of :mod:`spira_tpu.render` for the slice
+Counterpart of the entry points of :mod:`spira_tpu.render` for the slices
 the port has: sphere and small-triangle scenes (at most
-``FUSED_TRI_LIMIT`` triangles, no BVH), physical semantics, RGB, full
-shading.  The engines are
+``FUSED_TRI_LIMIT`` triangles, no BVH) and mesh scenes with packed BVH
+tables, physical semantics, RGB, full shading.  The engines are
 
-* ``cuda``  — the hand-written CUDA megakernel, for scenes on a CUDA device;
-* ``fused`` — the plain PyTorch tracer, on any device.
+* ``cuda``     — the hand-written CUDA megakernel, for scenes on a CUDA
+  device (the plain tracer for scenes on the CPU);
+* ``cuda_bvh`` — the hand-written CUDA packed-BVH kernel, for mesh scenes
+  with ``packed`` tables on a CUDA device (the plain packed walk on the
+  CPU);
+* ``fused``    — the plain PyTorch tracer, on any device.
 
 Every other path of the JAX renderer raises ``NotImplementedError`` naming
 the ROADMAP item (queue 1) that brings it.
@@ -18,13 +22,14 @@ from __future__ import annotations
 import numpy as np
 
 from .io import image as img_io
+from .kernels.bvh_megakernel import render_flat_bvh_megakernel
 from .kernels.megakernel import (
     FUSED_TRI_LIMIT,
     render_flat_fused,
     render_flat_megakernel,
 )
 
-ENGINES = ("cuda", "fused")
+ENGINES = ("cuda", "cuda_bvh", "fused")
 
 
 def _not_ported(what: str, item: str):
@@ -37,34 +42,44 @@ def _not_ported(what: str, item: str):
 def select_engine(
     scene, semantics: str, spectral: bool, engine: str = "auto", camera=None
 ):
-    """Resolve the execution engine: ``cuda`` for a scene on a CUDA device,
-    ``fused`` for one on the CPU, or the engine named."""
+    """Resolve the execution engine: ``cuda_bvh`` for a scene with packed
+    BVH tables on a CUDA device, ``cuda`` for a small scene on a CUDA
+    device, ``fused`` for one on the CPU, or the engine named.  A BVH scene
+    on the CPU goes to the wavefront estimator in the JAX package, which is
+    not ported yet."""
     if spectral:
         raise _not_ported("spectral=True", "item 12, the spectral slice")
     if semantics != "physical":
         raise _not_ported(
             f"semantics={semantics!r}", "item 10, the wavefront estimator"
         )
-    for table in ("bvh", "packed"):
-        if getattr(scene, table, None) is not None:
-            raise _not_ported(
-                f"a scene with a {table!r} table", "items 8-9, the mesh slice"
-            )
     if engine == "auto":
+        if scene.packed is not None and scene.device.type == "cuda":
+            return "cuda_bvh"
+        for table in ("packed", "bvh"):
+            if getattr(scene, table, None) is not None:
+                raise _not_ported(
+                    f"a scene with a {table!r} table on "
+                    f"{scene.device.type} under engine='auto' (the BVH "
+                    "kernel takes packed scenes on cuda; "
+                    "engine='cuda_bvh' runs its plain version here)",
+                    "item 10, the wavefront estimator",
+                )
         if not (
             scene.triangles.count <= FUSED_TRI_LIMIT
             and (scene.spheres.count + scene.triangles.count) > 0
         ):
             raise _not_ported(
                 f"a scene with {scene.triangles.count} triangles and no BVH "
-                f"(the fused engines take at most {FUSED_TRI_LIMIT})",
-                "items 8-10, the mesh slice and the wavefront estimator",
+                f"(the fused engines take at most {FUSED_TRI_LIMIT}; a mesh "
+                "scene with a BVH and attach_packed renders on cuda_bvh)",
+                "item 10, the wavefront estimator",
             )
         return "cuda" if scene.device.type == "cuda" else "fused"
     if engine not in ENGINES:
         raise _not_ported(
             f"engine {engine!r} (the port has {', '.join(ENGINES)})",
-            "items 9-13",
+            "items 10-13",
         )
     return engine
 
@@ -75,7 +90,9 @@ def render_flat_engine(
 ):
     """Flat (H*W, 3) bottom-up HDR render with engine dispatch."""
     engine = select_engine(scene, semantics, spectral, engine, camera=camera)
-    fn = render_flat_megakernel if engine == "cuda" else render_flat_fused
+    fn = {"cuda": render_flat_megakernel,
+          "cuda_bvh": render_flat_bvh_megakernel,
+          "fused": render_flat_fused}[engine]
     return fn(
         scene, camera, width=width, height=height, spp=spp,
         max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,

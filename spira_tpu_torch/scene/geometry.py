@@ -111,3 +111,14 @@ def concat_triangles(parts) -> Triangles:
         normal=torch.cat([p.normal for p in parts]),
         material=torch.cat([p.material for p in parts]),
     )
+
+
+def triangle_bounds(tris: Triangles):
+    """Per-triangle AABBs (lo, hi), both (T, 3) numpy float32, for the
+    host-side BVH builders."""
+    v0 = tris.v0.detach().cpu().numpy()
+    v1 = v0 + tris.e1.detach().cpu().numpy()
+    v2 = v0 + tris.e2.detach().cpu().numpy()
+    lo = np.minimum(np.minimum(v0, v1), v2)
+    hi = np.maximum(np.maximum(v0, v1), v2)
+    return lo, hi

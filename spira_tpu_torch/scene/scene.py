@@ -1,7 +1,8 @@
 """Scene dataclass and the built-in scenes.
 
-Counterpart of :mod:`spira_tpu.scene.scene`.  ``create_mesh_scene`` needs
-BVH construction and comes with the mesh slice.
+Counterpart of :mod:`spira_tpu.scene.scene`.  The BVH tables of the mesh
+scenes are built on the host (NumPy and the shared C++ builder) and the
+finished scene is moved to ``device``.
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ from .materials import Materials, make_materials
 class Scene:
     """spheres + triangle soup + materials.
 
-    ``bvh`` and ``packed`` mirror the JAX scene's acceleration tables.  The
-    port has no BVH yet, so a scene that carries either is refused by the
-    renderer.
+    ``bvh`` is ``None`` for brute-force intersection, or a
+    :class:`spira_tpu_torch.accel.bvh.FlatBVH`; ``packed`` holds the
+    pair-record tables the BVH kernels walk
+    (:func:`spira_tpu_torch.accel.pairs.attach_packed`).
     """
 
     spheres: Spheres
@@ -149,6 +151,51 @@ def create_cornell_box(light_emission=(15.0, 15.0, 15.0), device=None):
     )
     return make_scene(spheres=spheres, triangles=concat_triangles(quads),
                       materials=materials)
+
+
+def create_mesh_scene(obj_path: str | None = None, subdivisions: int = 3,
+                      device=None) -> Scene:
+    """The mesh-tier scene: a triangle mesh on a ground sphere under the
+    demo light, with a mirror icosphere, traversed through a two-level flat
+    BVH.  Loads any OBJ from ``obj_path`` when given, otherwise a subdivided
+    icosphere.  Carries ``bvh`` only; pack it with ``attach_packed``."""
+    from ..accel.bvh import build_two_level
+    from .obj import icosphere, load_obj_mesh
+
+    materials = make_materials(
+        [
+            dict(albedo=(0.65, 0.55, 0.45), metallic=0.0, roughness=0.6),  # mesh
+            dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),  # ground
+            dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),  # light
+            dict(albedo=(0.8, 0.8, 0.8), metallic=1.0, roughness=0.05),  # mirror
+        ]
+    )
+    if obj_path is not None:
+        mesh = load_obj_mesh(
+            obj_path, material=0, center=True, normalize=True, scale=0.6,
+            translate=(0.0, 0.1, 0.0),
+        )
+    else:
+        mesh = icosphere(
+            center=(0.0, 0.1, 0.0), radius=0.6, subdivisions=subdivisions,
+            material=0,
+        )
+    mirror = icosphere(center=(1.3, 0.0, -0.6), radius=0.45, subdivisions=2,
+                       material=3)
+    # leaf size by mesh scale, as the JAX scene: two-row leaves for small
+    # trees, one-row leaves for large ones
+    n_tris = int(mesh.count) + 320  # + mirror icosphere
+    bvh, triangles = build_two_level(
+        [mesh, mirror], leaf_size=16 if n_tris < 4000 else 8)
+    spheres = make_spheres(
+        [
+            ((0.0, -100.5, 0.0), 100.0, 1),
+            ((0.0, 5.0, 0.0), 1.0, 2),
+        ]
+    )
+    scene = make_scene(spheres=spheres, triangles=triangles,
+                       materials=materials, bvh=bvh)
+    return scene.to(device) if device is not None else scene
 
 
 def cornell_camera(aspect_ratio=1.0, device=None):

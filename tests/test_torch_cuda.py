@@ -1,4 +1,6 @@
-"""The CUDA megakernel against the port's plain version, on the card.
+"""The CUDA kernels against the port's plain versions, on the card: the
+sphere megakernel, the packed-BVH path tracer and the packed-BVH
+nearest-hit query.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 import spira_tpu_torch as sp
+from spira_tpu_torch.accel import pairs
+from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import megakernel as mk
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +124,100 @@ def test_kernel_wrapper_checks(cuda):
     )
     with pytest.raises(ValueError, match="shared-memory"):
         mk.render_flat_megakernel(many, cam, width=16, height=8)
+
+
+# ---------------------------------------------------------------------------
+# The packed-BVH kernels
+# ---------------------------------------------------------------------------
+
+def _mesh(device, form="bw", subdivisions=2):
+    scene = sp.create_mesh_scene(subdivisions=subdivisions)
+    return sp.attach_packed(scene, form=form).to(device)
+
+
+def _rays(n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    d = np.array([0.0, 0.1, 0.0], np.float32) - o
+    d[1::2] = rng.normal(size=(n // 2, 3))  # half aimed at the mesh
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.from_numpy(o).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_bvh_intersect_matches_plain(cuda, form):
+    scene = _mesh(cuda, form)
+    o, d = _rays(8192, cuda)
+    active = torch.arange(8192, device=cuda) % 5 != 0
+    before = bk.intersect_tile.launches
+    got = bk.intersect_tile(scene.packed, o, d, active=active,
+                            with_slot=True)
+    assert bk.intersect_tile.launches == before + 1
+    want = bk.intersect_packed_plain(scene.packed, o, d, active, True)
+    torch.cuda.synchronize()
+    hit = want[0] < 1e19
+    assert 1000 < int(hit.sum()) and not hit[~active].any()
+    assert torch.equal(got[0] < 1e19, hit)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_bvh_render_matches_plain(cuda, form):
+    """The mesh scene (two-row leaves, a mirror) at 128x64, spp 2, depth
+    4: channel means within 0.5%, 99% of pixel-channels within 1e-4."""
+    scene = _mesh(cuda, form)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=2.0, device=cuda)
+    kw = dict(width=128, height=64, spp=2, max_depth=4, seed=3)
+    kernel = bk.render_flat_bvh_megakernel(scene, cam, **kw)
+    plain = bk.render_flat_bvh_fused(scene, cam, **kw)
+    torch.cuda.synchronize()
+    kernel, plain = kernel.cpu().numpy(), plain.cpu().numpy()
+    assert kernel.shape == (128 * 64, 3) and np.isfinite(kernel).all()
+    np.testing.assert_allclose(kernel.mean(0), plain.mean(0), rtol=MEAN_REL)
+    assert (np.abs(kernel - plain) <= 1e-4).mean() >= 0.99
+
+
+def test_bvh_render_goes_through_kernel_and_is_deterministic(cuda):
+    scene = _mesh(cuda, subdivisions=1)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=2.0, device=cuda)
+    assert sp.select_engine(scene, "physical", False) == "cuda_bvh"
+    before = bk.render_flat_bvh_megakernel.launches
+    img = sp.render(scene, cam, 64, 32, samples_per_pixel=2, max_depth=3)
+    assert bk.render_flat_bvh_megakernel.launches == before + 1
+    assert img.std() > 0
+    kw = dict(width=64, height=16, spp=2, max_depth=3)
+    a = bk.render_flat_bvh_megakernel(scene, cam, seed=5, **kw)
+    b = bk.render_flat_bvh_megakernel(scene, cam, seed=5, **kw)
+    c = bk.render_flat_bvh_megakernel(scene, cam, seed=6, **kw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (a - c).abs().max() > 0
+
+
+def test_bvh_wrapper_refusals(cuda):
+    scene = _mesh(cuda, subdivisions=1)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), device=cuda)
+    kw = dict(width=16, height=8, spp=1, max_depth=1)
+    deep = dataclasses.replace(scene, packed=dataclasses.replace(
+        scene.packed, depth=pairs.TRAVERSAL_STACK + 1))
+    with pytest.raises(ValueError, match="traversal stack"):
+        bk.render_flat_bvh_megakernel(deep, cam, **kw)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        bk.render_flat_bvh_megakernel(scene, cam, mxu_leaf=True, **kw)
+    cpu_tables = dataclasses.replace(scene, packed=scene.packed.to("cpu"))
+    with pytest.raises(ValueError, match="packed pairs is on cpu"):
+        bk.render_flat_bvh_megakernel(cpu_tables, cam, **kw)
+    with pytest.raises(ValueError, match="camera table is on cpu"):
+        bk.render_flat_bvh_megakernel(
+            scene, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0)), **kw)
+    o, d = _rays(256, cuda)
+    with pytest.raises(ValueError, match="packed pairs is on cpu"):
+        bk.intersect_tile(cpu_tables.packed, o, d)
+    with pytest.raises(ValueError, match="dirs is on cpu"):
+        bk.intersect_tile(scene.packed, o, d.cpu())
+    with pytest.raises(ValueError, match="traversal stack"):
+        bk.intersect_tile(deep.packed, o, d)

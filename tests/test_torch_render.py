@@ -140,7 +140,9 @@ def test_unported_paths_raise(scenes, scene_fn, kw, match):
 def test_import_leaves_jax_out():
     code = (
         "import sys, spira_tpu_torch\n"
-        "from spira_tpu_torch.kernels import megakernel\n"
+        "from spira_tpu_torch.kernels import megakernel, bvh_megakernel\n"
+        "from spira_tpu_torch.accel import bvh, native, pairs\n"
+        "from spira_tpu_torch.scene import bunny, obj\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'spira_tpu', 'triton')]\n"
         "assert not bad, bad\n"
