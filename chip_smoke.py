@@ -10,14 +10,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. each kernel against its plain PyTorch version on the card, same tables
    and seed, with the tolerances stated beside each case: the sphere
    megakernel (``SPHERE_CASES``), the packed-BVH nearest-hit query on
-   random and primary rays of the 72,960-triangle bunny, and the
-   packed-BVH path tracer (``BVH_CASES``);
+   random and primary rays of the 72,960-triangle bunny, the packed-BVH
+   path tracer (``BVH_CASES``), the spectral megakernel
+   (``SPECTRAL_CASES``) and the spectral packed-BVH path tracer
+   (``SPECTRAL_BVH_CASES``);
 3. the main paths, through the user's entry points, each with every launch
    count set to 0 just before and read just after: ``render`` of the bunny
    at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), ``intersect_tile``
-   on the bunny's primary rays, and ``render`` of the sphere demo scene at
-   the same shape (engine ``cuda``); each image is checked against the
-   plain version's render;
+   on the bunny's primary rays, ``render`` of the sphere demo scene at the
+   same shape (engine ``cuda``), and ``render(..., spectral=True)`` of the
+   Cornell box (engine ``cuda``, the spectral megakernel) and of the bunny
+   (engine ``cuda_spectral_bvh``) at the same shape; each image is checked
+   against the plain version's render, and the spectral Cornell box
+   against the RGB one;
 4. timing with CUDA events (one warm-up, median of ``REPEATS``), and a
    torch.profiler breakdown of the main-path wrappers' time on the card.
 
@@ -77,6 +82,25 @@ BVH_CASES = (
 MISS_SHARE, T_RTOL, MID_SHARE = 1e-4, 1e-5, 0.9999
 NORMAL_ATOL, NORMAL_SHARE = 1e-5, 0.999
 N_RANDOM_RAYS = 1 << 16
+#: spectral megakernel cases: (name, scene key, shape, tolerances), limits
+#: as for the sphere megakernel.  The Cornell box's flint glass disperses
+#: (the hero collapse), and depth 6 runs Russian roulette.
+SPECTRAL_CASES = (
+    ("g: demo 640x360 spp1 d1", "demo",
+     dict(width=640, height=360, spp=1, max_depth=1),
+     dict(atol=1e-5, frac=0.999, mean_rel=0.005)),
+    ("h: cornell 256x256 spp16 d6", "cornell_sq",
+     dict(width=256, height=256, spp=16, max_depth=6), BVH_TOL),
+    ("i: cornell 640x360 spp16 d4", "cornell", MAIN, BVH_TOL),
+)
+#: spectral packed-BVH cases: (name, scene key, shape), limits BVH_TOL
+SPECTRAL_BVH_CASES = (
+    ("j: bunny 640x360 spp1 d2", "bunny",
+     dict(width=640, height=360, spp=1, max_depth=2)),
+    ("k: bunny 640x360 spp4 d4", "bunny", BVH_TIMED),
+    ("l: dispersive icosphere 256x256 spp4 d6", "dispersive",
+     dict(width=256, height=256, spp=4, max_depth=6)),
+)
 
 
 def log(*args):
@@ -237,16 +261,73 @@ def compare_intersect(bk, name, packed, o, d):
                 normal_share=n_share)
 
 
-def reset_counts(mk, bk):
-    mk.render_flat_megakernel.launches = 0
-    bk.render_flat_bvh_megakernel.launches = 0
-    bk.intersect_tile.launches = 0
+def counters():
+    """Every kernel wrapper with a launch count, by kernel name."""
+    from spira_tpu_torch.kernels import (
+        bvh_megakernel,
+        megakernel,
+        spectral_bvh,
+        spectral_fused,
+    )
+
+    return dict(
+        megakernel=megakernel.render_flat_megakernel,
+        bvh_megakernel=bvh_megakernel.render_flat_bvh_megakernel,
+        bvh_intersect=bvh_megakernel.intersect_tile,
+        spectral_megakernel=spectral_fused.render_flat_spectral_megakernel,
+        spectral_bvh_megakernel=(
+            spectral_bvh.render_flat_spectral_bvh_megakernel),
+    )
 
 
-def counts(mk, bk):
-    return dict(megakernel=mk.render_flat_megakernel.launches,
-                bvh_megakernel=bk.render_flat_bvh_megakernel.launches,
-                bvh_intersect=bk.intersect_tile.launches)
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def dispersive_mesh(sp, device):
+    """A packed scene with a dispersive sphere in view: a 20-triangle
+    icosphere over a ground sphere, a light, and flint-like glass
+    (cauchy_b 0.01) on the specular lobe."""
+    from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
+    from spira_tpu_torch.scene.obj import icosphere
+
+    mesh = icosphere(center=(0.0, 0.3, 0.0), radius=0.6, subdivisions=0,
+                     material=0)
+    materials = sp.make_materials([
+        dict(albedo=(0.7, 0.3, 0.3), metallic=0.0, roughness=0.5),
+        dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),
+        dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
+        dict(albedo=(1.0, 1.0, 1.0), metallic=1.0, roughness=0.0, ior=1.5,
+             transmission=1.0, cauchy_b=0.01),
+    ])
+    spheres = sp.make_spheres([((0.0, -100.5, 0.0), 100.0, 1),
+                               ((0.0, 5.0, 0.0), 1.0, 2),
+                               ((0.9, 0.0, 0.6), 0.35, 3)])
+    scene = sp.make_scene(spheres=spheres, triangles=mesh,
+                          materials=materials,
+                          bvh=build_bvh_for_triangles(mesh))
+    return sp.attach_packed(scene).to(device)
+
+
+def check_main(what, kernel, img, plain_img, got, png):
+    """A main path's image: ``kernel`` launched, the image not empty, and
+    its uint8 mean within one level of the plain version's at the same
+    spp (a noisier image sits lower after the concave tone map)."""
+    gap = abs(float(img.mean()) - float(plain_img.mean()))
+    log(f"[main] {what}: image {img.shape} {img.dtype}, mean "
+        f"{img.mean():.4f} (plain {plain_img.mean():.4f}), std "
+        f"{img.std():.4f}, png {os.path.getsize(png)} bytes, launches {got}")
+    if got[kernel] < 1:
+        raise AssertionError(f"{what} did not launch {kernel}")
+    if img.ndim != 3 or img.shape[2] != 3 or img.std() == 0:
+        raise AssertionError(f"{what}: image is empty or constant")
+    if gap > 1.0:
+        raise AssertionError(f"{what}: uint8 means differ by {gap} > 1")
 
 
 def main() -> int:
@@ -265,6 +346,8 @@ def main() -> int:
     from spira_tpu_torch.io import image as img_io
     from spira_tpu_torch.kernels import bvh_megakernel as bk
     from spira_tpu_torch.kernels import megakernel as mk
+    from spira_tpu_torch.kernels import spectral_bvh as sb
+    from spira_tpu_torch.kernels import spectral_fused as sf
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -272,7 +355,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    names = ("megakernel", "bvh_megakernel")
+    names = ("megakernel", "bvh_megakernel", "spectral_megakernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.load, names)))
     for name, lib in libs.items():
@@ -294,7 +377,18 @@ def main() -> int:
     bunny_cam = sp.bunny_camera(w / h, device=device)
     mesh_cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
                               aspect_ratio=1.0, device=device)
-    scenes = dict(bunny=(bunny, bunny_cam), mesh=(mesh, mesh_cam))
+    scenes = dict(
+        bunny=(bunny, bunny_cam), mesh=(mesh, mesh_cam),
+        demo=(sp.create_scene(device=device),
+              sp.default_camera(w / h, device=device)),
+        cornell=(sp.create_cornell_box(device=device),
+                 sp.cornell_camera(w / h, device=device)),
+        cornell_sq=(sp.create_cornell_box(device=device),
+                    sp.cornell_camera(1.0, device=device)),
+        dispersive=(dispersive_mesh(sp, device),
+                    sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                                   aspect_ratio=1.0, device=device)),
+    )
 
     # ---- 2. each kernel against its plain version on the card
     sphere_checks = [compare_sphere(sp, mk, *case, device)
@@ -311,6 +405,22 @@ def main() -> int:
         plain = bk.render_flat_bvh_fused(scene, cam, **shape)
         torch.cuda.synchronize()
         bvh_checks.append(check_images(name, kernel, plain, BVH_TOL))
+    spectral_checks = []
+    for name, key, shape, tol in SPECTRAL_CASES:
+        scene, cam = scenes[key]
+        kernel = sf.render_flat_spectral_megakernel(scene, cam, seed=7,
+                                                    **shape)
+        plain = sf.render_flat_fused_spectral(scene, cam, seed=7, **shape)
+        torch.cuda.synchronize()
+        spectral_checks.append(check_images(name, kernel, plain, tol))
+    spectral_bvh_checks = []
+    for name, key, shape in SPECTRAL_BVH_CASES:
+        scene, cam = scenes[key]
+        kernel = sb.render_flat_spectral_bvh_megakernel(scene, cam, **shape)
+        plain = sb.render_flat_spectral_bvh_fused(scene, cam, **shape)
+        torch.cuda.synchronize()
+        spectral_bvh_checks.append(check_images(name, kernel, plain,
+                                                BVH_TOL))
 
     # ---- 3. the main paths, through the user's entry points
     main_args = dict(samples_per_pixel=MAIN["spp"],
@@ -320,35 +430,26 @@ def main() -> int:
         out_dir = args.save or tmp
         os.makedirs(out_dir, exist_ok=True)
         # the bunny, engine "auto" -> cuda_bvh
+        def to_uint8(flat):
+            return img_io.to_uint8(img_io.TONEMAPS["gamma"](
+                img_io.assemble_image(flat, w, h)))
+
+        shape_name = f"{w}x{h} spp{MAIN['spp']} d{MAIN['max_depth']}"
         png = os.path.join(out_dir, "chip_smoke_bunny.png")
-        reset_counts(mk, bk)
+        reset_counts()
         img = sp.render(bunny, bunny_cam, w, h, output_path=png, **main_args)
         torch.cuda.synchronize()
-        got = counts(mk, bk)
+        got = counts()
         launches["bvh_megakernel"] = got["bvh_megakernel"]
-        # the plain version at the same spp: a noisier spp-4 image sits
-        # about 1.6 levels lower after the concave tone map
-        plain_img = img_io.to_uint8(img_io.TONEMAPS["gamma"](
-            img_io.assemble_image(bk.render_flat_bvh_fused(
-                bunny, bunny_cam, **MAIN), w, h)))
-        gap = abs(float(img.mean()) - float(plain_img.mean()))
-        log(f"[main] bunny render {w}x{h} spp{MAIN['spp']} "
-            f"d{MAIN['max_depth']}: image {img.shape} {img.dtype}, mean "
-            f"{img.mean():.4f} (plain {plain_img.mean():.4f}), std "
-            f"{img.std():.4f}, png "
-            f"{os.path.getsize(png)} bytes, launches {got}")
-        if got["bvh_megakernel"] < 1:
-            raise AssertionError("bunny path did not launch bvh_megakernel")
-        if img.shape != (h, w, 3) or img.std() == 0:
-            raise AssertionError("bunny image is empty or constant")
-        if gap > 1.0:
-            raise AssertionError(f"bunny uint8 means differ by {gap} > 1")
+        check_main(f"bunny render {shape_name}", "bvh_megakernel", img,
+                   to_uint8(bk.render_flat_bvh_fused(bunny, bunny_cam,
+                                                     **MAIN)), got, png)
 
         # the nearest-hit query on the bunny's primary rays
-        reset_counts(mk, bk)
+        reset_counts()
         t, n, mid = bk.intersect_tile(bunny.packed, *rays["primary"])
         torch.cuda.synchronize()
-        got = counts(mk, bk)
+        got = counts()
         launches["bvh_intersect"] = got["bvh_intersect"]
         hits = t < 1e19
         log(f"[main] bunny primary rays {w}x{h}: {int(hits.sum())} hits, "
@@ -359,28 +460,57 @@ def main() -> int:
             raise AssertionError("primary rays miss the bunny or hit all")
 
         # the sphere demo scene, engine "auto" -> cuda
-        demo = sp.create_scene(device=device)
-        demo_cam = sp.default_camera(w / h, device=device)
+        demo, demo_cam = scenes["demo"]
         png = os.path.join(out_dir, "chip_smoke_demo.png")
-        reset_counts(mk, bk)
+        reset_counts()
         img = sp.render(demo, demo_cam, w, h, output_path=png, **main_args)
         torch.cuda.synchronize()
-        got = counts(mk, bk)
+        got = counts()
         launches["megakernel"] = got["megakernel"]
-        plain_img = sp.render(demo, demo_cam, w, h, engine="fused",
-                              **main_args)
-        gap = abs(float(img.mean()) - float(plain_img.mean()))
-        log(f"[main] demo render {w}x{h} spp{MAIN['spp']} "
-            f"d{MAIN['max_depth']}: image {img.shape} {img.dtype}, mean "
-            f"{img.mean():.4f} (plain {plain_img.mean():.4f}), std "
-            f"{img.std():.4f}, png {os.path.getsize(png)} bytes, "
-            f"launches {got}")
-        if got["megakernel"] < 1:
-            raise AssertionError("demo path did not launch the megakernel")
-        if img.shape != (h, w, 3) or img.std() == 0:
-            raise AssertionError("demo image is empty or constant")
-        if gap > 1.0:
-            raise AssertionError(f"demo uint8 means differ by {gap} > 1")
+        check_main(f"demo render {shape_name}", "megakernel", img,
+                   sp.render(demo, demo_cam, w, h, engine="fused",
+                             **main_args), got, png)
+
+        # the spectral paths: the spectral kernel launched, no RGB kernel
+        rgb_kernels = ("megakernel", "bvh_megakernel", "bvh_intersect")
+        # the spectral Cornell box, engine "auto" -> cuda, spectral
+        cornell, cornell_cam = scenes["cornell"]
+        png = os.path.join(out_dir, "chip_smoke_cornell_spectral.png")
+        reset_counts()
+        img = sp.render(cornell, cornell_cam, w, h, output_path=png,
+                        spectral=True, **main_args)
+        torch.cuda.synchronize()
+        got = counts()
+        launches["spectral_megakernel"] = got["spectral_megakernel"]
+        check_main(f"spectral cornell render {shape_name}",
+                   "spectral_megakernel", img,
+                   sp.render(cornell, cornell_cam, w, h, engine="fused",
+                             spectral=True, **main_args), got, png)
+        if any(got[k] for k in rgb_kernels):
+            raise AssertionError("spectral cornell path launched an RGB "
+                                 "kernel")
+        rgb_img = sp.render(cornell, cornell_cam, w, h, **main_args)
+        rgb_gap = float(abs(img.astype(float) - rgb_img).mean())
+        log(f"[main] spectral cornell against RGB cornell at the same "
+            f"shape and seed: mean abs gap {rgb_gap:.4f} levels")
+        if rgb_gap == 0.0:
+            raise AssertionError("spectral cornell equals the RGB image")
+
+        # the spectral bunny, engine "auto" -> cuda_spectral_bvh
+        png = os.path.join(out_dir, "chip_smoke_bunny_spectral.png")
+        reset_counts()
+        img = sp.render(bunny, bunny_cam, w, h, output_path=png,
+                        spectral=True, **main_args)
+        torch.cuda.synchronize()
+        got = counts()
+        launches["spectral_bvh_megakernel"] = got["spectral_bvh_megakernel"]
+        check_main(f"spectral bunny render {shape_name}",
+                   "spectral_bvh_megakernel", img,
+                   to_uint8(sb.render_flat_spectral_bvh_fused(
+                       bunny, bunny_cam, **MAIN)), got, png)
+        if any(got[k] for k in rgb_kernels):
+            raise AssertionError("spectral bunny path launched an RGB "
+                                 "kernel")
 
     # ---- 4. timing
     def mrays(shape, ms):
@@ -420,12 +550,39 @@ def main() -> int:
         f"{sph_k / sph_p:.4f}")
     log(f"[time] {card}: demo 1920x1080 spp256 d4 kernel {sph_big:.3f} ms "
         f"({mrays(big, sph_big):.1f} Mrays/s)")
-    times = (bvh_k, bvh_p, bvh_full, isect_k, isect_p, sph_k, sph_p, sph_big)
+    spec_k = time_ms(run(sf.render_flat_spectral_megakernel, cornell,
+                         cornell_cam, MAIN))
+    spec_p = time_ms(run(sf.render_flat_fused_spectral, cornell,
+                         cornell_cam, MAIN))
+    # the RGB kernel on the same scene: what the spectral shading costs
+    rgb_cornell = time_ms(run(mk.render_flat_megakernel, cornell,
+                              cornell_cam, MAIN))
+    log(f"[time] {card}: spectral cornell 640x360 spp16 d4 kernel "
+        f"{spec_k:.3f} ms ({mrays(MAIN, spec_k):.1f} Mrays/s), plain "
+        f"{spec_p:.3f} ms ({mrays(MAIN, spec_p):.2f} Mrays/s), kernel/plain "
+        f"{spec_k / spec_p:.5f}; RGB kernel on the same scene "
+        f"{rgb_cornell:.3f} ms")
+    sbvh_k = time_ms(run(sb.render_flat_spectral_bvh_megakernel, bunny,
+                         bunny_cam, BVH_TIMED))
+    sbvh_p = time_ms(run(sb.render_flat_spectral_bvh_fused, bunny,
+                         bunny_cam, BVH_TIMED))
+    sbvh_full = time_ms(run(sb.render_flat_spectral_bvh_megakernel, bunny,
+                            bunny_cam, MAIN))
+    log(f"[time] {card}: spectral bunny 640x360 spp4 d4 kernel "
+        f"{sbvh_k:.3f} ms ({mrays(BVH_TIMED, sbvh_k):.1f} Mrays/s), plain "
+        f"{sbvh_p:.3f} ms ({mrays(BVH_TIMED, sbvh_p):.2f} Mrays/s), "
+        f"kernel/plain {sbvh_k / sbvh_p:.5f}")
+    log(f"[time] {card}: spectral bunny 640x360 spp16 d4 kernel "
+        f"{sbvh_full:.3f} ms ({mrays(MAIN, sbvh_full):.1f} Mrays/s)")
+    times = (bvh_k, bvh_p, bvh_full, isect_k, isect_p, sph_k, sph_p, sph_big,
+             spec_k, spec_p, rgb_cornell, sbvh_k, sbvh_p, sbvh_full)
     if not all(math.isfinite(x) for x in times):
         raise AssertionError("timing failed")
     for name, k, p in (("bvh_megakernel", bvh_k, bvh_p),
                        ("bvh_intersect", isect_k, isect_p),
-                       ("megakernel", sph_k, sph_p)):
+                       ("megakernel", sph_k, sph_p),
+                       ("spectral_megakernel", spec_k, spec_p),
+                       ("spectral_bvh_megakernel", sbvh_k, sbvh_p)):
         if k > p:
             log(f"[time] {name} is SLOWER than its plain version")
     # where the wrappers' time goes: the kernel against the small
@@ -436,6 +593,12 @@ def main() -> int:
     sph_prof = device_breakdown(run(mk.render_flat_megakernel, demo,
                                     demo_cam, MAIN))
     log_breakdown(card, "demo 640x360 spp16 d4", sph_prof)
+    spec_prof = device_breakdown(run(sf.render_flat_spectral_megakernel,
+                                     cornell, cornell_cam, MAIN))
+    log_breakdown(card, "spectral cornell 640x360 spp16 d4", spec_prof)
+    sbvh_prof = device_breakdown(run(sb.render_flat_spectral_bvh_megakernel,
+                                     bunny, bunny_cam, MAIN))
+    log_breakdown(card, "spectral bunny 640x360 spp16 d4", sbvh_prof)
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
 
     print(json.dumps({"kernels": [
@@ -479,6 +642,35 @@ def main() -> int:
             "plain_ms": isect_p,
             "shape": "bunny primary rays 640x360",
             "checks": isect_checks,
+        },
+        {
+            "name": "spectral_megakernel",
+            "route": "cuda",
+            "source": "spira_tpu_torch/csrc/spectral_megakernel.cu",
+            "replaces": "spira_tpu/kernels/spectral_fused.py:650",
+            "launches": launches["spectral_megakernel"],
+            "max_abs_err": spectral_checks[2]["max_abs_err"],
+            "ms": spec_k,
+            "plain_ms": spec_p,
+            "shape": "spectral cornell 640x360 spp16 d4",
+            "rgb_kernel_ms_same_scene": rgb_cornell,
+            "profile_640x360_spp16_d4": spec_prof,
+            "checks": spectral_checks,
+        },
+        {
+            "name": "spectral_bvh_megakernel",
+            "route": "cuda",
+            "source": "spira_tpu_torch/csrc/spectral_megakernel.cu",
+            "replaces": "spira_tpu/kernels/spectral_bvh.py:155",
+            "launches": launches["spectral_bvh_megakernel"],
+            "max_abs_err": spectral_bvh_checks[1]["max_abs_err"],
+            "ms": sbvh_k,
+            "plain_ms": sbvh_p,
+            "shape": "spectral bunny 640x360 spp4 d4",
+            "ms_640x360_spp16_d4": sbvh_full,
+            "mrays_640x360_spp16_d4": mrays(MAIN, sbvh_full),
+            "profile_640x360_spp16_d4": sbvh_prof,
+            "checks": spectral_bvh_checks,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

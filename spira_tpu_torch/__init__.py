@@ -1,17 +1,18 @@
 """spira_tpu_torch — the PyTorch/CUDA port of spira_tpu.
 
 The JAX package ``spira_tpu`` is the reference; this package grows beside it
-slice by slice (see ROADMAP.md).  It has the forward render of sphere and
+slice by slice (see ROADMAP.md).  It has the forward render, RGB and
+spectral (hero wavelengths, Chebyshev SPDs, dispersion), of sphere and
 small-triangle scenes and of mesh scenes through a packed BVH: the scene
-model, the BVH builders and packers, the plain PyTorch tracers, and
-hand-written CUDA kernels for Hopper (``csrc/megakernel.cu``,
-``csrc/bvh_megakernel.cu``), behind the same ``render`` entry point.
-Nothing here imports JAX.
+model and colorimetry, the BVH builders and packers, the plain PyTorch
+tracers, and hand-written CUDA kernels for Hopper (``csrc/megakernel.cu``,
+``csrc/bvh_megakernel.cu``, ``csrc/spectral_megakernel.cu``), behind the
+same ``render`` entry point.  Nothing here imports JAX.
 """
 
 from .accel.bvh import build_two_level
 from .accel.pairs import attach_packed
-from .core import pcg, vecmath
+from .core import colorimetry, pcg, vecmath
 from .core.convert import camera_from_numpy, scene_from_numpy
 from .render import render, render_flat_engine, render_hdr, select_engine
 from .scene.bunny import bunny_camera, create_bunny_scene
@@ -39,6 +40,7 @@ __all__ = [
     "build_two_level",
     "bunny_camera",
     "camera_from_numpy",
+    "colorimetry",
     "cornell_camera",
     "create_bunny_scene",
     "create_cornell_box",

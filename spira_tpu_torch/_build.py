@@ -82,3 +82,13 @@ def load(name: str) -> Library:
             )
         os.replace(tmp, out)  # atomic: never load a half-written library
     return Library(lib=ctypes.CDLL(str(out)), path=out, build_seconds=seconds)
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, built on first
+    use, with its argument types; every entry point returns an int (0 on
+    success, else a CUDA error code)."""
+    fn = getattr(load(name).lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

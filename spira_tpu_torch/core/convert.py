@@ -2,7 +2,8 @@
 
 The JAX package's scene and camera are pytrees.  Mapped to numpy (for
 example ``jax.tree_util.tree_map(np.asarray, scene)``), their fields are
-read here by name, so the port renders exactly the reference's values: a
+read here by name, so the port renders exactly the reference's values
+(the spectral tables ``albedo_spd`` and ``emission_spd`` included): a
 camera rebuilt through ``tan`` and ``deg2rad`` may differ by an ULP between
 frameworks.  The BVH tables (``bvh``, a FlatBVH, and ``packed``, a
 PackedBVH) come across value-exact with their static fields.  Nothing here
@@ -93,6 +94,8 @@ def scene_from_numpy(obj, device=None) -> Scene:
             roughness=_t(mats.roughness, device, f32),
             ior=_t(mats.ior, device, f32),
             transmission=_t(mats.transmission, device, f32),
+            albedo_spd=_t(getattr(mats, "albedo_spd", None), device, f32),
+            emission_spd=_t(getattr(mats, "emission_spd", None), device, f32),
             cauchy_b=_t(getattr(mats, "cauchy_b", None), device, f32),
         ),
         bvh=_bvh(getattr(obj, "bvh", None), device),

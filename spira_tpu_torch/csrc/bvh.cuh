@@ -166,8 +166,9 @@ __device__ void walk_packed(const float4* __restrict__ pairs,
 
 // Spheres first (their nearest hit seeds best_t), then the packed mesh.
 // Sphere and material tables live in shared memory; pairs and leaf rows in
-// device memory.
-template <int kForm>
+// device memory.  Record strides: spheres kSph, materials kMat (the RGB
+// tables by default; spectral.cuh passes its own).
+template <int kForm, int kSph = kSphereFields, int kMat = kMatFields>
 struct PackedIntersect {
   const float* spheres;
   int n_spheres;
@@ -178,18 +179,18 @@ struct PackedIntersect {
 
   __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
     float best_t = kInf;
-    const int sphere = nearest_sphere(spheres, n_spheres, o, d, best_t);
+    const int sphere = nearest_sphere<kSph>(spheres, n_spheres, o, d, best_t);
     TriHit th{best_t, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
     walk_packed<kForm>(pairs, slots, root, o, d, th);
     SurfaceHit h;
     h.hit = th.t < kInf;
     if (!h.hit) return h;
     if (th.mid < 0.0f) {
-      return sphere_surface(spheres + sphere * kSphereFields, o, d, th.t);
+      return sphere_surface(spheres + sphere * kSph, o, d, th.t);
     }
     h.p = {o.x + th.t * d.x, o.y + th.t * d.y, o.z + th.t * d.z};
     h.n = th.n;
-    h.mat = mats + static_cast<int>(th.mid) * kMatFields;
+    h.mat = mats + static_cast<int>(th.mid) * kMat;
     return h;
   }
 };

@@ -53,8 +53,9 @@ __device__ __forceinline__ Vec3 norm3(float x, float y, float z) {
   return {x * inv, y * inv, z * inv};
 }
 
-// Nearest hit: point, unit geometric normal, and the 10 material fields
-// (albedo3 emission3 metallic roughness ior transmission).
+// Nearest hit: point, unit geometric normal, and the hit's material record
+// (RGB: albedo3 emission3 metallic roughness ior transmission; spectral:
+// spectral.cuh).
 struct SurfaceHit {
   bool hit;
   Vec3 p;
@@ -62,14 +63,16 @@ struct SurfaceHit {
   const float* mat;
 };
 
-// Nearest sphere of the (S, 16) table closer than best_t: lowers best_t
-// and returns the sphere's index, or returns -1.
+// Nearest sphere of the (S, kStride) table closer than best_t: lowers
+// best_t and returns the sphere's index, or returns -1.  A record starts
+// cx cy cz r; the RGB tables have stride 16, the spectral ones 33.
+template <int kStride = kSphereFields>
 __device__ __forceinline__ int nearest_sphere(const float* spheres,
                                               int n_spheres, Vec3 o, Vec3 d,
                                               float& best_t) {
   int best = -1;
   for (int k = 0; k < n_spheres; ++k) {
-    const float* s = spheres + k * kSphereFields;
+    const float* s = spheres + k * kStride;
     const float ocx = o.x - s[0];
     const float ocy = o.y - s[1];
     const float ocz = o.z - s[2];
@@ -91,7 +94,8 @@ __device__ __forceinline__ int nearest_sphere(const float* spheres,
   return best;
 }
 
-// The hit on sphere record `s` at distance t: point, unit normal, material.
+// The hit on sphere record `s` at distance t: point, unit normal, and the
+// material record at offset 4 (in the RGB and the spectral layouts).
 __device__ __forceinline__ SurfaceHit sphere_surface(const float* s, Vec3 o,
                                                      Vec3 d, float t) {
   SurfaceHit h;
@@ -105,8 +109,10 @@ __device__ __forceinline__ SurfaceHit sphere_surface(const float* s, Vec3 o,
 }
 
 // Brute force over every sphere, then every triangle, of tables that the
-// kernel holds in shared memory.
-struct BruteIntersect {
+// kernel holds in shared memory.  Record strides: spheres kSph, triangles
+// kTri (v0 e1 e2 n, then the material record at offset 12).
+template <int kSph, int kTri>
+struct BruteIntersectT {
   const float* spheres;
   int n_spheres;
   const float* tris;
@@ -114,11 +120,11 @@ struct BruteIntersect {
 
   __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
     float best_t = kInf;
-    int best = nearest_sphere(spheres, n_spheres, o, d, best_t);
+    int best = nearest_sphere<kSph>(spheres, n_spheres, o, d, best_t);
     bool is_tri = false;
     for (int k = 0; k < n_tris; ++k) {
       // Möller–Trumbore
-      const float* t = tris + k * kTriFields;
+      const float* t = tris + k * kTri;
       const float e1x = t[3], e1y = t[4], e1z = t[5];
       const float e2x = t[6], e2y = t[7], e2z = t[8];
       const float pvx = d.y * e2z - d.z * e2y;
@@ -150,9 +156,9 @@ struct BruteIntersect {
       return h;
     }
     if (!is_tri) {
-      return sphere_surface(spheres + best * kSphereFields, o, d, best_t);
+      return sphere_surface(spheres + best * kSph, o, d, best_t);
     }
-    const float* t = tris + best * kTriFields;
+    const float* t = tris + best * kTri;
     SurfaceHit h;
     h.hit = true;
     h.p = {o.x + best_t * d.x, o.y + best_t * d.y, o.z + best_t * d.z};
@@ -161,6 +167,9 @@ struct BruteIntersect {
     return h;
   }
 };
+
+// The RGB tables of pack_scene / pack_triangles.
+using BruteIntersect = BruteIntersectT<kSphereFields, kTriFields>;
 
 // Trace `spp` samples of one pixel; returns the summed radiance.
 // pixel: the PCG counter row * width + col (row counted from the image

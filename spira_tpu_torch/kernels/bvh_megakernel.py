@@ -318,13 +318,6 @@ _INTERSECT_ARGTYPES = (
 )
 
 
-def _fn(name, argtypes):
-    fn = getattr(_build.load("bvh_megakernel").lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_tree_tables(packed, device):
     for name, t, cols in (("pairs", packed.pairs, 16),
                           ("tri_rows", packed.tri_rows,
@@ -335,11 +328,6 @@ def _check_tree_tables(packed, device):
     if not 0 <= packed.root < packed.pairs.shape[0]:
         raise ValueError(f"packed root {packed.root} outside the "
                          f"{packed.pairs.shape[0]} pair records")
-
-
-def _launch_error(what, err):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def render_flat_bvh_megakernel(
@@ -371,14 +359,8 @@ def render_flat_bvh_megakernel(
             scene, camera, width=width, height=height, spp=spp,
             max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
         )
-    if device.type != "cuda":
-        raise ValueError(f"render_flat_bvh_megakernel runs on cuda or cpu, "
-                         f"not {device}")
-    if min(width, height, spp) < 1 or max_depth < 0:
-        raise ValueError(
-            f"need width, height, spp >= 1 and max_depth >= 0, got "
-            f"{width}x{height}, spp {spp}, max_depth {max_depth}"
-        )
+    mk._check_launch_args(device, width, height, spp, max_depth,
+                          "render_flat_bvh_megakernel")
     with torch.no_grad():
         cam = mk.pack_camera(camera).contiguous()
         sph = mk.pack_scene(scene).contiguous()
@@ -387,15 +369,11 @@ def render_flat_bvh_megakernel(
     mk._check_table("sphere table", sph, device, mk.N_SPHERE_FIELDS)
     mk._check_table("material table", mat, device, N_MAT_FIELDS)
     _check_tree_tables(packed, device)
-    smem = 4 * (cam.numel() + sph.numel() + mat.numel())
-    if smem > mk._SMEM_LIMIT:
-        raise ValueError(
-            f"scene tables take {smem} bytes, over the kernel's "
-            f"{mk._SMEM_LIMIT}-byte shared-memory budget"
-        )
+    mk._check_smem(cam, sph, mat)
     du, dv = mk._uv_scale(width, height, inclusive_uv)
     out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
-    fn = _fn("spira_bvh_megakernel_render", _RENDER_ARGTYPES)
+    fn = _build.entry("bvh_megakernel", "spira_bvh_megakernel_render",
+                      _RENDER_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
@@ -405,7 +383,7 @@ def render_flat_bvh_megakernel(
             height, spp, max_depth, seed & 0xFFFFFFFF, du, dv,
             mk._inv_spp(spp), int(camera.has_lens), stream,
         )
-    _launch_error("bvh_megakernel", err)
+    mk._launch_error("bvh_megakernel", err)
     render_flat_bvh_megakernel.launches += 1
     return out
 
@@ -447,7 +425,8 @@ def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
     mid = torch.empty(n, dtype=torch.int32, device=device)
     slot = torch.empty(n, dtype=torch.int32, device=device) if with_slot \
         else None
-    fn = _fn("spira_bvh_intersect", _INTERSECT_ARGTYPES)
+    fn = _build.entry("bvh_megakernel", "spira_bvh_intersect",
+                      _INTERSECT_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
@@ -457,7 +436,7 @@ def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
             int(packed.form == "bw"), t.data_ptr(), nrm.data_ptr(),
             mid.data_ptr(), slot.data_ptr() if with_slot else None, stream,
         )
-    _launch_error("bvh_intersect", err)
+    mk._launch_error("bvh_intersect", err)
     intersect_tile.launches += 1
     return (t, nrm, mid, slot) if with_slot else (t, nrm, mid)
 

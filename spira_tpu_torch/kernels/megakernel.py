@@ -609,13 +609,6 @@ _ARGTYPES = (
 )
 
 
-def _kernel_fn():
-    fn = _build.load("megakernel").lib.spira_megakernel_render
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_table(name, t, device, cols):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the scene on {device}")
@@ -626,6 +619,31 @@ def _check_table(name, t, device, cols):
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_launch_args(device, width, height, spp, max_depth, what):
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+    if min(width, height, spp) < 1 or max_depth < 0:
+        raise ValueError(
+            f"need width, height, spp >= 1 and max_depth >= 0, got "
+            f"{width}x{height}, spp {spp}, max_depth {max_depth}"
+        )
+
+
+def _check_smem(*tables):
+    """The tables a kernel stages in shared memory fit its budget."""
+    smem = 4 * sum(t.numel() for t in tables)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"scene tables take {smem} bytes, over the kernel's "
+            f"{_SMEM_LIMIT}-byte shared-memory budget"
+        )
+
+
+def _launch_error(what, err):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def render_flat_megakernel(
@@ -653,14 +671,8 @@ def render_flat_megakernel(
             scene, camera, width=width, height=height, spp=spp,
             max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
         )
-    if device.type != "cuda":
-        raise ValueError(f"render_flat_megakernel runs on cuda or cpu, "
-                         f"not {device}")
-    if min(width, height, spp) < 1 or max_depth < 0:
-        raise ValueError(
-            f"need width, height, spp >= 1 and max_depth >= 0, got "
-            f"{width}x{height}, spp {spp}, max_depth {max_depth}"
-        )
+    _check_launch_args(device, width, height, spp, max_depth,
+                       "render_flat_megakernel")
     with torch.no_grad():
         cam = pack_camera(camera).contiguous()
         sph = pack_scene(scene).contiguous()
@@ -668,15 +680,10 @@ def render_flat_megakernel(
     _check_table("camera table", cam, device, N_CAM_FIELDS)
     _check_table("sphere table", sph, device, N_SPHERE_FIELDS)
     _check_table("triangle table", tri, device, N_TRI_FIELDS)
-    smem = 4 * (cam.numel() + sph.numel() + tri.numel())
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"scene tables take {smem} bytes, over the kernel's "
-            f"{_SMEM_LIMIT}-byte shared-memory budget"
-        )
+    _check_smem(cam, sph, tri)
     du, dv = _uv_scale(width, height, inclusive_uv)
     out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
-    fn = _kernel_fn()
+    fn = _build.entry("megakernel", "spira_megakernel_render", _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
@@ -685,8 +692,7 @@ def render_flat_megakernel(
             seed & 0xFFFFFFFF, du, dv, _inv_spp(spp), int(camera.has_lens),
             stream,
         )
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    _launch_error("megakernel", err)
     render_flat_megakernel.launches += 1
     return out
 

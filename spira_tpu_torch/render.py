@@ -4,14 +4,19 @@ image.
 Counterpart of the entry points of :mod:`spira_tpu.render` for the slices
 the port has: sphere and small-triangle scenes (at most
 ``FUSED_TRI_LIMIT`` triangles, no BVH) and mesh scenes with packed BVH
-tables, physical semantics, RGB, full shading.  The engines are
+tables, physical semantics, RGB or spectral, full shading.  The engines
+are
 
-* ``cuda``     — the hand-written CUDA megakernel, for scenes on a CUDA
-  device (the plain tracer for scenes on the CPU);
+* ``cuda``     — the hand-written CUDA megakernel (with ``spectral=True``,
+  the spectral megakernel), for scenes on a CUDA device (the plain tracer
+  for scenes on the CPU);
 * ``cuda_bvh`` — the hand-written CUDA packed-BVH kernel, for mesh scenes
   with ``packed`` tables on a CUDA device (the plain packed walk on the
-  CPU);
-* ``fused``    — the plain PyTorch tracer, on any device.
+  CPU), RGB only;
+* ``cuda_spectral_bvh`` — the hand-written CUDA spectral packed-BVH kernel
+  (the plain version on the CPU); it renders spectrally whatever
+  ``spectral`` says, as the JAX package's ``pallas_spectral_bvh`` does;
+* ``fused``    — the plain PyTorch tracer (RGB or spectral), on any device.
 
 Every other path of the JAX renderer raises ``NotImplementedError`` naming
 the ROADMAP item (queue 1) that brings it.
@@ -28,8 +33,20 @@ from .kernels.megakernel import (
     render_flat_fused,
     render_flat_megakernel,
 )
+from .kernels.spectral_bvh import render_flat_spectral_bvh_megakernel
+from .kernels.spectral_fused import (
+    render_flat_fused_spectral,
+    render_flat_spectral_megakernel,
+)
 
-ENGINES = ("cuda", "cuda_bvh", "fused")
+ENGINES = ("cuda", "cuda_bvh", "cuda_spectral_bvh", "fused")
+#: engine -> (RGB render, spectral render)
+_ENGINE_FNS = {
+    "cuda": (render_flat_megakernel, render_flat_spectral_megakernel),
+    "cuda_bvh": (render_flat_bvh_megakernel, None),
+    "cuda_spectral_bvh": (render_flat_spectral_bvh_megakernel,) * 2,
+    "fused": (render_flat_fused, render_flat_fused_spectral),
+}
 
 
 def _not_ported(what: str, item: str):
@@ -42,27 +59,29 @@ def _not_ported(what: str, item: str):
 def select_engine(
     scene, semantics: str, spectral: bool, engine: str = "auto", camera=None
 ):
-    """Resolve the execution engine: ``cuda_bvh`` for a scene with packed
-    BVH tables on a CUDA device, ``cuda`` for a small scene on a CUDA
-    device, ``fused`` for one on the CPU, or the engine named.  A BVH scene
-    on the CPU goes to the wavefront estimator in the JAX package, which is
-    not ported yet."""
-    if spectral:
-        raise _not_ported("spectral=True", "item 12, the spectral slice")
+    """Resolve the execution engine: for a scene with packed BVH tables on
+    a CUDA device ``cuda_bvh`` (``cuda_spectral_bvh`` with ``spectral``),
+    ``cuda`` for a small scene on a CUDA device, ``fused`` for one on the
+    CPU, or the engine named.  A BVH scene on the CPU goes to the wavefront
+    estimator in the JAX package (its spectral variant too), which is not
+    ported yet."""
     if semantics != "physical":
         raise _not_ported(
-            f"semantics={semantics!r}", "item 10, the wavefront estimator"
+            f"semantics={semantics!r}" + (" with spectral=True" if spectral
+                                          else ""),
+            "item 10, the wavefront estimator",
         )
     if engine == "auto":
         if scene.packed is not None and scene.device.type == "cuda":
-            return "cuda_bvh"
+            return "cuda_spectral_bvh" if spectral else "cuda_bvh"
         for table in ("packed", "bvh"):
             if getattr(scene, table, None) is not None:
+                bvh_engine = "cuda_spectral_bvh" if spectral else "cuda_bvh"
                 raise _not_ported(
                     f"a scene with a {table!r} table on "
                     f"{scene.device.type} under engine='auto' (the BVH "
                     "kernel takes packed scenes on cuda; "
-                    "engine='cuda_bvh' runs its plain version here)",
+                    f"engine={bvh_engine!r} runs its plain version here)",
                     "item 10, the wavefront estimator",
                 )
         if not (
@@ -88,11 +107,15 @@ def render_flat_engine(
     scene, camera, *, width, height, spp=16, max_depth=4, seed=0,
     semantics="physical", inclusive_uv=True, spectral=False, engine="auto",
 ):
-    """Flat (H*W, 3) bottom-up HDR render with engine dispatch."""
+    """Flat (H*W, 3) bottom-up HDR render with engine dispatch: linear
+    RGB, or with ``spectral`` linear sRGB from the spectral XYZ film."""
     engine = select_engine(scene, semantics, spectral, engine, camera=camera)
-    fn = {"cuda": render_flat_megakernel,
-          "cuda_bvh": render_flat_bvh_megakernel,
-          "fused": render_flat_fused}[engine]
+    if engine == "cuda_bvh" and spectral:
+        raise ValueError(
+            "engine 'cuda_bvh' renders RGB only; use "
+            "engine='cuda_spectral_bvh' (or 'auto') for spectral mesh scenes"
+        )
+    fn = _ENGINE_FNS[engine][bool(spectral)]
     return fn(
         scene, camera, width=width, height=height, spp=spp,
         max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,

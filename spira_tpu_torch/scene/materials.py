@@ -9,8 +9,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..core import colorimetry as cl
 from ..core.types import tensor_dataclass
 
 
@@ -45,11 +47,12 @@ class Materials:
 
 def make_materials(records, device=None) -> Materials:
     """Build Materials from a list of dicts with keys
-    albedo, emission, metallic, roughness[, ior, transmission, cauchy_b].
+    albedo, emission, metallic, roughness[, ior, transmission, cauchy_b,
+    albedo_spd, emission_spd].
 
-    The spectral tables stay ``None``: the JAX package fills them by Smits
-    upsampling (:mod:`spira_tpu.core.colorimetry`), which the port's
-    spectral slice brings.
+    The spectral tables are the Smits upsampling of albedo and emission
+    (:func:`spira_tpu_torch.core.colorimetry.rgb_to_spd`, on the host); a
+    record's own ``albedo_spd`` or ``emission_spd`` wins over it.
     """
 
     def col(name, default):
@@ -58,14 +61,26 @@ def make_materials(records, device=None) -> Materials:
             device=device,
         )
 
+    albedo = torch.tensor(
+        [r["albedo"] for r in records], dtype=torch.float32, device=device
+    )
+    emission = col("emission", (0.0, 0.0, 0.0))
+    albedo_spd = cl.rgb_to_spd(albedo.cpu().numpy())
+    emission_spd = cl.rgb_to_spd(emission.cpu().numpy())
+    for i, r in enumerate(records):
+        if "albedo_spd" in r:
+            albedo_spd[i] = np.asarray(r["albedo_spd"], np.float32)
+        if "emission_spd" in r:
+            emission_spd[i] = np.asarray(r["emission_spd"], np.float32)
+
     return Materials(
-        albedo=torch.tensor(
-            [r["albedo"] for r in records], dtype=torch.float32, device=device
-        ),
-        emission=col("emission", (0.0, 0.0, 0.0)),
+        albedo=albedo,
+        emission=emission,
         metallic=col("metallic", 0.0),
         roughness=col("roughness", 0.5),
         ior=col("ior", 1.0),
         transmission=col("transmission", 0.0),
+        albedo_spd=torch.from_numpy(albedo_spd).to(device),
+        emission_spd=torch.from_numpy(emission_spd).to(device),
         cauchy_b=col("cauchy_b", 0.0),
     )

@@ -146,11 +146,12 @@ def test_render_engine_cuda_bvh_on_cpu(mesh):
     bvh_only = dataclasses.replace(scene, packed=None)
     with pytest.raises(NotImplementedError, match="'bvh' table"):
         sp.select_engine(bvh_only, "physical", False)
-    for kw, match in ((dict(spectral=True), "item 12"),
-                      (dict(semantics="reference"), "item 10")):
-        with pytest.raises(NotImplementedError, match=match):
-            sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1,
-                      engine="cuda_bvh", **kw)
+    with pytest.raises(ValueError, match="RGB only"):
+        sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1,
+                  engine="cuda_bvh", spectral=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1,
+                  engine="cuda_bvh", semantics="reference")
 
 
 def test_mesh_free_packed_scene_renders_as_sphere_kernel():

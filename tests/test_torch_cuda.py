@@ -1,6 +1,6 @@
 """The CUDA kernels against the port's plain versions, on the card: the
-sphere megakernel, the packed-BVH path tracer and the packed-BVH
-nearest-hit query.
+sphere megakernel, the packed-BVH path tracer, the packed-BVH nearest-hit
+query, and the spectral megakernel and spectral packed-BVH path tracer.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -17,8 +17,13 @@ import torch
 
 import spira_tpu_torch as sp
 from spira_tpu_torch.accel import pairs
+from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
 from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import megakernel as mk
+from spira_tpu_torch.kernels import spectral_bvh as sb
+from spira_tpu_torch.kernels import spectral_fused as sf
+from spira_tpu_torch.scene.geometry import empty_spheres
+from spira_tpu_torch.scene.obj import icosphere
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +226,144 @@ def test_bvh_wrapper_refusals(cuda):
         bk.intersect_tile(scene.packed, o, d.cpu())
     with pytest.raises(ValueError, match="traversal stack"):
         bk.intersect_tile(deep.packed, o, d)
+
+
+# ---------------------------------------------------------------------------
+# The spectral kernels
+# ---------------------------------------------------------------------------
+
+# name: (scene, camera, shape, atol, share of pixel-channels within atol).
+# The Cornell box's flint glass (cauchy_b 0.0042) disperses, and depth 6
+# runs Russian roulette.
+SPECTRAL_CASES = {
+    "demo_d1": ("create_scene", _default,
+                dict(width=256, height=128, spp=1, max_depth=1), 1e-5, 0.999),
+    "cornell_d6": ("create_cornell_box", _cornell,
+                   dict(width=128, height=128, spp=8, max_depth=6), 1e-4,
+                   0.99),
+    "thin_lens_d3": ("create_scene", _lens,
+                     dict(width=256, height=128, spp=4, max_depth=3), 1e-4,
+                     0.99),
+}
+
+
+def _assert_close_images(kernel, plain, atol, frac):
+    torch.cuda.synchronize()
+    kernel, plain = kernel.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(kernel).all() and kernel.std() > 1e-3
+    np.testing.assert_allclose(kernel.mean(0), plain.mean(0), rtol=MEAN_REL)
+    assert (np.abs(kernel - plain) <= atol).mean() >= frac
+
+
+@pytest.mark.parametrize("name", sorted(SPECTRAL_CASES))
+def test_spectral_kernel_matches_plain(cuda, name):
+    scene_fn, cam_fn, shape, atol, frac = SPECTRAL_CASES[name]
+    scene = getattr(sp, scene_fn)(device=cuda)
+    cam = cam_fn(shape["width"] / shape["height"], cuda)
+    kernel = sf.render_flat_spectral_megakernel(scene, cam, seed=11, **shape)
+    plain = sf.render_flat_fused_spectral(scene, cam, seed=11, **shape)
+    assert kernel.shape == (shape["width"] * shape["height"], 3)
+    _assert_close_images(kernel, plain, atol, frac)
+
+
+def _dispersive_mesh(device, form="bw"):
+    """A 20-triangle icosphere over a ground sphere, a light, and a
+    dispersive glass sphere (cauchy_b 0.01) on the specular lobe."""
+    mesh = icosphere(center=(0.0, 0.3, 0.0), radius=0.6, subdivisions=0,
+                     material=0)
+    materials = sp.make_materials([
+        dict(albedo=(0.7, 0.3, 0.3), metallic=0.0, roughness=0.5),
+        dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),
+        dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
+        dict(albedo=(1.0, 1.0, 1.0), metallic=1.0, roughness=0.0, ior=1.5,
+             transmission=1.0, cauchy_b=0.01),
+    ])
+    spheres = sp.make_spheres([((0.0, -100.5, 0.0), 100.0, 1),
+                               ((0.0, 5.0, 0.0), 1.0, 2),
+                               ((0.9, 0.0, 0.6), 0.35, 3)])
+    scene = sp.make_scene(spheres=spheres, triangles=mesh,
+                          materials=materials,
+                          bvh=build_bvh_for_triangles(mesh))
+    return sp.attach_packed(scene, form=form).to(device)
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_spectral_bvh_kernel_matches_plain(cuda, form):
+    """The dispersive icosphere scene at 128x64, spp 4, depth 6, and the
+    mesh scene (two-row leaves, a mirror) at 128x64, spp 2, depth 4."""
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), aspect_ratio=2.0,
+                         device=cuda)
+    for scene, kw in ((_dispersive_mesh(cuda, form),
+                       dict(width=128, height=64, spp=4, max_depth=6)),
+                      (_mesh(cuda, form),
+                       dict(width=128, height=64, spp=2, max_depth=4))):
+        before = sb.render_flat_spectral_bvh_megakernel.launches
+        kernel = sb.render_flat_spectral_bvh_megakernel(scene, cam, seed=3,
+                                                        **kw)
+        assert sb.render_flat_spectral_bvh_megakernel.launches == before + 1
+        plain = sb.render_flat_spectral_bvh_fused(scene, cam, seed=3, **kw)
+        _assert_close_images(kernel, plain, 1e-4, 0.99)
+
+
+def test_spectral_bvh_kernel_without_spheres(cuda):
+    scene = dataclasses.replace(_dispersive_mesh(cuda),
+                                spheres=empty_spheres(cuda))
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), aspect_ratio=2.0,
+                         device=cuda)
+    kw = dict(width=64, height=32, spp=2, max_depth=3, seed=2)
+    _assert_close_images(
+        sb.render_flat_spectral_bvh_megakernel(scene, cam, **kw),
+        sb.render_flat_spectral_bvh_fused(scene, cam, **kw), 1e-4, 0.99)
+
+
+def test_spectral_render_goes_through_kernels_and_is_deterministic(cuda):
+    """render(spectral=True) on CUDA scenes launches the spectral kernels
+    and no RGB kernel; the kernels repeat bit for bit under one seed."""
+    cornell = sp.create_cornell_box(device=cuda)
+    mesh = _dispersive_mesh(cuda)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), aspect_ratio=2.0,
+                         device=cuda)
+    assert sp.select_engine(cornell, "physical", True) == "cuda"
+    assert sp.select_engine(mesh, "physical", True) == "cuda_spectral_bvh"
+    counters = (mk.render_flat_megakernel, bk.render_flat_bvh_megakernel,
+                sf.render_flat_spectral_megakernel,
+                sb.render_flat_spectral_bvh_megakernel)
+    for scene, launched in ((cornell, 2), (mesh, 3)):
+        before = [f.launches for f in counters]
+        img = sp.render(scene, cam, 64, 32, samples_per_pixel=2,
+                        max_depth=3, spectral=True)
+        after = [f.launches for f in counters]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(k == launched) for k in range(4)]
+        assert img.std() > 0
+    kw = dict(width=64, height=16, spp=2, max_depth=3)
+    for fn, scene in ((sf.render_flat_spectral_megakernel, cornell),
+                      (sb.render_flat_spectral_bvh_megakernel, mesh)):
+        a = fn(scene, cam, seed=5, **kw)
+        b = fn(scene, cam, seed=5, **kw)
+        c = fn(scene, cam, seed=6, **kw)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert (a - c).abs().max() > 0
+
+
+def test_spectral_wrapper_refusals(cuda):
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), device=cuda)
+    kw = dict(width=16, height=8, spp=1, max_depth=1)
+    scene = sp.create_scene(device=cuda)
+    verts = np.array([[i, i % 2, -2.0] for i in range(35)], np.float32)
+    faces = np.array([[i, i + 1, i + 2] for i in range(33)])
+    big = dataclasses.replace(
+        scene, triangles=sp.make_triangles(verts, faces, 0, device=cuda))
+    with pytest.raises(ValueError, match="at most 32"):
+        sf.render_flat_spectral_megakernel(big, cam, **kw)
+    with pytest.raises(ValueError, match="camera table is on cpu"):
+        sf.render_flat_spectral_megakernel(
+            scene, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0)), **kw)
+    mesh = _dispersive_mesh(cuda)
+    deep = dataclasses.replace(mesh, packed=dataclasses.replace(
+        mesh.packed, depth=pairs.TRAVERSAL_STACK + 1))
+    with pytest.raises(ValueError, match="traversal stack"):
+        sb.render_flat_spectral_bvh_megakernel(deep, cam, **kw)
+    cpu_tables = dataclasses.replace(mesh, packed=mesh.packed.to("cpu"))
+    with pytest.raises(ValueError, match="packed pairs is on cpu"):
+        sb.render_flat_spectral_bvh_megakernel(cpu_tables, cam, **kw)

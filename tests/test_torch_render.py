@@ -118,7 +118,7 @@ def _big_mesh(scene):
 @pytest.mark.parametrize(
     "scene_fn,kw,match",
     [
-        (None, dict(spectral=True), "spectral"),
+        (None, dict(spectral=True, semantics="reference"), "spectral"),
         (None, dict(semantics="reference"), "semantics"),
         (None, dict(shading="preview"), "shading"),
         (None, dict(engine="wavefront"), "engine 'wavefront'"),
@@ -141,6 +141,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, spira_tpu_torch\n"
         "from spira_tpu_torch.kernels import megakernel, bvh_megakernel\n"
+        "from spira_tpu_torch.kernels import spectral_fused, spectral_bvh\n"
+        "from spira_tpu_torch.core import colorimetry\n"
         "from spira_tpu_torch.accel import bvh, native, pairs\n"
         "from spira_tpu_torch.scene import bunny, obj\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

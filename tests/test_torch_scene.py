@@ -55,11 +55,8 @@ def test_scene_tables_value_exact(scene_fn):
     _assert_fields_equal(
         port.materials, ref.materials,
         ("albedo", "emission", "metallic", "roughness", "ior",
-         "transmission", "cauchy_b"),
+         "transmission", "cauchy_b", "albedo_spd", "emission_spd"),
     )
-    # the spectral tables come with the spectral slice
-    assert port.materials.albedo_spd is None
-    assert port.materials.emission_spd is None
 
 
 @pytest.mark.parametrize("name", sorted(CAMERAS))
@@ -86,7 +83,8 @@ def test_converter_equals_port_scene(scene_fn):
         ("spheres", ("centers", "radii", "material")),
         ("triangles", ("v0", "e1", "e2", "normal", "material")),
         ("materials", ("albedo", "emission", "metallic", "roughness", "ior",
-                       "transmission", "cauchy_b")),
+                       "transmission", "cauchy_b", "albedo_spd",
+                       "emission_spd")),
     ):
         _assert_fields_equal(getattr(conv, part), getattr(own, part), fields)
     for port in (conv, own):
