@@ -12,8 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    megakernel (``SPHERE_CASES``), the packed-BVH nearest-hit query on
    random and primary rays of the 72,960-triangle bunny, the packed-BVH
    path tracer (``BVH_CASES``), the spectral megakernel
-   (``SPECTRAL_CASES``) and the spectral packed-BVH path tracer
-   (``SPECTRAL_BVH_CASES``);
+   (``SPECTRAL_CASES``), the spectral packed-BVH path tracer
+   (``SPECTRAL_BVH_CASES``), and the adjoint kernel against autograd
+   through the plain tracer (``GRAD_CASES``), with a central-difference
+   check of its gradients;
 3. the main paths, through the user's entry points, each with every launch
    count set to 0 just before and read just after: ``render`` of the bunny
    at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), ``intersect_tile``
@@ -22,9 +24,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    Cornell box (engine ``cuda``, the spectral megakernel) and of the bunny
    (engine ``cuda_spectral_bvh``) at the same shape; each image is checked
    against the plain version's render, and the spectral Cornell box
-   against the RGB one;
-4. timing with CUDA events (one warm-up, median of ``REPEATS``), and a
-   torch.profiler breakdown of the main-path wrappers' time on the card.
+   against the RGB one; then the differentiable step of ``bench.py``
+   (``render_flat_hybrid_grad``, MSE, ``backward``) on the sphere demo at
+   exact replay and at ``grad_spp=4``, a few gradient-descent updates of
+   the albedo, each step one forward and one adjoint launch and no plain
+   tracer call;
+4. timing with CUDA events (one warm-up, median of ``REPEATS``, of
+   ``PLAIN_REPEATS`` for the plain versions), and a
+   torch.profiler breakdown of the main-path wrappers' time on the card;
+   each kernel's bound (the larger of its float32 operations over the
+   card's peak rate and its bytes over the memory rate) from the work
+   this run's inputs need, counted with the plain versions.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
@@ -34,6 +44,7 @@ paths' PNGs there.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -45,10 +56,32 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 REPEATS = 5
+#: the plain versions, seconds a call, are reference only
+PLAIN_REPEATS = 2
 MAIN = dict(width=640, height=360, spp=16, max_depth=4)
+#: the card's peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
+#: float32 outside the tensor cores, and device-memory bandwidth
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
+#: float32 operations per unit of work, counted by hand from the CUDA
+#: sources: transcendentals, square roots and divisions count one each,
+#: the integer PCG hash counts nothing, so a bound from these is a lower
+#: bound.  Per segment (one bounce of one path): a sphere test
+#: (trace.cuh:nearest_sphere), a triangle test (nearest_tri, its
+#: determinant test passing); per BVH pop (bvh.cuh): a pair record's two
+#: slab tests; per leaf triangle: the BW or MT test; per ray of a walk:
+#: the reciprocal direction; per hit: point, normal,
+#: emission, scatter lobe, throughput, offset (RGB), plus the 8 Chebyshev
+#: SPD evaluations of 12 terms (spectral.cuh); per miss: the sky; per
+#: sample: ray generation (spectral: plus 12 sky SPDs and the CIE lobes);
+#: per replayed hit: the reverse sweep of adjoint.cuh (recomputed lobe,
+#: three norm3 adjoints, the intersection adjoint).
+OPS = dict(sphere_test=18, tri_test=51, pop=55, leaf_tri=40, ray=3,
+           hit=115, miss=10, sample=30, spectral_hit=515, spectral_miss=30,
+           spectral_sample=706, adjoint_hit=210)
 #: the shape the kernel table of PERF.md times the BVH kernel and its
 #: plain version at
 BVH_TIMED = dict(width=640, height=360, spp=4, max_depth=4)
@@ -101,6 +134,27 @@ SPECTRAL_BVH_CASES = (
     ("l: dispersive icosphere 256x256 spp4 d6", "dispersive",
      dict(width=256, height=256, spp=4, max_depth=6)),
 )
+#: adjoint-kernel cases: (name, scene key, shape, grad_spp, loss mode).
+#: VJP mode takes a seeded random cotangent; loss mode a target rendered
+#: by the plain tracer at seed 99.  Limits: loss within GRAD_LOSS_RTOL
+#: relative, each table's gradient within GRAD_REL_L2 of the plain
+#: autograd backward's, in relative L2 norm (float atomics sum in a
+#: different order, and paths near silhouettes amplify the last bits).
+GRAD_CASES = (
+    ("m: demo 128x64 spp4 d4 vjp", "demo",
+     dict(width=128, height=64, spp=4, max_depth=4), 4, False),
+    ("n: demo 640x360 spp16 d4 grad_spp4 vjp", "demo", MAIN, 4, False),
+    ("o: thin-lens demo 256x128 spp4 d3 vjp", "lens",
+     dict(width=256, height=128, spp=4, max_depth=3), 4, False),
+    ("p: cornell 256x256 spp4 d6 vjp", "cornell_sq",
+     dict(width=256, height=256, spp=4, max_depth=6), 4, False),
+    ("q: demo 640x360 spp16 d4 loss", "demo", MAIN, 16, True),
+)
+GRAD_LOSS_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
+#: the differentiable step: albedo of the red sphere and the ground
+#: perturbed as in tests/test_grad.py, plain gradient descent
+STEP_ALBEDO = ((0.2, 0.7, 0.7), (0.9, 0.2, 0.9))
+STEP_LR, STEP_SEEDS = 2.0, range(5)
 
 
 def log(*args):
@@ -265,6 +319,7 @@ def counters():
     """Every kernel wrapper with a launch count, by kernel name."""
     from spira_tpu_torch.kernels import (
         bvh_megakernel,
+        grad_megakernel,
         megakernel,
         spectral_bvh,
         spectral_fused,
@@ -277,16 +332,210 @@ def counters():
         spectral_megakernel=spectral_fused.render_flat_spectral_megakernel,
         spectral_bvh_megakernel=(
             spectral_bvh.render_flat_spectral_bvh_megakernel),
+        grad_megakernel=grad_megakernel.render_grad_megakernel,
     )
 
 
 def reset_counts():
+    from spira_tpu_torch.kernels import megakernel
+
     for fn in counters().values():
         fn.launches = 0
+    megakernel.render_flat_fused.calls = 0
 
 
 def counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    from spira_tpu_torch.kernels import megakernel
+
+    got = {name: fn.launches for name, fn in counters().items()}
+    got["plain_tracer_calls"] = megakernel.render_flat_fused.calls
+    return got
+
+
+def count_work(module, factory, fn):
+    """Run ``fn()`` (a plain version) with ``module.factory``'s intersector
+    counting the live path segments it is asked for and the hits among
+    them, and the packed walk counting its pops and leaf triangles: the
+    work a kernel does on the same inputs (the plain walk pops the records
+    the kernel's walk pops, in the same order)."""
+    from spira_tpu_torch.kernels import bvh_megakernel as bk
+
+    made = getattr(module, factory) if factory else None
+    slab, leaf_hits = bk._slab, bk._leaf_hits
+    work = dict(segments=0, hits=0, pops=0, leaf_tris=0)
+
+    def counting_slab(rec, half, *args):
+        if half == 0:
+            work["pops"] += rec.shape[0]
+        return slab(rec, half, *args)
+
+    def counting_leaf_hits(slots, form, max_leaf, ptr, cnt, *args):
+        work["leaf_tris"] += int(cnt.sum())
+        return leaf_hits(slots, form, max_leaf, ptr, cnt, *args)
+
+    def counting(*args, **kwargs):
+        intersect = made(*args, **kwargs)
+
+        def wrapped(o3, d3, active=None):
+            out = intersect(o3, d3, active)
+            live = (torch.ones_like(out[0]) if active is None
+                    else active.clone())
+            work["segments"] += int(live.sum())
+            work["hits"] += int((live & out[0]).sum())
+            return out
+
+        return wrapped
+
+    if factory:
+        setattr(module, factory, counting)
+    bk._slab, bk._leaf_hits = counting_slab, counting_leaf_hits
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        if factory:
+            setattr(module, factory, made)
+        bk._slab, bk._leaf_hits = slab, leaf_hits
+    torch.cuda.synchronize()
+    return work
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``ops`` float32 operations and ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def render_ops(work, samples, n_spheres, n_tris, spectral=False,
+               bvh=False):
+    """A path tracer's float32 operations for ``work`` (count_work) over
+    ``samples`` camera samples (OPS)."""
+    misses = work["segments"] - work["hits"]
+    per_segment = OPS["sphere_test"] * n_spheres + (
+        OPS["ray"] if bvh else OPS["tri_test"] * n_tris)
+    ops = work["segments"] * per_segment + walk_ops(work)
+    if spectral:
+        return (ops + work["hits"] * OPS["spectral_hit"]
+                + misses * OPS["spectral_miss"]
+                + samples * OPS["spectral_sample"])
+    return (ops + work["hits"] * OPS["hit"] + misses * OPS["miss"]
+            + samples * OPS["sample"])
+
+
+def walk_ops(work):
+    return work["pops"] * OPS["pop"] + work["leaf_tris"] * OPS["leaf_tri"]
+
+
+def table_bytes(*tensors):
+    return sum(4 * t.numel() for t in tensors)
+
+
+def rel_l2(kernel, plain):
+    den = float(torch.linalg.norm(plain))
+    num = float(torch.linalg.norm(kernel - plain))
+    return num / den if den > 0 else num
+
+
+def compare_grad(gk, mk, name, scene, cam, shape, grad_spp, loss_mode):
+    """The adjoint kernel against autograd through the plain tracer, same
+    tables, seed and cotangent (or target)."""
+    w, h = shape["width"], shape["height"]
+    tables = [t.detach().contiguous() for t in mk.pack_tables(scene, cam)]
+    if loss_mode:
+        pix = mk.render_flat_fused(scene, cam, seed=99, **shape)
+    else:
+        g = torch.Generator().manual_seed(5)
+        pix = (torch.rand(w * h, 3, generator=g) - 0.5).to(cam.origin.device)
+    kw = dict(loss_mode=loss_mode, grad_spp=grad_spp, seed=7, **shape)
+    loss_k, *grads_k = gk.render_grad_megakernel(scene, cam, tables, pix,
+                                                 **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss_p, *grads_p = gk.grad_tables_plain(scene, cam, tables, pix, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    out = dict(case=name, plain_ms_once=start.elapsed_time(end))
+    msg = f"[compare] {name}:"
+    ok = True
+    if loss_mode:
+        loss_rel = abs(float(loss_k) / float(loss_p) - 1.0)
+        out.update(loss=float(loss_k), loss_plain=float(loss_p),
+                   loss_rel=loss_rel)
+        msg += (f" loss {float(loss_k):.8g} plain {float(loss_p):.8g} rel "
+                f"{loss_rel:.2e} (limit {GRAD_LOSS_RTOL:g});")
+        ok &= loss_rel <= GRAD_LOSS_RTOL
+    max_abs = 0.0
+    for table, k, p in zip(("camera", "sphere", "triangle"), grads_k,
+                           grads_p):
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"{name}: {table} gradient not finite")
+        rel = rel_l2(k, p)
+        max_abs = max(max_abs, float((k - p).abs().max()) if k.numel()
+                      else 0.0)
+        out[f"{table}_rel_l2"] = rel
+        msg += (f" {table} rel L2 {rel:.2e} (|plain| "
+                f"{float(torch.linalg.norm(p)):.4g}; limit {GRAD_REL_L2:g})")
+        ok &= rel <= GRAD_REL_L2
+    out["max_abs_err"] = max_abs
+    log(msg)
+    if not ok:
+        raise AssertionError(f"{name}: adjoint kernel disagrees with the "
+                             f"plain autograd backward")
+    return out
+
+
+def with_materials(scene, **fields):
+    return dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, **fields))
+
+
+def check_finite_differences(sp, scene, cam, shape):
+    """Central differences of the forward kernel (float32, eps 2e-3) on 3
+    albedo and 3 emission entries against the adjoint kernel's gradient
+    of the same MSE, under tests/test_grad.py's rule
+    |fd - an| <= max(2e-3, 0.06 |fd|)."""
+    from spira_tpu_torch.kernels import megakernel as mk
+
+    target = torch.full((shape["width"] * shape["height"], 3), 0.25,
+                        device=cam.origin.device)
+    albedo = scene.materials.albedo.clone().requires_grad_()
+    emission = scene.materials.emission.clone().requires_grad_()
+    img = sp.render_flat_hybrid_grad(
+        with_materials(scene, albedo=albedo, emission=emission), cam,
+        seed=3, **shape)
+    ((img - target) ** 2).mean().backward()
+
+    def loss(**fields):
+        img = mk.render_flat_megakernel(with_materials(scene, **fields), cam,
+                                        seed=3, **shape)
+        return float(((img - target) ** 2).mean())
+
+    rs = np.random.default_rng(0)
+    eps, checks = 2e-3, []
+    for name, grad in (("albedo", albedo.grad), ("emission", emission.grad)):
+        base = getattr(scene.materials, name)
+        for _ in range(3):
+            i, j = int(rs.integers(base.shape[0])), int(rs.integers(3))
+            probes = []
+            for sign in (1.0, -1.0):
+                p = base.clone()
+                p[i, j] += sign * eps
+                probes.append(loss(**{name: p}))
+            fd = (probes[0] - probes[1]) / (2 * eps)
+            an = float(grad[i, j])
+            limit = max(2e-3, 0.06 * abs(fd))
+            log(f"[fd] {name}[{i},{j}]: central difference {fd:.6f}, "
+                f"adjoint {an:.6f}, |gap| {abs(fd - an):.2e} (limit "
+                f"{limit:.2e})")
+            if abs(fd - an) > limit:
+                raise AssertionError(f"{name}[{i},{j}]: gradient disagrees "
+                                     f"with central differences")
+            checks.append(dict(entry=f"{name}[{i},{j}]", fd=fd, adjoint=an))
+    return checks
 
 
 def dispersive_mesh(sp, device):
@@ -345,6 +594,7 @@ def main() -> int:
     from spira_tpu_torch import _build
     from spira_tpu_torch.io import image as img_io
     from spira_tpu_torch.kernels import bvh_megakernel as bk
+    from spira_tpu_torch.kernels import grad_megakernel as gk
     from spira_tpu_torch.kernels import megakernel as mk
     from spira_tpu_torch.kernels import spectral_bvh as sb
     from spira_tpu_torch.kernels import spectral_fused as sf
@@ -355,13 +605,26 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    names = ("megakernel", "bvh_megakernel", "spectral_megakernel")
+    names = ("megakernel", "bvh_megakernel", "spectral_megakernel",
+             "grad_megakernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.load, names)))
+    ptxas = {}
     for name, lib in libs.items():
         log(f"[build] {name}: {lib.build_seconds:.1f} s "
             f"({'built' if lib.build_seconds else 'cached'}) -> "
             f"{lib.path.name}")
+        # ptxas -v: "Compiling entry function '<mangled>'", then the
+        # stack/spill and register lines of that kernel
+        kernel = None
+        for line in lib.log.splitlines():
+            found = re.search(r"entry function '_ZN5spira(\d+)(\w+)", line)
+            if found:
+                kernel = found.group(2)[:int(found.group(1))]
+            elif kernel and ("spill" in line or "registers" in line):
+                ptxas.setdefault(kernel, []).append(line.strip())
+    for kernel, lines in ptxas.items():
+        log(f"[ptxas] {kernel}: {' | '.join(lines)}")
 
     t0 = time.perf_counter()
     bunny, info = sp.create_bunny_scene(allow_download=False, device=device)
@@ -388,6 +651,10 @@ def main() -> int:
         dispersive=(dispersive_mesh(sp, device),
                     sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
                                    aspect_ratio=1.0, device=device)),
+        lens=(sp.create_scene(device=device),
+              sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                             aspect_ratio=2.0, aperture=0.2, focus_dist=3.0,
+                             device=device)),
     )
 
     # ---- 2. each kernel against its plain version on the card
@@ -421,6 +688,19 @@ def main() -> int:
         torch.cuda.synchronize()
         spectral_bvh_checks.append(check_images(name, kernel, plain,
                                                 BVH_TOL))
+    grad_checks = []
+    for name, key, shape, grad_spp, loss_mode in GRAD_CASES:
+        scene, cam = scenes[key]
+        if key == "demo":  # the demo camera at the case's aspect
+            cam = sp.default_camera(shape["width"] / shape["height"],
+                                    device=device)
+        grad_checks.append(compare_grad(gk, mk, name, scene, cam, shape,
+                                        grad_spp, loss_mode))
+    m_shape = GRAD_CASES[0][2]
+    fd_checks = check_finite_differences(
+        sp, scenes["demo"][0],
+        sp.default_camera(m_shape["width"] / m_shape["height"],
+                          device=device), m_shape)
 
     # ---- 3. the main paths, through the user's entry points
     main_args = dict(samples_per_pixel=MAIN["spp"],
@@ -512,6 +792,62 @@ def main() -> int:
             raise AssertionError("spectral bunny path launched an RGB "
                                  "kernel")
 
+    # the differentiable step of bench.py: forward, MSE against a target
+    # rendered at seed 7, backward; gradients for every material field
+    step_target = mk.render_flat_megakernel(demo, demo_cam, seed=7, **MAIN)
+    step_fields = ("albedo", "emission", "metallic", "roughness", "ior",
+                   "transmission")
+
+    def step(albedo, seed, grad_spp):
+        leaves = {f: getattr(demo.materials, f).detach().clone()
+                  .requires_grad_() for f in step_fields}
+        leaves["albedo"] = albedo.detach().clone().requires_grad_()
+        img = sp.render_flat_hybrid_grad(
+            with_materials(demo, **leaves), demo_cam, seed=seed,
+            grad_spp=grad_spp, **MAIN)
+        loss = ((img - step_target) ** 2).mean()
+        loss.backward()
+        return loss.detach(), {f: v.grad for f, v in leaves.items()}
+
+    albedo0 = demo.materials.albedo.clone()
+    albedo0[:2] = torch.tensor(STEP_ALBEDO, device=device)
+    launches["grad_megakernel"] = 0
+    step_runs = {}
+    for grad_spp in (MAIN["spp"], 4):
+        albedo, losses = albedo0, []
+        for seed in STEP_SEEDS:
+            reset_counts()
+            loss, grads = step(albedo, seed, grad_spp)
+            torch.cuda.synchronize()
+            got = counts()
+            want = dict.fromkeys(got, 0)
+            want.update(megakernel=1, grad_megakernel=1)
+            if got != want:
+                raise AssertionError(f"step (grad_spp {grad_spp}, seed "
+                                     f"{seed}) launched {got}, not {want}")
+            for f, g in grads.items():
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"step: {f} gradient not finite")
+            for f in ("albedo", "emission"):
+                if not (grads[f][:2].abs().amax(dim=1) > 0).all():
+                    raise AssertionError(f"step: no {f} gradient on the "
+                                         f"visible materials 0 and 1")
+            launches["grad_megakernel"] += got["grad_megakernel"]
+            losses.append(float(loss))
+            albedo = (albedo - STEP_LR * grads["albedo"]).clamp(0.0, 1.0)
+        step_runs[grad_spp] = dict(
+            losses=losses, albedo_0_1=albedo[:2].tolist(),
+            last_grad_albedo_0_1=grads["albedo"][:2].tolist())
+        log(f"[main] step {w}x{h} spp{MAIN['spp']} d{MAIN['max_depth']} "
+            f"grad_spp {grad_spp}: each of {len(losses)} steps one "
+            f"megakernel and one grad_megakernel launch, no plain tracer "
+            f"call; losses under gradient descent on the albedo (lr "
+            f"{STEP_LR}): {[round(x, 6) for x in losses]}; albedo of "
+            f"materials 0, 1 now {np.round(albedo[:2].tolist(), 4).tolist()}"
+            f" (true {np.round(demo.materials.albedo[:2].tolist(), 4)})")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("gradient descent did not lower the loss")
+
     # ---- 4. timing
     def mrays(shape, ms):
         rays_ = shape["width"] * shape["height"] * shape["spp"] \
@@ -524,7 +860,7 @@ def main() -> int:
     bvh_k = time_ms(run(bk.render_flat_bvh_megakernel, bunny, bunny_cam,
                         BVH_TIMED))
     bvh_p = time_ms(run(bk.render_flat_bvh_fused, bunny, bunny_cam,
-                        BVH_TIMED))
+                        BVH_TIMED), PLAIN_REPEATS)
     bvh_full = time_ms(run(bk.render_flat_bvh_megakernel, bunny, bunny_cam,
                            MAIN))
     log(f"[time] {card}: bunny 640x360 spp4 d4 kernel {bvh_k:.3f} ms "
@@ -535,13 +871,14 @@ def main() -> int:
         f"({mrays(MAIN, bvh_full):.1f} Mrays/s)")
     isect_k = time_ms(lambda: bk.intersect_tile(bunny.packed,
                                                 *rays["primary"]))
-    isect_p = time_ms(lambda: bk.intersect_packed_plain(bunny.packed,
-                                                        *rays["primary"]))
+    isect_p = time_ms(lambda: bk.intersect_packed_plain(
+        bunny.packed, *rays["primary"]), PLAIN_REPEATS)
     log(f"[time] {card}: bunny primary rays 640x360 intersect kernel "
         f"{isect_k:.4f} ms ({w * h / (isect_k * 1e-3) / 1e6:.1f} Mrays/s), "
         f"plain {isect_p:.3f} ms, kernel/plain {isect_k / isect_p:.5f}")
     sph_k = time_ms(run(mk.render_flat_megakernel, demo, demo_cam, MAIN))
-    sph_p = time_ms(run(mk.render_flat_fused, demo, demo_cam, MAIN))
+    sph_p = time_ms(run(mk.render_flat_fused, demo, demo_cam, MAIN),
+                    PLAIN_REPEATS)
     big = dict(width=1920, height=1080, spp=256, max_depth=4)
     sph_big = time_ms(run(mk.render_flat_megakernel, demo, demo_cam, big))
     log(f"[time] {card}: demo 640x360 spp16 d4 kernel {sph_k:.3f} ms "
@@ -553,7 +890,7 @@ def main() -> int:
     spec_k = time_ms(run(sf.render_flat_spectral_megakernel, cornell,
                          cornell_cam, MAIN))
     spec_p = time_ms(run(sf.render_flat_fused_spectral, cornell,
-                         cornell_cam, MAIN))
+                         cornell_cam, MAIN), PLAIN_REPEATS)
     # the RGB kernel on the same scene: what the spectral shading costs
     rgb_cornell = time_ms(run(mk.render_flat_megakernel, cornell,
                               cornell_cam, MAIN))
@@ -565,7 +902,7 @@ def main() -> int:
     sbvh_k = time_ms(run(sb.render_flat_spectral_bvh_megakernel, bunny,
                          bunny_cam, BVH_TIMED))
     sbvh_p = time_ms(run(sb.render_flat_spectral_bvh_fused, bunny,
-                         bunny_cam, BVH_TIMED))
+                         bunny_cam, BVH_TIMED), PLAIN_REPEATS)
     sbvh_full = time_ms(run(sb.render_flat_spectral_bvh_megakernel, bunny,
                             bunny_cam, MAIN))
     log(f"[time] {card}: spectral bunny 640x360 spp4 d4 kernel "
@@ -599,12 +936,103 @@ def main() -> int:
     sbvh_prof = device_breakdown(run(sb.render_flat_spectral_bvh_megakernel,
                                      bunny, bunny_cam, MAIN))
     log_breakdown(card, "spectral bunny 640x360 spp16 d4", sbvh_prof)
+    step_ms = {g: time_ms(lambda g=g: step(albedo0, 0, g))
+               for g in (MAIN["spp"], 4)}
+    for g, ms in step_ms.items():
+        log(f"[time] {card}: differentiable step demo 640x360 spp16 d4 "
+            f"grad_spp {g}: {ms:.3f} ms ({mrays(MAIN, ms):.1f} Mrays/s)")
+    tables = [t.detach().contiguous() for t in mk.pack_tables(demo,
+                                                               demo_cam)]
+    cot = torch.rand(w * h, 3, generator=torch.Generator().manual_seed(5)
+                     ).to(device)
+    vjp_ms = {g: time_ms(lambda g=g: gk.render_grad_megakernel(
+        demo, demo_cam, tables, cot, loss_mode=False, grad_spp=g, **MAIN))
+        for g in (MAIN["spp"], 4)}
+    # a zero cotangent skips every gradient atomicAdd and leaves the rest
+    # of the work as it is: the atomics' share of the time
+    zeros = torch.zeros_like(cot)
+    vjp_zero_ms = time_ms(lambda: gk.render_grad_megakernel(
+        demo, demo_cam, tables, zeros, loss_mode=False, grad_spp=MAIN["spp"],
+        **MAIN))
+    loss_k = time_ms(lambda: gk.render_grad_megakernel(
+        demo, demo_cam, tables, step_target, loss_mode=True,
+        grad_spp=MAIN["spp"], **MAIN))
+    loss_p = grad_checks[4]["plain_ms_once"]
+    log(f"[time] {card}: adjoint kernel alone, VJP mode 640x360 spp16 d4: "
+        f"grad_spp 16 {vjp_ms[16]:.3f} ms (zero cotangent, no atomics: "
+        f"{vjp_zero_ms:.3f} ms), grad_spp 4 {vjp_ms[4]:.3f} ms; "
+        f"loss mode (forward at spp 16 + replay of 16) {loss_k:.3f} ms, "
+        f"plain version (one call, case q) {loss_p:.3f} ms, kernel/plain "
+        f"{loss_k / loss_p:.5f}")
+    step_prof = device_breakdown(lambda: step(albedo0, 0, MAIN["spp"]))
+    log_breakdown(card, "differentiable step 640x360 spp16 d4 exact "
+                  "replay", step_prof)
+    if not all(math.isfinite(x) for x in (*step_ms.values(),
+                                          *vjp_ms.values(), vjp_zero_ms,
+                                          loss_k)):
+        raise AssertionError("timing failed")
+
+    # ---- each kernel's bound, from the work this run's inputs need
+    n_px = w * h
+    sph_work = count_work(mk, "make_brute_intersect",
+                          run(mk.render_flat_fused, demo, demo_cam, MAIN))
+    bvh_work = count_work(bk, "make_packed_intersect",
+                          run(bk.render_flat_bvh_fused, bunny, bunny_cam,
+                              BVH_TIMED))
+    spec_work = count_work(sf, "make_brute_intersect_spectral",
+                           run(sf.render_flat_fused_spectral, cornell,
+                               cornell_cam, MAIN))
+    sbvh_work = count_work(sb, "make_packed_intersect_spectral",
+                           run(sb.render_flat_spectral_bvh_fused, bunny,
+                               bunny_cam, BVH_TIMED))
+    isect_work = count_work(None, None, lambda: bk.intersect_packed_plain(
+        bunny.packed, *rays["primary"]))
+    log(f"[work] on the timed inputs: demo {sph_work}, bunny spp4 "
+        f"{bvh_work}, bunny primary rays {isect_work}, spectral cornell "
+        f"{spec_work}, spectral bunny spp4 {sbvh_work}")
+    out_bytes = 12 * n_px
+    bvh_tables = table_bytes(bunny.packed.pairs, bunny.packed.tri_rows)
+    demo_tables = table_bytes(*tables)
+    n_bunny_sph = bunny.spheres.count
+    sph_ops = render_ops(sph_work, n_px * MAIN["spp"], demo.spheres.count, 0)
+    bounds = dict(
+        megakernel=bound(sph_ops, demo_tables + out_bytes),
+        bvh_megakernel=bound(
+            render_ops(bvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
+                       bvh=True), bvh_tables + out_bytes),
+        # bytes: the rays in, t, normal and material id out, the tables
+        bvh_intersect=bound(n_px * OPS["ray"] + walk_ops(isect_work),
+                            bvh_tables + n_px * (24 + 20)),
+        spectral_megakernel=bound(
+            render_ops(spec_work, n_px * MAIN["spp"], cornell.spheres.count,
+                       cornell.triangles.count, spectral=True),
+            out_bytes),
+        spectral_bvh_megakernel=bound(
+            render_ops(sbvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
+                       spectral=True, bvh=True), bvh_tables + out_bytes),
+        # loss mode at exact replay: the forward, the replay's forward,
+        # and the reverse sweep of every replayed hit; bytes: tables,
+        # target, gradient tables
+        grad_megakernel=bound(2 * sph_ops + sph_work["hits"]
+                              * OPS["adjoint_hit"],
+                              2 * demo_tables + out_bytes + 8),
+    )
+    for name, (ms, by) in bounds.items():
+        log(f"[bound] {card}: {name} {ms:.4f} ms, by {by} (F32 peak "
+            f"{F32_PEAK:.3g} FLOP/s, memory {HBM_RATE:.3g} B/s)")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
+
+    def bound_keys(name):
+        ms, by = bounds[name]
+        # no single PyTorch call computes a path tracer, a BVH walk or
+        # its adjoint
+        return dict(bound_ms=ms, bound_by=by, library_ms=None)
 
     print(json.dumps({"kernels": [
         {
             "name": "megakernel",
             "route": "cuda",
+            **bound_keys("megakernel"),
             "source": "spira_tpu_torch/csrc/megakernel.cu",
             "replaces": "spira_tpu/kernels/megakernel.py:504",
             "launches": launches["megakernel"],
@@ -619,6 +1047,7 @@ def main() -> int:
         {
             "name": "bvh_megakernel",
             "route": "cuda",
+            **bound_keys("bvh_megakernel"),
             "source": "spira_tpu_torch/csrc/bvh_megakernel.cu",
             "replaces": "spira_tpu/kernels/bvh_megakernel.py:1036",
             "launches": launches["bvh_megakernel"],
@@ -634,6 +1063,7 @@ def main() -> int:
         {
             "name": "bvh_intersect",
             "route": "cuda",
+            **bound_keys("bvh_intersect"),
             "source": "spira_tpu_torch/csrc/bvh_megakernel.cu",
             "replaces": "spira_tpu/kernels/bvh_megakernel.py:1134",
             "launches": launches["bvh_intersect"],
@@ -646,6 +1076,7 @@ def main() -> int:
         {
             "name": "spectral_megakernel",
             "route": "cuda",
+            **bound_keys("spectral_megakernel"),
             "source": "spira_tpu_torch/csrc/spectral_megakernel.cu",
             "replaces": "spira_tpu/kernels/spectral_fused.py:650",
             "launches": launches["spectral_megakernel"],
@@ -660,6 +1091,7 @@ def main() -> int:
         {
             "name": "spectral_bvh_megakernel",
             "route": "cuda",
+            **bound_keys("spectral_bvh_megakernel"),
             "source": "spira_tpu_torch/csrc/spectral_megakernel.cu",
             "replaces": "spira_tpu/kernels/spectral_bvh.py:155",
             "launches": launches["spectral_bvh_megakernel"],
@@ -671,6 +1103,30 @@ def main() -> int:
             "mrays_640x360_spp16_d4": mrays(MAIN, sbvh_full),
             "profile_640x360_spp16_d4": sbvh_prof,
             "checks": spectral_bvh_checks,
+        },
+        {
+            "name": "grad_megakernel",
+            "route": "cuda",
+            **bound_keys("grad_megakernel"),
+            "source": "spira_tpu_torch/csrc/grad_megakernel.cu",
+            "replaces": "spira_tpu/kernels/grad_megakernel.py:57",
+            "launches": launches["grad_megakernel"],
+            "max_abs_err": max(c["max_abs_err"] for c in grad_checks),
+            "ms": loss_k,
+            "plain_ms": loss_p,
+            "shape": "loss mode, demo 640x360 spp16 d4, exact replay",
+            "vjp_ms_grad_spp16": vjp_ms[16],
+            "vjp_ms_grad_spp4": vjp_ms[4],
+            "vjp_ms_grad_spp16_zero_cotangent": vjp_zero_ms,
+            "step_ms_grad_spp16": step_ms[16],
+            "step_ms_grad_spp4": step_ms[4],
+            "step_mrays_grad_spp16": mrays(MAIN, step_ms[16]),
+            "step_mrays_grad_spp4": mrays(MAIN, step_ms[4]),
+            "step_profile_640x360_spp16_d4": step_prof,
+            "step_runs": step_runs,
+            "ptxas": ptxas.get("grad_megakernel", []),
+            "checks": grad_checks,
+            "finite_differences": fd_checks,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

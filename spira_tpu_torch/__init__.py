@@ -7,13 +7,18 @@ small-triangle scenes and of mesh scenes through a packed BVH: the scene
 model and colorimetry, the BVH builders and packers, the plain PyTorch
 tracers, and hand-written CUDA kernels for Hopper (``csrc/megakernel.cu``,
 ``csrc/bvh_megakernel.cu``, ``csrc/spectral_megakernel.cu``), behind the
-same ``render`` entry point.  Nothing here imports JAX.
+same ``render`` entry point; and the differentiable step of sphere and
+small-triangle scenes (``render_flat_hybrid_grad``,
+``render_mse_loss_and_grads``), whose gradients come from a hand-written
+adjoint kernel (``csrc/grad_megakernel.cu``).  Nothing here imports JAX.
 """
 
 from .accel.bvh import build_two_level
 from .accel.pairs import attach_packed
 from .core import colorimetry, pcg, vecmath
 from .core.convert import camera_from_numpy, scene_from_numpy
+from .kernels.grad_megakernel import render_mse_loss_and_grads
+from .kernels.megakernel import render_flat_hybrid_grad
 from .render import render, render_flat_engine, render_hdr, select_engine
 from .scene.bunny import bunny_camera, create_bunny_scene
 from .scene.camera import Camera, default_camera, make_camera
@@ -55,7 +60,9 @@ __all__ = [
     "pcg",
     "render",
     "render_flat_engine",
+    "render_flat_hybrid_grad",
     "render_hdr",
+    "render_mse_loss_and_grads",
     "scene_from_numpy",
     "select_engine",
     "vecmath",

@@ -28,6 +28,8 @@ NVCC_FLAGS = (
     # no FMA contraction and no fast-math: the kernel keeps the plain
     # version's rounding (precise sqrtf/logf/sinf/cosf, IEEE division)
     "-fmad=false",
+    # ptxas reports each kernel's registers, stack frame and spills
+    "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
@@ -37,6 +39,7 @@ class Library:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when the cached library was loaded
+    log: str = ""  # nvcc's output (ptxas -v) when built here
 
 
 def _nvcc() -> str:
@@ -68,6 +71,7 @@ def load(name: str) -> Library:
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
     seconds = 0.0
+    log = ""
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -81,7 +85,9 @@ def load(name: str) -> Library:
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)  # atomic: never load a half-written library
-    return Library(lib=ctypes.CDLL(str(out)), path=out, build_seconds=seconds)
+        log = proc.stdout + proc.stderr
+    return Library(lib=ctypes.CDLL(str(out)), path=out, build_seconds=seconds,
+                   log=log)
 
 
 def entry(name: str, symbol: str, argtypes):

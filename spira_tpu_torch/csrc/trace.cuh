@@ -108,6 +108,53 @@ __device__ __forceinline__ SurfaceHit sphere_surface(const float* s, Vec3 o,
   return h;
 }
 
+// Nearest triangle of the (T, kStride) table closer than best_t
+// (Möller–Trumbore): lowers best_t and returns the triangle's index, or
+// returns -1.  A record starts v0 e1 e2 (then the unit normal at offset 9).
+template <int kStride = kTriFields>
+__device__ __forceinline__ int nearest_tri(const float* tris, int n_tris,
+                                           Vec3 o, Vec3 d, float& best_t) {
+  int best = -1;
+  for (int k = 0; k < n_tris; ++k) {
+    const float* t = tris + k * kStride;
+    const float e1x = t[3], e1y = t[4], e1z = t[5];
+    const float e2x = t[6], e2y = t[7], e2z = t[8];
+    const float pvx = d.y * e2z - d.z * e2y;
+    const float pvy = d.z * e2x - d.x * e2z;
+    const float pvz = d.x * e2y - d.y * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    if (!(fabsf(det) > 1e-9f)) continue;
+    const float inv_det = 1.0f / det;
+    const float tvx = o.x - t[0];
+    const float tvy = o.y - t[1];
+    const float tvz = o.z - t[2];
+    const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    const float vv = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
+    const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+    if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin &&
+        tt < best_t) {
+      best_t = tt;
+      best = k;
+    }
+  }
+  return best;
+}
+
+// The hit on triangle record `t` at distance t_hit: point, the record's
+// unit normal, and the material record at offset 12.
+__device__ __forceinline__ SurfaceHit tri_surface(const float* t, Vec3 o,
+                                                  Vec3 d, float t_hit) {
+  SurfaceHit h;
+  h.hit = true;
+  h.p = {o.x + t_hit * d.x, o.y + t_hit * d.y, o.z + t_hit * d.z};
+  h.n = {t[9], t[10], t[11]};
+  h.mat = t + kTriMat;
+  return h;
+}
+
 // Brute force over every sphere, then every triangle, of tables that the
 // kernel holds in shared memory.  Record strides: spheres kSph, triangles
 // kTri (v0 e1 e2 n, then the material record at offset 12).
@@ -120,56 +167,116 @@ struct BruteIntersectT {
 
   __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
     float best_t = kInf;
-    int best = nearest_sphere<kSph>(spheres, n_spheres, o, d, best_t);
-    bool is_tri = false;
-    for (int k = 0; k < n_tris; ++k) {
-      // Möller–Trumbore
-      const float* t = tris + k * kTri;
-      const float e1x = t[3], e1y = t[4], e1z = t[5];
-      const float e2x = t[6], e2y = t[7], e2z = t[8];
-      const float pvx = d.y * e2z - d.z * e2y;
-      const float pvy = d.z * e2x - d.x * e2z;
-      const float pvz = d.x * e2y - d.y * e2x;
-      const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-      if (!(fabsf(det) > 1e-9f)) continue;
-      const float inv_det = 1.0f / det;
-      const float tvx = o.x - t[0];
-      const float tvy = o.y - t[1];
-      const float tvz = o.z - t[2];
-      const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-      const float qvx = tvy * e1z - tvz * e1y;
-      const float qvy = tvz * e1x - tvx * e1z;
-      const float qvz = tvx * e1y - tvy * e1x;
-      const float vv = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
-      const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-      if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin &&
-          tt < best_t) {
-        best_t = tt;
-        best = k;
-        is_tri = true;
-      }
-    }
-
+    const int best = nearest_sphere<kSph>(spheres, n_spheres, o, d, best_t);
+    const int best_tri = nearest_tri<kTri>(tris, n_tris, o, d, best_t);
     if (!(best_t < kInf)) {
       SurfaceHit h;
       h.hit = false;
       return h;
     }
-    if (!is_tri) {
+    if (best_tri < 0) {
       return sphere_surface(spheres + best * kSph, o, d, best_t);
     }
-    const float* t = tris + best * kTri;
-    SurfaceHit h;
-    h.hit = true;
-    h.p = {o.x + best_t * d.x, o.y + best_t * d.y, o.z + best_t * d.z};
-    h.n = {t[9], t[10], t[11]};
-    h.mat = t + kTriMat;
-    return h;
+    return tri_surface(tris + best_tri * kTri, o, d, best_t);
   }
 };
 
 // The RGB tables of pack_scene / pack_triangles.
 using BruteIntersect = BruteIntersectT<kSphereFields, kTriFields>;
+
+// Sample s's camera ray (pinhole, or thin lens from the raygen draw's
+// spare outputs); `base` is the sample's first PCG stream id.
+__device__ __forceinline__ void camera_ray(const float* cam, bool has_lens,
+                                           uint32_t pixel, uint32_t s32,
+                                           uint32_t base, uint32_t seed,
+                                           float row_f, float col_f, float du,
+                                           float dv, Vec3& o, Vec3& d) {
+  const Uniform4 rg = uniform4(pixel, s32, base, seed);
+  const float u = (col_f + rg.x) / du;
+  const float v = (row_f + rg.y) / dv;
+  const float dx = cam[3] + u * cam[6] + v * cam[9] - cam[0];
+  const float dy = cam[4] + u * cam[7] + v * cam[10] - cam[1];
+  const float dz = cam[5] + u * cam[8] + v * cam[11] - cam[2];
+  if (has_lens) {
+    const float rad = cam[18] * sqrtf(rg.z);
+    const float phi = kTwoPi * rg.w;
+    const float cp = cosf(phi);
+    const float sp = sinf(phi);
+    const float offx = rad * (cp * cam[12] + sp * cam[15]);
+    const float offy = rad * (cp * cam[13] + sp * cam[16]);
+    const float offz = rad * (cp * cam[14] + sp * cam[17]);
+    d = norm3(dx - offx, dy - offy, dz - offz);
+    o = {cam[0] + offx, cam[1] + offy, cam[2] + offz};
+  } else {
+    d = norm3(dx, dy, dz);
+    o = {cam[0], cam[1], cam[2]};
+  }
+}
+
+// The scattered direction at a hit: the specular lobe (mirror plus
+// roughness fuzz, and the dielectric sub-lobe) where lobe.x < metallic,
+// else the cosine-weighted diffuse lobe.  n faces the incoming ray d;
+// m is the hit's 10-field material record; `bounce` is the bounce's first
+// PCG stream id.
+__device__ __forceinline__ Vec3 scatter_dir(Vec3 d, Vec3 n, bool entering,
+                                            const float* m,
+                                            const Uniform4& lobe,
+                                            uint32_t pixel, uint32_t s32,
+                                            uint32_t bounce, uint32_t seed) {
+  const float d_dot_n = dot3(d, n);
+  Vec3 nd;
+  if (lobe.x < m[6]) {
+    // ---- specular lobe: mirror + roughness fuzz
+    const Uniform4 f = uniform4(pixel, s32, bounce + kSFuzz, seed);
+    float g1, g2, g3, g4;
+    box_muller(f.x, f.y, g1, g2);
+    box_muller(f.z, f.w, g3, g4);
+    const float rx = d.x - 2.0f * d_dot_n * n.x;
+    const float ry = d.y - 2.0f * d_dot_n * n.y;
+    const float rz = d.z - 2.0f * d_dot_n * n.z;
+    const Vec3 fz = norm3(g1, g2, g3);
+    const float rough = m[7];
+    nd = norm3(rx + rough * fz.x, ry + rough * fz.y, rz + rough * fz.z);
+    // ---- dielectric sub-lobe (Schlick Fresnel + Snell)
+    const Uniform4 gl = uniform4(pixel, s32, bounce + kSGlass, seed);
+    if (gl.x < m[9]) {
+      const float ior = m[8];
+      const float eta = entering ? 1.0f / ior : ior;
+      const float cos_i = fminf(fmaxf(-d_dot_n, 0.0f), 1.0f);
+      const float sin2_t = eta * eta * fmaxf(0.0f, 1.0f - cos_i * cos_i);
+      const bool tir = sin2_t > 1.0f;
+      const float q = (1.0f - ior) / (1.0f + ior);
+      const float r0 = q * q;
+      const float one_m = 1.0f - cos_i;
+      const float schlick =
+          r0 + (1.0f - r0) * one_m * one_m * one_m * one_m * one_m;
+      if (!(tir || gl.y < schlick)) {
+        const float cos_t = sqrtf(1.0f - sin2_t);
+        const float k = eta * cos_i - cos_t;
+        nd = norm3(eta * d.x + k * n.x, eta * d.y + k * n.y,
+                   eta * d.z + k * n.z);
+      }
+    }
+  } else {
+    // ---- diffuse lobe: cosine hemisphere via disk projection
+    const float phi = kTwoPi * lobe.z;
+    const float sq = sqrtf(lobe.w);
+    const float ddx = cosf(phi) * sq;
+    const float ddy = sinf(phi) * sq;
+    const float ddz = sqrtf(fmaxf(0.0f, 1.0f - lobe.w));
+    const bool pick_y = fabsf(n.x) > 0.1f;
+    const float ax = pick_y ? 0.0f : 1.0f;
+    const float ay = pick_y ? 1.0f : 0.0f;
+    const Vec3 bu = norm3(ay * n.z, -ax * n.z, ax * n.y - ay * n.x);
+    const float bvx = n.y * bu.z - n.z * bu.y;
+    const float bvy = n.z * bu.x - n.x * bu.z;
+    const float bvz = n.x * bu.y - n.y * bu.x;
+    nd = norm3(ddx * bu.x + ddy * bvx + ddz * n.x,
+               ddx * bu.y + ddy * bvy + ddz * n.y,
+               ddx * bu.z + ddy * bvz + ddz * n.z);
+  }
+  return nd;
+}
 
 // Trace `spp` samples of one pixel; returns the summed radiance.
 // pixel: the PCG counter row * width + col (row counted from the image
@@ -184,29 +291,9 @@ __device__ Vec3 trace_pixel(const Intersect& intersect, const float* cam,
   for (int s = 0; s < spp; ++s) {
     const uint32_t s32 = static_cast<uint32_t>(s);
     const uint32_t base = s32 * per_sample;
-
-    // ---- ray generation (pinhole, or thin lens from the spare draws)
-    const Uniform4 rg = uniform4(pixel, s32, base, seed);
-    const float u = (col_f + rg.x) / du;
-    const float v = (row_f + rg.y) / dv;
-    float dx = cam[3] + u * cam[6] + v * cam[9] - cam[0];
-    float dy = cam[4] + u * cam[7] + v * cam[10] - cam[1];
-    float dz = cam[5] + u * cam[8] + v * cam[11] - cam[2];
     Vec3 o, d;
-    if (has_lens) {
-      const float rad = cam[18] * sqrtf(rg.z);
-      const float phi = kTwoPi * rg.w;
-      const float cp = cosf(phi);
-      const float sp = sinf(phi);
-      const float offx = rad * (cp * cam[12] + sp * cam[15]);
-      const float offy = rad * (cp * cam[13] + sp * cam[16]);
-      const float offz = rad * (cp * cam[14] + sp * cam[17]);
-      d = norm3(dx - offx, dy - offy, dz - offz);
-      o = {cam[0] + offx, cam[1] + offy, cam[2] + offz};
-    } else {
-      d = norm3(dx, dy, dz);
-      o = {cam[0], cam[1], cam[2]};
-    }
+    camera_ray(cam, has_lens, pixel, s32, base, seed, row_f, col_f, du, dv, o,
+               d);
 
     float tr = 1.0f, tg = 1.0f, tb = 1.0f;
     float lr = 0.0f, lg = 0.0f, lb = 0.0f;
@@ -232,58 +319,8 @@ __device__ Vec3 trace_pixel(const Intersect& intersect, const float* cam,
 
       const uint32_t bounce = base + static_cast<uint32_t>(b) * kStreams;
       const Uniform4 lobe = uniform4(pixel, s32, bounce + kSLobe, seed);
-      const float d_dot_n = dot3(d, n);
-      Vec3 nd;
-      if (lobe.x < m[6]) {
-        // ---- specular lobe: mirror + roughness fuzz
-        const Uniform4 f = uniform4(pixel, s32, bounce + kSFuzz, seed);
-        float g1, g2, g3, g4;
-        box_muller(f.x, f.y, g1, g2);
-        box_muller(f.z, f.w, g3, g4);
-        const float rx = d.x - 2.0f * d_dot_n * n.x;
-        const float ry = d.y - 2.0f * d_dot_n * n.y;
-        const float rz = d.z - 2.0f * d_dot_n * n.z;
-        const Vec3 fz = norm3(g1, g2, g3);
-        const float rough = m[7];
-        nd = norm3(rx + rough * fz.x, ry + rough * fz.y, rz + rough * fz.z);
-        // ---- dielectric sub-lobe (Schlick Fresnel + Snell)
-        const Uniform4 gl = uniform4(pixel, s32, bounce + kSGlass, seed);
-        if (gl.x < m[9]) {
-          const float ior = m[8];
-          const float eta = entering ? 1.0f / ior : ior;
-          const float cos_i = fminf(fmaxf(-d_dot_n, 0.0f), 1.0f);
-          const float sin2_t = eta * eta * fmaxf(0.0f, 1.0f - cos_i * cos_i);
-          const bool tir = sin2_t > 1.0f;
-          const float q = (1.0f - ior) / (1.0f + ior);
-          const float r0 = q * q;
-          const float one_m = 1.0f - cos_i;
-          const float schlick =
-              r0 + (1.0f - r0) * one_m * one_m * one_m * one_m * one_m;
-          if (!(tir || gl.y < schlick)) {
-            const float cos_t = sqrtf(1.0f - sin2_t);
-            const float k = eta * cos_i - cos_t;
-            nd = norm3(eta * d.x + k * n.x, eta * d.y + k * n.y,
-                       eta * d.z + k * n.z);
-          }
-        }
-      } else {
-        // ---- diffuse lobe: cosine hemisphere via disk projection
-        const float phi = kTwoPi * lobe.z;
-        const float sq = sqrtf(lobe.w);
-        const float ddx = cosf(phi) * sq;
-        const float ddy = sinf(phi) * sq;
-        const float ddz = sqrtf(fmaxf(0.0f, 1.0f - lobe.w));
-        const bool pick_y = fabsf(n.x) > 0.1f;
-        const float ax = pick_y ? 0.0f : 1.0f;
-        const float ay = pick_y ? 1.0f : 0.0f;
-        const Vec3 bu = norm3(ay * n.z, -ax * n.z, ax * n.y - ay * n.x);
-        const float bvx = n.y * bu.z - n.z * bu.y;
-        const float bvy = n.z * bu.x - n.x * bu.z;
-        const float bvz = n.x * bu.y - n.y * bu.x;
-        nd = norm3(ddx * bu.x + ddy * bvx + ddz * n.x,
-                   ddx * bu.y + ddy * bvy + ddz * n.y,
-                   ddx * bu.z + ddy * bvz + ddz * n.z);
-      }
+      const Vec3 nd = scatter_dir(d, n, entering, m, lobe, pixel, s32, bounce,
+                                  seed);
 
       // ---- throughput *= albedo, then Russian roulette
       float ntr = tr * m[0];

@@ -15,6 +15,11 @@ ways:
   differentiable: the double-``where`` guards keep NaN out of the masked-off
   branches' gradients, and the Russian-roulette probability is detached.
 
+:func:`render_flat_hybrid_grad` is the differentiable step: the forward of
+:func:`render_flat_megakernel` with, as its backward, the adjoint kernel
+of :mod:`.grad_megakernel` (``csrc/grad_megakernel.cu``) on the card, or
+autograd through :func:`render_flat_fused` (``remat=True``) on the CPU.
+
 Randomness is the PCG4D counter hash (:mod:`spira_tpu_torch.core.pcg`):
 both versions draw the same numbers for the same (pixel, sample, stream,
 seed).
@@ -26,6 +31,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import _build
 from ..core import pcg
@@ -59,6 +65,14 @@ def _norm3(x, y, z):
     # CUDA kernel uses the correctly rounded form.
     inv = 1.0 / torch.sqrt(x * x + y * y + z * z + 1e-20)
     return x * inv, y * inv, z * inv
+
+
+def true_divide(x, d: float):
+    """x / d for a Python number d, rounded as one IEEE division on every
+    device, as the kernels divide: on the card torch divides a tensor by a
+    Python number as a product with the number's reciprocal, one rounding
+    more."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -229,6 +243,8 @@ def trace_tile(
     max_depth: int,
     du: float,
     dv: float,
+    remat: bool = False,
+    sample_offset: int = 0,
     intersect_fn=None,
 ):
     """Trace ``spp`` samples for a batch of pixels; returns summed (r, g, b).
@@ -239,6 +255,12 @@ def trace_tile(
     thin-lens extension (u, v basis, lens radius); spheres: list of
     16-scalar tuples (packed by :func:`pack_scene`); triangles: list of
     24-scalar tuples (packed by :func:`pack_triangles`).
+
+    ``remat=True`` checkpoints each sample
+    (``torch.utils.checkpoint``, non-reentrant): autograd keeps only the
+    running sums and replays a sample's paths in the backward pass, so the
+    backward's memory stays one sample deep.  ``sample_offset`` shifts the
+    PCG sample index (samples ``sample_offset .. sample_offset + spp - 1``).
 
     ``intersect_fn`` (``(o3, d3, active) -> (hit, p3, n3, mats10)``)
     overrides the nearest-hit query, so that other intersectors share the
@@ -256,8 +278,8 @@ def trace_tile(
 
     def sample_body(s):
         ju, jv, lu1, lu2 = pcg.uniform4(pixel, s, stream_id(s, 0, 0), seed)
-        u = (col_f + ju) / du
-        v = (row_f + jv) / dv
+        u = true_divide(col_f + ju, du)
+        v = true_divide(row_f + jv, dv)
         dx = llcx + u * hx + v * vx - ox0
         dy = llcy + u * hy + v * vy - oy0
         dz = llcz + u * hz + v * vz - oz0
@@ -347,8 +369,15 @@ def trace_tile(
             cos_i = torch.clamp(-d_dot_n, 0.0, 1.0)
             sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
             tir = sin2_t > 1.0
+            # sqrt'(0) is infinite: guard the argument wherever cos_t is 0
+            # (sin2_t >= 1, also at exactly 1, e.g. a grazing ray whose
+            # cos_i^2 rounds away), so that a lane whose refraction is not
+            # taken cannot turn its zero cotangent into inf * 0 = NaN.
+            refracts = sin2_t < 1.0
             cos_t = torch.where(
-                tir, 0.0, torch.sqrt(torch.where(tir, 1.0, 1.0 - sin2_t))
+                refracts,
+                torch.sqrt(torch.where(refracts, 1.0 - sin2_t, 1.0)),
+                0.0,
             )
             fx = eta * dx + (eta * cos_i - cos_t) * nx
             fy = eta * dy + (eta * cos_i - cos_t) * ny
@@ -438,8 +467,11 @@ def trace_tile(
         return lr, lg, lb
 
     acc_r = acc_g = acc_b = torch.zeros_like(row_f)
-    for s in range(spp):
-        lr, lg, lb = sample_body(s)
+    for s in range(sample_offset, sample_offset + spp):
+        if remat:
+            lr, lg, lb = checkpoint(sample_body, s, use_reentrant=False)
+        else:
+            lr, lg, lb = sample_body(s)
         acc_r, acc_g, acc_b = acc_r + lr, acc_g + lg, acc_b + lb
     return acc_r, acc_g, acc_b
 
@@ -509,6 +541,12 @@ def pack_camera(camera):
     )[None, :]
 
 
+def pack_tables(scene, camera):
+    """The (1, 20) camera, (S, 16) sphere and (T, 24) triangle tables the
+    tracers read, differentiable in every float field they carry."""
+    return pack_camera(camera), pack_scene(scene), pack_triangles(scene)
+
+
 def cam_tuple(cam_arr, has_lens: bool):
     """Scalar camera tuple for the tracers: 12 pinhole fields, or 19 with
     the thin-lens extension (u, v basis + lens_radius)."""
@@ -549,22 +587,30 @@ def render_flat_fused(
     max_depth: int = 4,
     seed: int = 0,
     inclusive_uv: bool = True,
+    remat: bool = False,
+    tables=None,
 ):
     """Plain-PyTorch render → flat (H*W, 3) bottom-up HDR buffer.
 
-    Same math and RNG as the CUDA kernel, on the scene's device."""
+    Same math and RNG as the CUDA kernel, on the scene's device.
+    ``remat`` checkpoints each sample (:func:`trace_tile`); ``tables``, the
+    (camera, sphere, triangle) tables of :func:`pack_tables`, are traced in
+    place of packing ``scene`` and ``camera`` (the differentiable step's
+    backward differentiates through them).  Each call adds one to
+    ``render_flat_fused.calls``."""
+    render_flat_fused.calls += 1
     _check_fused_supported(scene)
     device = scene.device
-    cam = cam_tuple(pack_camera(camera), camera.has_lens)
-    sph_arr = pack_scene(scene)
+    cam_arr, sph_arr, tri_arr = (
+        tables if tables is not None else pack_tables(scene, camera))
+    cam = cam_tuple(cam_arr, camera.has_lens)
     spheres = [
         tuple(sph_arr[k, f] for f in range(14))
-        for k in range(scene.spheres.count)
+        for k in range(sph_arr.shape[0])
     ]
-    tri_arr = pack_triangles(scene)
     triangles = [
         tuple(tri_arr[k, f] for f in range(22))
-        for k in range(scene.triangles.count)
+        for k in range(tri_arr.shape[0])
     ]
     pixel = torch.arange(height * width, dtype=torch.int64, device=device)
     du, dv = _uv_scale(width, height, inclusive_uv)
@@ -580,9 +626,14 @@ def render_flat_fused(
         max_depth=max_depth,
         du=du,
         dv=dv,
+        remat=remat,
     )
     inv = _inv_spp(spp)
     return torch.stack([r * inv, g * inv, b * inv], dim=-1)
+
+
+#: Plain-tracer calls since the count was last reset (set it to 0 to reset).
+render_flat_fused.calls = 0
 
 
 # ----------------------------------------------------------------------------
@@ -656,13 +707,16 @@ def render_flat_megakernel(
     max_depth: int = 4,
     seed: int = 0,
     inclusive_uv: bool = True,
+    tables=None,
 ):
     """CUDA-kernel render → flat (H*W, 3) bottom-up HDR buffer.
 
     A scene on a CUDA device launches ``csrc/megakernel.cu`` (built on
     first use) and adds one to ``render_flat_megakernel.launches``.  A scene
     on the CPU runs the plain version, :func:`render_flat_fused`.  Any other
-    device, and any input the kernel does not take, raises.
+    device, and any input the kernel does not take, raises.  ``tables``
+    (:func:`pack_tables`) are rendered in place of packing ``scene`` and
+    ``camera``.
     """
     _check_fused_supported(scene)
     device = scene.device
@@ -670,13 +724,13 @@ def render_flat_megakernel(
         return render_flat_fused(
             scene, camera, width=width, height=height, spp=spp,
             max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
+            tables=tables,
         )
     _check_launch_args(device, width, height, spp, max_depth,
                        "render_flat_megakernel")
     with torch.no_grad():
-        cam = pack_camera(camera).contiguous()
-        sph = pack_scene(scene).contiguous()
-        tri = pack_triangles(scene).contiguous()
+        cam, sph, tri = (t.contiguous() for t in (
+            tables if tables is not None else pack_tables(scene, camera)))
     _check_table("camera table", cam, device, N_CAM_FIELDS)
     _check_table("sphere table", sph, device, N_SPHERE_FIELDS)
     _check_table("triangle table", tri, device, N_TRI_FIELDS)
@@ -699,3 +753,64 @@ def render_flat_megakernel(
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 render_flat_megakernel.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# The differentiable step: kernel forward, adjoint-kernel backward
+# ----------------------------------------------------------------------------
+
+class _HybridGrad(torch.autograd.Function):
+    """Image of the packed tables; the backward is a vector-Jacobian
+    product at ``grad_spp`` samples (:func:`.grad_megakernel.
+    render_grad_megakernel` in VJP mode: the adjoint kernel on the card,
+    autograd through the plain tracer on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, cam, sph, tri, scene, camera, kw):
+        ctx.save_for_backward(cam, sph, tri)
+        ctx.scene, ctx.camera, ctx.kw = scene, camera, kw
+        return render_flat_megakernel(
+            scene, camera, tables=(cam, sph, tri), width=kw["width"],
+            height=kw["height"], spp=kw["spp"], max_depth=kw["max_depth"],
+            seed=kw["seed"], inclusive_uv=kw["inclusive_uv"],
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        from .grad_megakernel import render_grad_megakernel
+
+        _, dcam, dsph, dtri = render_grad_megakernel(
+            ctx.scene, ctx.camera, ctx.saved_tensors,
+            g.to(torch.float32).contiguous(), loss_mode=False, **ctx.kw)
+        return dcam, dsph, dtri, None, None, None
+
+
+def render_flat_hybrid_grad(
+    scene,
+    camera,
+    *,
+    width: int,
+    height: int,
+    spp: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    grad_spp: int | None = None,
+    inclusive_uv: bool = True,
+):
+    """Differentiable flat render → (H*W, 3) bottom-up HDR buffer.
+
+    Forward: :func:`render_flat_megakernel` at ``spp`` (the CUDA kernel on
+    the card, the plain tracer on the CPU).  Backward: path replay of the
+    first ``grad_spp`` samples (default ``spp``) through the adjoint of the
+    same tracer, the unbiased stochastic-gradient estimator when
+    ``grad_spp < spp`` and the exact gradient of the rendered estimator
+    when they are equal.  Gradients reach every float field of the scene
+    and camera that the packed tables carry (materials, sphere centres and
+    radii, triangle ``v0``/``e1``/``e2``/``normal``, the camera frame and
+    lens) through the packing's gather; the seed gets none.
+    """
+    _check_fused_supported(scene)
+    kw = dict(width=width, height=height, spp=spp,
+              grad_spp=spp if grad_spp is None else grad_spp,
+              max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv)
+    return _HybridGrad.apply(*pack_tables(scene, camera), scene, camera, kw)

@@ -288,13 +288,14 @@ def trace_tile_spectral(
         lam = [_LAMBDA_MIN + torch.remainder(u_l + j / W, 1.0) * _LAMBDA_RANGE
                for j in range(W)]
         # unit-interval coordinate per lane, for the Chebyshev fits
-        lam_x = [2.0 * (x - _LAMBDA_MIN) / _LAMBDA_RANGE - 1.0 for x in lam]
+        lam_x = [mk.true_divide(2.0 * (x - _LAMBDA_MIN), _LAMBDA_RANGE) - 1.0
+                 for x in lam]
         sky = [(_cheb(_SKY_WHITE, x), _cheb(_SKY_CYAN, x),
                 _cheb(_SKY_BLUE, x)) for x in lam_x]
 
         # ---- primary ray (pinhole, or thin lens from its own stream)
-        u = (col_f + ju) / du
-        v = (row_f + jv) / dv
+        u = mk.true_divide(col_f + ju, du)
+        v = mk.true_divide(row_f + jv, dv)
         dx = llcx + u * hx + v * vx - ox0
         dy = llcy + u * hy + v * vy - oy0
         dz = llcz + u * hz + v * vz - oz0

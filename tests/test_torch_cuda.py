@@ -1,6 +1,7 @@
 """The CUDA kernels against the port's plain versions, on the card: the
 sphere megakernel, the packed-BVH path tracer, the packed-BVH nearest-hit
-query, and the spectral megakernel and spectral packed-BVH path tracer.
+query, the spectral megakernel and spectral packed-BVH path tracer, and
+the adjoint kernel against autograd through the plain tracer.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -19,6 +20,7 @@ import spira_tpu_torch as sp
 from spira_tpu_torch.accel import pairs
 from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
 from spira_tpu_torch.kernels import bvh_megakernel as bk
+from spira_tpu_torch.kernels import grad_megakernel as gk
 from spira_tpu_torch.kernels import megakernel as mk
 from spira_tpu_torch.kernels import spectral_bvh as sb
 from spira_tpu_torch.kernels import spectral_fused as sf
@@ -367,3 +369,115 @@ def test_spectral_wrapper_refusals(cuda):
     cpu_tables = dataclasses.replace(mesh, packed=mesh.packed.to("cpu"))
     with pytest.raises(ValueError, match="packed pairs is on cpu"):
         sb.render_flat_spectral_bvh_megakernel(cpu_tables, cam, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The adjoint kernel
+# ---------------------------------------------------------------------------
+
+# name: (scene, camera, shape, grad_spp, loss mode).  Limits: the loss
+# within 1e-5 relative, each table's gradient within 1e-3 relative L2 of
+# the plain autograd backward (float atomics sum in another order).
+GRAD_CASES = {
+    "demo_vjp": ("create_scene", _default,
+                 dict(width=128, height=64, spp=4, max_depth=4), 4, False),
+    "demo_loss_grad_spp1": ("create_scene", _default,
+                            dict(width=128, height=64, spp=4, max_depth=4),
+                            1, True),
+    "thin_lens_vjp": ("create_scene", _lens,
+                      dict(width=128, height=64, spp=2, max_depth=3), 2,
+                      False),
+    "cornell_d6_vjp": ("create_cornell_box", _cornell,
+                       dict(width=64, height=64, spp=2, max_depth=6), 2,
+                       False),
+}
+
+
+def _rel_l2(kernel, plain):
+    den = float(torch.linalg.norm(plain))
+    num = float(torch.linalg.norm(kernel - plain))
+    return num / den if den > 0 else num
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_grad_kernel_matches_plain(cuda, name):
+    scene_fn, cam_fn, shape, grad_spp, loss_mode = GRAD_CASES[name]
+    scene = getattr(sp, scene_fn)(device=cuda)
+    cam = cam_fn(shape["width"] / shape["height"], cuda)
+    tables = [t.detach().contiguous() for t in mk.pack_tables(scene, cam)]
+    g = torch.Generator().manual_seed(1)
+    pix = torch.rand(shape["width"] * shape["height"], 3, generator=g)
+    kw = dict(loss_mode=loss_mode, grad_spp=grad_spp, seed=3, **shape)
+    before = gk.render_grad_megakernel.launches
+    loss_k, *grads_k = gk.render_grad_megakernel(scene, cam, tables,
+                                                 pix.to(cuda), **kw)
+    assert gk.render_grad_megakernel.launches == before + 1
+    loss_p, *grads_p = gk.grad_tables_plain(scene, cam, tables, pix.to(cuda),
+                                            **kw)
+    torch.cuda.synchronize()
+    if loss_mode:
+        assert abs(float(loss_k) / float(loss_p) - 1.0) <= 1e-5
+    else:
+        assert loss_k is None
+    for k, p in zip(grads_k, grads_p):
+        assert k.shape == p.shape and torch.isfinite(k).all()
+        assert _rel_l2(k, p) <= 1e-3
+    assert float(grads_k[1].abs().max()) > 0
+
+
+def test_hybrid_step_launches_the_kernels_only(cuda):
+    scene = sp.create_scene(device=cuda)
+    cam = sp.default_camera(2.0, device=cuda)
+    albedo = scene.materials.albedo.clone().requires_grad_()
+    scene = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, albedo=albedo))
+    counts = (mk.render_flat_megakernel, gk.render_grad_megakernel)
+    before = [f.launches for f in counts]
+    mk.render_flat_fused.calls = 0
+    img = sp.render_flat_hybrid_grad(scene, cam, width=128, height=64,
+                                     spp=4, max_depth=4, grad_spp=2)
+    ((img - 0.3) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == [1, 1]
+    assert mk.render_flat_fused.calls == 0
+    assert torch.isfinite(albedo.grad).all()
+    assert (albedo.grad[:2].abs().amax(dim=1) > 0).all()
+    loss, d_scene, d_cam = sp.render_mse_loss_and_grads(
+        sp.create_scene(device=cuda), cam, torch.full((128 * 64, 3), 0.3,
+                                                      device=cuda),
+        width=128, height=64, spp=2, max_depth=3)
+    assert counts[1].launches == before[1] + 2
+    assert torch.isfinite(loss) and torch.isfinite(d_cam.origin).all()
+    assert d_scene.materials.albedo.device.type == "cuda"
+
+
+def test_grad_wrapper_refusals(cuda):
+    scene = sp.create_scene(device=cuda)
+    cam = sp.default_camera(2.0, device=cuda)
+    tables = [t.detach().contiguous() for t in mk.pack_tables(scene, cam)]
+    pix = torch.zeros(16 * 8, 3, device=cuda)
+    kw = dict(width=16, height=8, spp=2, grad_spp=2, max_depth=2)
+    with pytest.raises(ValueError, match="tape"):
+        gk.render_grad_megakernel(scene, cam, tables, pix, loss_mode=False,
+                                  **dict(kw, max_depth=17))
+    with pytest.raises(ValueError, match="grad_spp"):
+        gk.render_grad_megakernel(scene, cam, tables, pix, loss_mode=True,
+                                  **dict(kw, grad_spp=3))
+    with pytest.raises(ValueError, match="target/cotangent is on cpu"):
+        gk.render_grad_megakernel(scene, cam, tables, pix.cpu(),
+                                  loss_mode=True, **kw)
+    with pytest.raises(ValueError, match="float32 \\(128, 3\\)"):
+        gk.render_grad_megakernel(scene, cam, tables, pix[:5],
+                                  loss_mode=True, **kw)
+    with pytest.raises(ValueError, match="camera table is on cpu"):
+        gk.render_grad_megakernel(scene, cam, [tables[0].cpu(), *tables[1:]],
+                                  pix, loss_mode=True, **kw)
+    many = dataclasses.replace(
+        scene,
+        spheres=sp.make_spheres([((0.0, 0.0, -5.0 - i), 0.1, 0)
+                                 for i in range(400)], device=cuda),
+    )
+    big = [t.detach().contiguous() for t in mk.pack_tables(many, cam)]
+    with pytest.raises(ValueError, match="shared-memory"):
+        gk.render_grad_megakernel(many, cam, big, pix, loss_mode=False,
+                                  **kw)
