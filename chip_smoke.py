@@ -13,9 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    random and primary rays of the 72,960-triangle bunny, the packed-BVH
    path tracer (``BVH_CASES``), the spectral megakernel
    (``SPECTRAL_CASES``), the spectral packed-BVH path tracer
-   (``SPECTRAL_BVH_CASES``), and the adjoint kernel against autograd
+   (``SPECTRAL_BVH_CASES``), the adjoint kernel against autograd
    through the plain tracer (``GRAD_CASES``), with a central-difference
-   check of its gradients;
+   check of its gradients, the streaming superleaf query on the bunny's
+   random and primary rays, and the streaming superleaf path tracer and
+   the superleaf-leaf BVH path tracer (``MXU_CASES``);
 3. the main paths, through the user's entry points, each with every launch
    count set to 0 just before and read just after: ``render`` of the bunny
    at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), ``intersect_tile``
@@ -28,13 +30,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``render_flat_hybrid_grad``, MSE, ``backward``) on the sphere demo at
    exact replay and at ``grad_spp=4``, a few gradient-descent updates of
    the albedo, each step one forward and one adjoint launch and no plain
-   tracer call;
+   tracer call; and the superleaf engines: ``render`` of the bunny on
+   ``cuda_bvh_mxu`` and of the 1,600-triangle mesh scene on ``cuda_mxu``
+   at 640x360, spp 16, depth 4, each one launch and no plain call, each
+   image held against its plain version and against ``cuda_bvh``'s image
+   of the same scene and seed, and ``intersect_tile_mxu`` on the bunny's
+   primary rays, held against the packed-BVH query;
 4. timing with CUDA events (one warm-up, median of ``REPEATS``, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card;
    each kernel's bound (the larger of its float32 operations over the
    card's peak rate and its bytes over the memory rate) from the work
-   this run's inputs need, counted with the plain versions.
+   this run's inputs need, counted with the plain versions; the superleaf
+   kernels beside ``cuda_bvh`` on the same calls.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
@@ -78,10 +86,15 @@ F32_PEAK, HBM_RATE = 67e12, 3.35e12
 #: SPD evaluations of 12 terms (spectral.cuh); per miss: the sky; per
 #: sample: ray generation (spectral: plus 12 sky SPDs and the CIE lobes);
 #: per replayed hit: the reverse sweep of adjoint.cuh (recomputed lobe,
-#: three norm3 adjoints, the intersection adjoint).
+#: three norm3 adjoints, the intersection adjoint); per superleaf block
+#: visit (superleaf.cuh:visit_block): m = o x d, and per lane of it 33 for
+#: det/u/v (18 products, 15 sums), 6 for t, the reciprocal, 3 products,
+#: u + v, 6 comparisons and |det|.
 OPS = dict(sphere_test=18, tri_test=51, pop=55, leaf_tri=40, ray=3,
            hit=115, miss=10, sample=30, spectral_hit=515, spectral_miss=30,
-           spectral_sample=706, adjoint_hit=210)
+           spectral_sample=706, adjoint_hit=210, block=9, lane=51)
+#: lanes of a superleaf block
+SUPERLEAF = 128
 #: the shape the kernel table of PERF.md times the BVH kernel and its
 #: plain version at
 BVH_TIMED = dict(width=640, height=360, spp=4, max_depth=4)
@@ -151,6 +164,20 @@ GRAD_CASES = (
     ("q: demo 640x360 spp16 d4 loss", "demo", MAIN, 16, True),
 )
 GRAD_LOSS_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
+#: superleaf path tracer cases, limits BVH_TOL: (name, engine, scene key,
+#: shape); "mxu" is the streaming kernel #7, "bvh_mxu" the packed-BVH walk
+#: with superleaf leaves #2b
+MXU_CASES = (
+    ("r: #7 mesh 256x256 spp4 d4", "mxu", "mesh_mxu",
+     dict(width=256, height=256, spp=4, max_depth=4)),
+    ("s: #7 mesh 640x360 spp1 d2", "mxu", "mesh_mxu_wide",
+     dict(width=640, height=360, spp=1, max_depth=2)),
+    ("t: #2b bunny 640x360 spp1 d2", "bvh_mxu", "bunny_sl",
+     dict(width=640, height=360, spp=1, max_depth=2)),
+    ("u: #2b bunny 640x360 spp4 d4", "bvh_mxu", "bunny_sl", BVH_TIMED),
+    ("v: #2b mesh 256x256 spp4 d4", "bvh_mxu", "mesh_sl",
+     dict(width=256, height=256, spp=4, max_depth=4)),
+)
 #: the differentiable step: albedo of the red sphere and the ground
 #: perturbed as in tests/test_grad.py, plain gradient descent
 STEP_ALBEDO = ((0.2, 0.7, 0.7), (0.9, 0.2, 0.9))
@@ -286,9 +313,11 @@ def random_rays(n, device, seed=0):
     return o.to(device), d.to(device)
 
 
-def compare_intersect(bk, name, packed, o, d):
-    kt, kn, kmid = bk.intersect_tile(packed, o, d)
-    pt, pn, pmid = bk.intersect_packed_plain(packed, o, d)
+def compare_intersect(name, kernel_fn, plain_fn, o, d):
+    """A nearest-hit kernel ``kernel_fn(o, d)`` against ``plain_fn(o, d)``
+    (its plain version, or another query) under the query limits."""
+    kt, kn, kmid = kernel_fn(o, d)
+    pt, pn, pmid = plain_fn(o, d)
     torch.cuda.synchronize()
     n = o.shape[0]
     kmiss, pmiss = kt >= 1e19, pt >= 1e19
@@ -321,6 +350,7 @@ def counters():
         bvh_megakernel,
         grad_megakernel,
         megakernel,
+        mxu_megakernel,
         spectral_bvh,
         spectral_fused,
     )
@@ -333,36 +363,43 @@ def counters():
         spectral_bvh_megakernel=(
             spectral_bvh.render_flat_spectral_bvh_megakernel),
         grad_megakernel=grad_megakernel.render_grad_megakernel,
+        mxu_megakernel=mxu_megakernel.render_flat_mxu_megakernel,
+        mxu_intersect=mxu_megakernel.intersect_tile_mxu,
+        bvh_mxu_megakernel=bvh_megakernel.render_flat_bvh_mxu_megakernel,
     )
 
 
 def reset_counts():
-    from spira_tpu_torch.kernels import megakernel
+    from spira_tpu_torch.kernels import bvh_megakernel, megakernel
 
     for fn in counters().values():
         fn.launches = 0
     megakernel.render_flat_fused.calls = 0
+    bvh_megakernel.trace_mesh.calls = 0
 
 
 def counts():
-    from spira_tpu_torch.kernels import megakernel
+    from spira_tpu_torch.kernels import bvh_megakernel, megakernel
 
     got = {name: fn.launches for name, fn in counters().items()}
     got["plain_tracer_calls"] = megakernel.render_flat_fused.calls
+    got["plain_mesh_calls"] = bvh_megakernel.trace_mesh.calls
     return got
 
 
-def count_work(module, factory, fn):
+def count_work(module, factory, fn, stream_blocks=0):
     """Run ``fn()`` (a plain version) with ``module.factory``'s intersector
     counting the live path segments it is asked for and the hits among
-    them, and the packed walk counting its pops and leaf triangles: the
-    work a kernel does on the same inputs (the plain walk pops the records
-    the kernel's walk pops, in the same order)."""
+    them, and the packed walk counting its pops, leaf triangles and
+    superleaf blocks: the work a kernel does on the same inputs (the plain
+    walk pops the records the kernel's walk pops, in the same order).
+    ``stream_blocks``: the superleaf blocks every segment tests, for the
+    streaming kernels, which have no walk."""
     from spira_tpu_torch.kernels import bvh_megakernel as bk
 
     made = getattr(module, factory) if factory else None
-    slab, leaf_hits = bk._slab, bk._leaf_hits
-    work = dict(segments=0, hits=0, pops=0, leaf_tris=0)
+    slab, leaf_hits, block_hits = bk._slab, bk._leaf_hits, bk._block_hits
+    work = dict(segments=0, hits=0, pops=0, leaf_tris=0, blocks=0)
 
     def counting_slab(rec, half, *args):
         if half == 0:
@@ -373,6 +410,10 @@ def count_work(module, factory, fn):
         work["leaf_tris"] += int(cnt.sum())
         return leaf_hits(slots, form, max_leaf, ptr, cnt, *args)
 
+    def counting_block_hits(views, ptr, *args):
+        work["blocks"] += ptr.numel()
+        return block_hits(views, ptr, *args)
+
     def counting(*args, **kwargs):
         intersect = made(*args, **kwargs)
 
@@ -382,6 +423,7 @@ def count_work(module, factory, fn):
                     else active.clone())
             work["segments"] += int(live.sum())
             work["hits"] += int((live & out[0]).sum())
+            work["blocks"] += int(live.sum()) * stream_blocks
             return out
 
         return wrapped
@@ -389,6 +431,7 @@ def count_work(module, factory, fn):
     if factory:
         setattr(module, factory, counting)
     bk._slab, bk._leaf_hits = counting_slab, counting_leaf_hits
+    bk._block_hits = counting_block_hits
     try:
         with torch.no_grad():
             fn()
@@ -396,6 +439,7 @@ def count_work(module, factory, fn):
         if factory:
             setattr(module, factory, made)
         bk._slab, bk._leaf_hits = slab, leaf_hits
+        bk._block_hits = block_hits
     torch.cuda.synchronize()
     return work
 
@@ -425,11 +469,17 @@ def render_ops(work, samples, n_spheres, n_tris, spectral=False,
 
 
 def walk_ops(work):
-    return work["pops"] * OPS["pop"] + work["leaf_tris"] * OPS["leaf_tri"]
+    return (work["pops"] * OPS["pop"] + work["leaf_tris"] * OPS["leaf_tri"]
+            + work["blocks"] * (OPS["block"] + SUPERLEAF * OPS["lane"]))
 
 
 def table_bytes(*tensors):
     return sum(4 * t.numel() for t in tensors)
+
+
+def coeff_bytes(tables):
+    """Bytes of a superleaf packing's coefficient tables."""
+    return table_bytes(tables.coeff_uv, tables.coeff_t, tables.coeff_pay)
 
 
 def rel_l2(kernel, plain):
@@ -553,10 +603,10 @@ def dispersive_mesh(sp, device):
         dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
         dict(albedo=(1.0, 1.0, 1.0), metallic=1.0, roughness=0.0, ior=1.5,
              transmission=1.0, cauchy_b=0.01),
-    ])
+    ], device="cpu")
     spheres = sp.make_spheres([((0.0, -100.5, 0.0), 100.0, 1),
                                ((0.0, 5.0, 0.0), 1.0, 2),
-                               ((0.9, 0.0, 0.6), 0.35, 3)])
+                               ((0.9, 0.0, 0.6), 0.35, 3)], device="cpu")
     scene = sp.make_scene(spheres=spheres, triangles=mesh,
                           materials=materials,
                           bvh=build_bvh_for_triangles(mesh))
@@ -596,6 +646,7 @@ def main() -> int:
     from spira_tpu_torch.kernels import bvh_megakernel as bk
     from spira_tpu_torch.kernels import grad_megakernel as gk
     from spira_tpu_torch.kernels import megakernel as mk
+    from spira_tpu_torch.kernels import mxu_megakernel as xk
     from spira_tpu_torch.kernels import spectral_bvh as sb
     from spira_tpu_torch.kernels import spectral_fused as sf
 
@@ -606,7 +657,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     names = ("megakernel", "bvh_megakernel", "spectral_megakernel",
-             "grad_megakernel")
+             "grad_megakernel", "mxu_megakernel")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.load, names)))
     ptxas = {}
@@ -628,7 +679,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     bunny, info = sp.create_bunny_scene(allow_download=False, device=device)
-    mesh = sp.attach_packed(sp.create_mesh_scene()).to(device)
+    mesh = sp.attach_packed(sp.create_mesh_scene(device=device))
+    t_pack = time.perf_counter()
+    # the superleaf packings, attached once outside the render calls
+    bunny_sl = sp.attach_superleaf(bunny)
+    bunny_mxu = sp.attach_mxu(bunny).wide
+    mesh_sl, mesh_mxu = sp.attach_superleaf(mesh), sp.attach_mxu(mesh)
+    log(f"[scene] superleaf packings in {time.perf_counter() - t_pack:.1f} "
+        f"s: bunny {bunny_sl.wide.n_blocks} blocks "
+        f"({coeff_bytes(bunny_mxu)} bytes), {bunny_sl.wide.n_pairs} pair records, depth "
+        f"{bunny_sl.wide.depth}; mesh {mesh_sl.wide.n_blocks} blocks, "
+        f"{mesh_sl.wide.n_pairs} pair records, depth {mesh_sl.wide.depth}")
     log(f"[scene] bunny {info}, pair records {bunny.packed.n_pairs}, tri "
         f"rows {bunny.packed.n_rows}, depth {bunny.packed.depth}, max leaf "
         f"{bunny.packed.max_leaf}, tables "
@@ -640,8 +701,12 @@ def main() -> int:
     bunny_cam = sp.bunny_camera(w / h, device=device)
     mesh_cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
                               aspect_ratio=1.0, device=device)
+    mesh_wide_cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                                   aspect_ratio=w / h, device=device)
     scenes = dict(
         bunny=(bunny, bunny_cam), mesh=(mesh, mesh_cam),
+        bunny_sl=(bunny_sl, bunny_cam), mesh_sl=(mesh_sl, mesh_cam),
+        mesh_mxu=(mesh_mxu, mesh_cam), mesh_mxu_wide=(mesh_mxu, mesh_wide_cam),
         demo=(sp.create_scene(device=device),
               sp.default_camera(w / h, device=device)),
         cornell=(sp.create_cornell_box(device=device),
@@ -663,8 +728,32 @@ def main() -> int:
     rays = dict(random=random_rays(N_RANDOM_RAYS, device),
                 primary=primary_rays(bunny_cam, w, h))
     isect_checks = [
-        compare_intersect(bk, f"bunny {key} rays", bunny.packed, *rays[key])
+        compare_intersect(
+            f"bunny {key} rays",
+            lambda o, d: bk.intersect_tile(bunny.packed, o, d),
+            lambda o, d: bk.intersect_packed_plain(bunny.packed, o, d),
+            *rays[key])
         for key in ("random", "primary")]
+    mxu_isect_checks = [
+        compare_intersect(
+            f"#8 bunny {key} rays",
+            lambda o, d: xk.intersect_tile_mxu(bunny_mxu, o, d),
+            lambda o, d: xk.intersect_mxu_plain(bunny_mxu, o, d),
+            *rays[key])
+        for key in ("random", "primary")]
+    mxu_renders = dict(mxu=(xk.render_flat_mxu_megakernel,
+                            xk.render_flat_mxu_fused),
+                       bvh_mxu=(bk.render_flat_bvh_mxu_megakernel,
+                                lambda *a, **k: bk.render_flat_bvh_fused(
+                                    *a, mxu_leaf=True, **k)))
+    mxu_checks = []
+    for name, engine, key, shape in MXU_CASES:
+        scene, cam = scenes[key]
+        kernel_fn, plain_fn = mxu_renders[engine]
+        kernel = kernel_fn(scene, cam, **shape)
+        plain = plain_fn(scene, cam, **shape)
+        torch.cuda.synchronize()
+        mxu_checks.append(check_images(name, kernel, plain, BVH_TOL))
     bvh_checks = []
     for name, key, shape in BVH_CASES:
         scene, cam = scenes[key]
@@ -792,6 +881,61 @@ def main() -> int:
             raise AssertionError("spectral bunny path launched an RGB "
                                  "kernel")
 
+        # the superleaf engines: one launch of their kernel, nothing else;
+        # each image against its plain version at its own spp and against
+        # cuda_bvh's image of the same scene and seed (same PCG stream,
+        # another intersector)
+        main_mxu_checks = []
+        for what, kernel, engine, scene, cam, plain_fn, row_scene in (
+                ("bunny", "bvh_mxu_megakernel", "cuda_bvh_mxu", bunny_sl,
+                 bunny_cam, mxu_renders["bvh_mxu"][1], bunny),
+                ("mesh", "mxu_megakernel", "cuda_mxu", mesh_mxu,
+                 mesh_wide_cam, mxu_renders["mxu"][1], mesh)):
+            png = os.path.join(out_dir, f"chip_smoke_{what}_{engine}.png")
+            reset_counts()
+            img = sp.render(scene, cam, w, h, output_path=png, engine=engine,
+                            **main_args)
+            torch.cuda.synchronize()
+            got = counts()
+            launches[kernel] = got[kernel]
+            want = dict.fromkeys(got, 0)
+            want[kernel] = 1
+            if got != want:
+                raise AssertionError(f"{what} render on {engine} launched "
+                                     f"{got}, not {want}")
+            plain = plain_fn(scene, cam, **MAIN)
+            check_main(f"{what} render on {engine} {shape_name}", kernel,
+                       img, to_uint8(plain), got, png)
+            flat = sp.render_flat_engine(scene, cam, engine=engine, **MAIN)
+            main_mxu_checks.append(check_images(
+                f"{what} {engine} against its plain version {shape_name}",
+                flat, plain, BVH_TOL))
+            main_mxu_checks.append(check_images(
+                f"{what} {engine} against cuda_bvh {shape_name}", flat,
+                bk.render_flat_bvh_megakernel(row_scene, cam, **MAIN),
+                BVH_TOL))
+
+        # the streaming query on the bunny's primary rays, against the
+        # packed-BVH query on the same rays
+        reset_counts()
+        t, n, mid = xk.intersect_tile_mxu(bunny_mxu, *rays["primary"])
+        torch.cuda.synchronize()
+        got = counts()
+        launches["mxu_intersect"] = got["mxu_intersect"]
+        want = dict.fromkeys(got, 0)
+        want["mxu_intersect"] = 1
+        log(f"[main] #8 bunny primary rays {w}x{h}: {int((t < 1e19).sum())}"
+            f" hits, {int((mid == 0).sum())} on the mesh, launches {got}")
+        if got != want:
+            raise AssertionError(f"intersect_tile_mxu launched {got}")
+        if not (0 < int((mid == 0).sum()) < t.numel()):
+            raise AssertionError("primary rays miss the bunny or hit all")
+        main_mxu_checks.append(compare_intersect(
+            "#8 bunny primary rays against the packed-BVH query",
+            lambda o, d: (t, n, mid),
+            lambda o, d: bk.intersect_tile(bunny.packed, o, d),
+            *rays["primary"]))
+
     # the differentiable step of bench.py: forward, MSE against a target
     # rendered at seed 7, backward; gradients for every material field
     step_target = mk.render_flat_megakernel(demo, demo_cam, seed=7, **MAIN)
@@ -911,15 +1055,53 @@ def main() -> int:
         f"kernel/plain {sbvh_k / sbvh_p:.5f}")
     log(f"[time] {card}: spectral bunny 640x360 spp16 d4 kernel "
         f"{sbvh_full:.3f} ms ({mrays(MAIN, sbvh_full):.1f} Mrays/s)")
+    # the superleaf kernels, each beside cuda_bvh on the same call
+    mxu_t = {}
+    for name, kernel_fn, plain_fn, scene, row_scene, cam in (
+            ("bvh_mxu_megakernel", bk.render_flat_bvh_mxu_megakernel,
+             mxu_renders["bvh_mxu"][1], bunny_sl, bunny, bunny_cam),
+            ("mxu_megakernel", xk.render_flat_mxu_megakernel,
+             mxu_renders["mxu"][1], mesh_mxu, mesh, mesh_wide_cam)):
+        mxu_t[name] = dict(
+            ms=time_ms(run(kernel_fn, scene, cam, BVH_TIMED)),
+            plain_ms=time_ms(run(plain_fn, scene, cam, BVH_TIMED),
+                             PLAIN_REPEATS),
+            full_ms=time_ms(run(kernel_fn, scene, cam, MAIN)),
+            cuda_bvh_ms=time_ms(run(bk.render_flat_bvh_megakernel,
+                                    row_scene, cam, BVH_TIMED)),
+            cuda_bvh_full_ms=time_ms(run(bk.render_flat_bvh_megakernel,
+                                         row_scene, cam, MAIN)))
+        t_ = mxu_t[name]
+        log(f"[time] {card}: {name} 640x360 spp4 d4 kernel {t_['ms']:.3f} "
+            f"ms ({mrays(BVH_TIMED, t_['ms']):.1f} Mrays/s), plain "
+            f"{t_['plain_ms']:.3f} ms, kernel/plain "
+            f"{t_['ms'] / t_['plain_ms']:.5f}; spp16 d4 {t_['full_ms']:.3f} "
+            f"ms ({mrays(MAIN, t_['full_ms']):.1f} Mrays/s); cuda_bvh on the "
+            f"same calls {t_['cuda_bvh_ms']:.3f} and "
+            f"{t_['cuda_bvh_full_ms']:.3f} ms")
+    mxu_t["mxu_intersect"] = dict(
+        ms=time_ms(lambda: xk.intersect_tile_mxu(bunny_mxu,
+                                                 *rays["primary"])),
+        plain_ms=time_ms(lambda: xk.intersect_mxu_plain(
+            bunny_mxu, *rays["primary"]), PLAIN_REPEATS))
+    t_ = mxu_t["mxu_intersect"]
+    log(f"[time] {card}: #8 bunny primary rays 640x360 intersect kernel "
+        f"{t_['ms']:.4f} ms ({w * h / (t_['ms'] * 1e-3) / 1e6:.1f} Mrays/s), "
+        f"plain {t_['plain_ms']:.3f} ms, kernel/plain "
+        f"{t_['ms'] / t_['plain_ms']:.5f}; the packed-BVH query on the same "
+        f"rays {isect_k:.4f} ms")
     times = (bvh_k, bvh_p, bvh_full, isect_k, isect_p, sph_k, sph_p, sph_big,
-             spec_k, spec_p, rgb_cornell, sbvh_k, sbvh_p, sbvh_full)
+             spec_k, spec_p, rgb_cornell, sbvh_k, sbvh_p, sbvh_full,
+             *(x for t_ in mxu_t.values() for x in t_.values()))
     if not all(math.isfinite(x) for x in times):
         raise AssertionError("timing failed")
     for name, k, p in (("bvh_megakernel", bvh_k, bvh_p),
                        ("bvh_intersect", isect_k, isect_p),
                        ("megakernel", sph_k, sph_p),
                        ("spectral_megakernel", spec_k, spec_p),
-                       ("spectral_bvh_megakernel", sbvh_k, sbvh_p)):
+                       ("spectral_bvh_megakernel", sbvh_k, sbvh_p),
+                       *((n_, t_["ms"], t_["plain_ms"])
+                         for n_, t_ in mxu_t.items())):
         if k > p:
             log(f"[time] {name} is SLOWER than its plain version")
     # where the wrappers' time goes: the kernel against the small
@@ -936,6 +1118,15 @@ def main() -> int:
     sbvh_prof = device_breakdown(run(sb.render_flat_spectral_bvh_megakernel,
                                      bunny, bunny_cam, MAIN))
     log_breakdown(card, "spectral bunny 640x360 spp16 d4", sbvh_prof)
+    mxu_prof = dict(
+        bvh_mxu_megakernel=device_breakdown(run(
+            bk.render_flat_bvh_mxu_megakernel, bunny_sl, bunny_cam, MAIN)),
+        mxu_megakernel=device_breakdown(run(
+            xk.render_flat_mxu_megakernel, mesh_mxu, mesh_wide_cam, MAIN)))
+    log_breakdown(card, "#2b bunny 640x360 spp16 d4",
+                  mxu_prof["bvh_mxu_megakernel"])
+    log_breakdown(card, "#7 mesh 640x360 spp16 d4",
+                  mxu_prof["mxu_megakernel"])
     step_ms = {g: time_ms(lambda g=g: step(albedo0, 0, g))
                for g in (MAIN["spp"], 4)}
     for g, ms in step_ms.items():
@@ -987,11 +1178,22 @@ def main() -> int:
                                bunny_cam, BVH_TIMED))
     isect_work = count_work(None, None, lambda: bk.intersect_packed_plain(
         bunny.packed, *rays["primary"]))
+    bvh_mxu_work = count_work(bk, "make_packed_intersect", run(
+        mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, BVH_TIMED))
+    mxu_work = count_work(xk, "make_mxu_stream_intersect", run(
+        mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, BVH_TIMED),
+        stream_blocks=xk.n_blocks(mesh_mxu.wide))
+    # the stream tests every block for every ray: no walk to count
+    mxu_isect_work = dict(segments=w * h, hits=0, pops=0, leaf_tris=0,
+                          blocks=w * h * xk.n_blocks(bunny_mxu))
     log(f"[work] on the timed inputs: demo {sph_work}, bunny spp4 "
         f"{bvh_work}, bunny primary rays {isect_work}, spectral cornell "
-        f"{spec_work}, spectral bunny spp4 {sbvh_work}")
+        f"{spec_work}, spectral bunny spp4 {sbvh_work}, #2b bunny spp4 "
+        f"{bvh_mxu_work}, #7 mesh spp4 {mxu_work}, #8 bunny primary rays "
+        f"{mxu_isect_work}")
     out_bytes = 12 * n_px
     bvh_tables = table_bytes(bunny.packed.pairs, bunny.packed.tri_rows)
+
     demo_tables = table_bytes(*tables)
     n_bunny_sph = bunny.spheres.count
     sph_ops = render_ops(sph_work, n_px * MAIN["spp"], demo.spheres.count, 0)
@@ -1016,6 +1218,18 @@ def main() -> int:
         grad_megakernel=bound(2 * sph_ops + sph_work["hits"]
                               * OPS["adjoint_hit"],
                               2 * demo_tables + out_bytes + 8),
+        bvh_mxu_megakernel=bound(
+            render_ops(bvh_mxu_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
+                       bvh=True),
+            table_bytes(bunny_sl.wide.pairs) + coeff_bytes(bunny_sl.wide)
+            + out_bytes),
+        mxu_megakernel=bound(
+            render_ops(mxu_work, n_px * BVH_TIMED["spp"],
+                       mesh_mxu.spheres.count, 0),
+            coeff_bytes(mesh_mxu.wide) + out_bytes),
+        # bytes: the rays in, t, normal and material id out, the tables
+        mxu_intersect=bound(walk_ops(mxu_isect_work),
+                            coeff_bytes(bunny_mxu) + n_px * (24 + 20)),
     )
     for name, (ms, by) in bounds.items():
         log(f"[bound] {card}: {name} {ms:.4f} ms, by {by} (F32 peak "
@@ -1127,6 +1341,58 @@ def main() -> int:
             "ptxas": ptxas.get("grad_megakernel", []),
             "checks": grad_checks,
             "finite_differences": fd_checks,
+        },
+        {
+            "name": "mxu_megakernel",
+            "route": "cuda",
+            **bound_keys("mxu_megakernel"),
+            "source": "spira_tpu_torch/csrc/mxu_megakernel.cu",
+            "replaces": "spira_tpu/kernels/mxu_megakernel.py:205",
+            "launches": launches["mxu_megakernel"],
+            "max_abs_err": max(c["max_abs_err"] for c in mxu_checks[:2]),
+            "ms": mxu_t["mxu_megakernel"]["ms"],
+            "plain_ms": mxu_t["mxu_megakernel"]["plain_ms"],
+            "shape": "mesh (1,600 triangles) 640x360 spp4 d4",
+            "ms_640x360_spp16_d4": mxu_t["mxu_megakernel"]["full_ms"],
+            "cuda_bvh_ms_same_call": mxu_t["mxu_megakernel"]["cuda_bvh_ms"],
+            "cuda_bvh_ms_640x360_spp16_d4": (
+                mxu_t["mxu_megakernel"]["cuda_bvh_full_ms"]),
+            "profile_640x360_spp16_d4": mxu_prof["mxu_megakernel"],
+            "checks": mxu_checks[:2] + main_mxu_checks[2:4],
+        },
+        {
+            "name": "mxu_intersect",
+            "route": "cuda",
+            **bound_keys("mxu_intersect"),
+            "source": "spira_tpu_torch/csrc/mxu_megakernel.cu",
+            "replaces": "spira_tpu/kernels/mxu_megakernel.py:284",
+            "launches": launches["mxu_intersect"],
+            "max_abs_err": mxu_isect_checks[1]["max_abs_err"],
+            "ms": mxu_t["mxu_intersect"]["ms"],
+            "plain_ms": mxu_t["mxu_intersect"]["plain_ms"],
+            "shape": "bunny primary rays 640x360",
+            "bvh_intersect_ms_same_rays": isect_k,
+            "checks": mxu_isect_checks + main_mxu_checks[4:],
+        },
+        {
+            "name": "bvh_mxu_megakernel",
+            "route": "cuda",
+            **bound_keys("bvh_mxu_megakernel"),
+            "source": "spira_tpu_torch/csrc/bvh_megakernel.cu",
+            "leaf_source": "spira_tpu_torch/csrc/superleaf.cuh",
+            "replaces": "spira_tpu/kernels/bvh_megakernel.py:252",
+            "launches": launches["bvh_mxu_megakernel"],
+            "max_abs_err": mxu_checks[3]["max_abs_err"],
+            "ms": mxu_t["bvh_mxu_megakernel"]["ms"],
+            "plain_ms": mxu_t["bvh_mxu_megakernel"]["plain_ms"],
+            "shape": "bunny 640x360 spp4 d4",
+            "ms_640x360_spp16_d4": mxu_t["bvh_mxu_megakernel"]["full_ms"],
+            "cuda_bvh_ms_same_call": (
+                mxu_t["bvh_mxu_megakernel"]["cuda_bvh_ms"]),
+            "cuda_bvh_ms_640x360_spp16_d4": (
+                mxu_t["bvh_mxu_megakernel"]["cuda_bvh_full_ms"]),
+            "profile_640x360_spp16_d4": mxu_prof["bvh_mxu_megakernel"],
+            "checks": mxu_checks[2:] + main_mxu_checks[:2],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,20 @@ small-triangle scenes and of mesh scenes through a packed BVH: the scene
 model and colorimetry, the BVH builders and packers, the plain PyTorch
 tracers, and hand-written CUDA kernels for Hopper (``csrc/megakernel.cu``,
 ``csrc/bvh_megakernel.cu``, ``csrc/spectral_megakernel.cu``), behind the
-same ``render`` entry point; and the differentiable step of sphere and
-small-triangle scenes (``render_flat_hybrid_grad``,
+same ``render`` entry point; the superleaf engines of
+:mod:`spira_tpu_torch.experiments` (``csrc/mxu_megakernel.cu`` and the
+block leaves of ``csrc/superleaf.cuh``); and the differentiable step of
+sphere and small-triangle scenes (``render_flat_hybrid_grad``,
 ``render_mse_loss_and_grads``), whose gradients come from a hand-written
-adjoint kernel (``csrc/grad_megakernel.cu``).  Nothing here imports JAX.
+adjoint kernel (``csrc/grad_megakernel.cu``).  Scenes and cameras are made
+on the card unless ``device="cpu"`` is asked for.  Nothing here imports
+JAX.
 """
 
 from .accel.bvh import build_two_level
+from .accel.mxu import attach_mxu, attach_superleaf
 from .accel.pairs import attach_packed
+from .accel.wide import attach_wide
 from .core import colorimetry, pcg, vecmath
 from .core.convert import camera_from_numpy, scene_from_numpy
 from .kernels.grad_megakernel import render_mse_loss_and_grads
@@ -41,7 +47,10 @@ __all__ = [
     "Scene",
     "Spheres",
     "Triangles",
+    "attach_mxu",
     "attach_packed",
+    "attach_superleaf",
+    "attach_wide",
     "build_two_level",
     "bunny_camera",
     "camera_from_numpy",

@@ -5,9 +5,10 @@ example ``jax.tree_util.tree_map(np.asarray, scene)``), their fields are
 read here by name, so the port renders exactly the reference's values
 (the spectral tables ``albedo_spd`` and ``emission_spd`` included): a
 camera rebuilt through ``tan`` and ``deg2rad`` may differ by an ULP between
-frameworks.  The BVH tables (``bvh``, a FlatBVH, and ``packed``, a
-PackedBVH) come across value-exact with their static fields.  Nothing here
-imports JAX.
+frameworks.  The BVH tables (``bvh``, a FlatBVH; ``packed``, a PackedBVH;
+``wide``, a WideBVH, MXUBVH or SuperleafBVH, told apart by their fields)
+come across value-exact with their static fields.  Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import numpy as np
 import torch
 
 from ..accel.bvh import FlatBVH
+from ..accel.mxu import MXUBVH, SuperleafBVH
 from ..accel.pairs import PackedBVH
+from ..accel.wide import WideBVH
+from .device import resolve_device
 from ..scene.camera import Camera
 from ..scene.geometry import Spheres, Triangles
 from ..scene.materials import Materials
@@ -64,14 +68,39 @@ def _packed(obj, device):
     )
 
 
+def _wide(obj, device):
+    if obj is None:
+        return None
+    f32 = np.float32
+    coeffs = {}
+    if hasattr(obj, "coeff_uv"):
+        coeffs = dict(coeff_uv=_t(obj.coeff_uv, device, f32),
+                      coeff_t=_t(obj.coeff_t, device, f32),
+                      coeff_pay=_t(obj.coeff_pay, device, f32))
+    if hasattr(obj, "pairs"):
+        return SuperleafBVH(
+            pairs=_t(obj.pairs, device, f32), **coeffs, root=int(obj.root),
+            n_pairs=int(obj.n_pairs), n_blocks=int(obj.n_blocks),
+            depth=int(obj.depth))
+    if coeffs:
+        return MXUBVH(
+            nodes=_t(obj.nodes, device, f32), **coeffs, root=int(obj.root),
+            n_nodes=int(obj.n_nodes), n_leaves=int(obj.n_leaves))
+    if not hasattr(obj, "tri_rows"):
+        raise ValueError(
+            f"scene.wide is a {type(obj).__name__}, not a WideBVH, MXUBVH "
+            "or SuperleafBVH")
+    return WideBVH(
+        nodes=_t(obj.nodes, device, f32),
+        tri_rows=_t(obj.tri_rows, device, f32), root=int(obj.root),
+        n_nodes=int(obj.n_nodes), n_rows=int(obj.n_rows),
+        max_leaf=int(obj.max_leaf))
+
+
 def scene_from_numpy(obj, device=None) -> Scene:
-    """Scene from an object with the JAX Scene's fields as numpy arrays."""
-    if getattr(obj, "wide", None) is not None:
-        raise NotImplementedError(
-            "scene carries a 'wide' table; the wide and superleaf BVH "
-            "layouts come with the retired experiments (ROADMAP.md queue 1, "
-            "item 18)"
-        )
+    """Scene from an object with the JAX Scene's fields as numpy arrays,
+    on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     sph, tri, mats = obj.spheres, obj.triangles, obj.materials
     f32 = np.float32
     return Scene(
@@ -100,11 +129,14 @@ def scene_from_numpy(obj, device=None) -> Scene:
         ),
         bvh=_bvh(getattr(obj, "bvh", None), device),
         packed=_packed(getattr(obj, "packed", None), device),
+        wide=_wide(getattr(obj, "wide", None), device),
     )
 
 
 def camera_from_numpy(obj, device=None) -> Camera:
-    """Camera from an object with the JAX Camera's fields as numpy arrays."""
+    """Camera from an object with the JAX Camera's fields as numpy arrays,
+    on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     f32 = np.float32
     return Camera(
         origin=_t(obj.origin, device, f32),

@@ -1,6 +1,8 @@
 // Packed-BVH nearest hit: a per-thread depth-first walk over the pair
-// records and leaf rows of spira_tpu_torch/accel/pairs.py, and the
-// `PackedIntersect` intersector that plugs it into trace.cuh:trace_pixel.
+// records of spira_tpu_torch/accel/pairs.py, templated on its leaf visitor
+// (the leaf rows here, `RowLeaves`; the superleaf blocks of
+// superleaf.cuh, `BlockLeaves`), and the `TreeIntersect` intersector that
+// plugs it into trace.cuh:trace_pixel (`PackedIntersect` over row leaves).
 //
 // Replaces the packet traversal of spira_tpu/kernels/bvh_megakernel.py
 // (make_packet_intersect and run_packet_traversal).  There a whole
@@ -138,11 +140,23 @@ __device__ __forceinline__ void visit_leaf(const float4* __restrict__ slots,
   }
 }
 
-// The nearest triangle hit below h.t over the whole tree.
+// Leaves of the pair tables: rows of 8 triangles in form kForm.
 template <int kForm>
+struct RowLeaves {
+  const float4* slots;
+
+  __device__ void operator()(int ptr, int cnt, Vec3 o, Vec3 d,
+                             TriHit& h) const {
+    visit_leaf<kForm>(slots, ptr, cnt, o, d, h);
+  }
+};
+
+// The nearest triangle hit below h.t over the whole tree;
+// `leaves(ptr, cnt, o, d, h)` tests a leaf child.
+template <class Leaves>
 __device__ void walk_packed(const float4* __restrict__ pairs,
-                            const float4* __restrict__ slots, int root,
-                            Vec3 o, Vec3 d, TriHit& h) {
+                            const Leaves& leaves, int root, Vec3 o, Vec3 d,
+                            TriHit& h) {
   const Vec3 inv = {fabsf(d.x) > 1e-12f ? 1.0f / d.x : 1e12f,
                     fabsf(d.y) > 1e-12f ? 1.0f / d.y : 1e12f,
                     fabsf(d.z) > 1e-12f ? 1.0f / d.z : 1e12f};
@@ -157,42 +171,58 @@ __device__ void walk_packed(const float4* __restrict__ pairs,
     const bool near0 = c0.tn <= c1.tn;
     const Child cn = near0 ? c0 : c1;
     const Child cf = near0 ? c1 : c0;
-    if (cn.hit && cn.cnt > 0) visit_leaf<kForm>(slots, cn.ptr, cn.cnt, o, d, h);
-    if (cf.hit && cf.cnt > 0) visit_leaf<kForm>(slots, cf.ptr, cf.cnt, o, d, h);
+    if (cn.hit && cn.cnt > 0) leaves(cn.ptr, cn.cnt, o, d, h);
+    if (cf.hit && cf.cnt > 0) leaves(cf.ptr, cf.cnt, o, d, h);
     if (cf.hit && cf.cnt == 0) stack[sp++] = cf.ptr;
     if (cn.hit && cn.cnt == 0) stack[sp++] = cn.ptr;
   }
 }
 
-// Spheres first (their nearest hit seeds best_t), then the packed mesh.
-// Sphere and material tables live in shared memory; pairs and leaf rows in
-// device memory.  Record strides: spheres kSph, materials kMat (the RGB
-// tables by default; spectral.cuh passes its own).
-template <int kForm, int kSph = kSphereFields, int kMat = kMatFields>
-struct PackedIntersect {
+// The surface of a nearest hit: the triangle hit th, or, where no
+// triangle beat it (th.mid < 0), the sphere `sphere` that seeded th.t.
+// Record strides: spheres kSph, materials kMat.
+template <int kSph, int kMat>
+__device__ __forceinline__ SurfaceHit resolve_hit(const float* spheres,
+                                                  int sphere,
+                                                  const float* mats,
+                                                  const TriHit& th, Vec3 o,
+                                                  Vec3 d) {
+  SurfaceHit h;
+  h.hit = th.t < kInf;
+  if (!h.hit) return h;
+  if (th.mid < 0.0f) {
+    return sphere_surface(spheres + sphere * kSph, o, d, th.t);
+  }
+  h.p = {o.x + th.t * d.x, o.y + th.t * d.y, o.z + th.t * d.z};
+  h.n = th.n;
+  h.mat = mats + static_cast<int>(th.mid) * kMat;
+  return h;
+}
+
+// Spheres first (their nearest hit seeds best_t), then the pair tree with
+// leaves `Leaves`.  Sphere and material tables live in shared memory; the
+// tree in device memory.  Record strides: spheres kSph, materials kMat
+// (the RGB tables by default; spectral.cuh passes its own).
+template <class Leaves, int kSph = kSphereFields, int kMat = kMatFields>
+struct TreeIntersect {
   const float* spheres;
   int n_spheres;
   const float* mats;
   const float4* pairs;
-  const float4* slots;
+  Leaves leaves;
   int root;
 
   __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
     float best_t = kInf;
     const int sphere = nearest_sphere<kSph>(spheres, n_spheres, o, d, best_t);
     TriHit th{best_t, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
-    walk_packed<kForm>(pairs, slots, root, o, d, th);
-    SurfaceHit h;
-    h.hit = th.t < kInf;
-    if (!h.hit) return h;
-    if (th.mid < 0.0f) {
-      return sphere_surface(spheres + sphere * kSph, o, d, th.t);
-    }
-    h.p = {o.x + th.t * d.x, o.y + th.t * d.y, o.z + th.t * d.z};
-    h.n = th.n;
-    h.mat = mats + static_cast<int>(th.mid) * kMat;
-    return h;
+    walk_packed(pairs, leaves, root, o, d, th);
+    return resolve_hit<kSph, kMat>(spheres, sphere, mats, th, o, d);
   }
 };
+
+// The packed mesh: the pair tree over leaf rows in form kForm.
+template <int kForm, int kSph = kSphereFields, int kMat = kMatFields>
+using PackedIntersect = TreeIntersect<RowLeaves<kForm>, kSph, kMat>;
 
 }  // namespace spira

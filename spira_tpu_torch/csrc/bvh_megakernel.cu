@@ -6,6 +6,10 @@
 // pre-pass and the BVH walk, scatter, Russian roulette and the mean over
 // samples in one launch.  spira_bvh_intersect replaces
 // _intersect_only_kernel: the nearest hit of a batch of rays.
+// spira_bvh_mxu_render replaces the same Pallas kernel with mxu_leaf=True
+// (its leaf visit _make_mxu_leaf_visit): the same walk over a pair tree
+// whose leaves are 128-triangle superleaf blocks (superleaf.cuh).  All three
+// share one walk, bvh.cuh:walk_packed, templated on its leaf visitor.
 //
 // Work split: one thread per pixel (render) or per ray (intersect), 128
 // threads a block.  The render kernel copies the camera, sphere and
@@ -30,54 +34,27 @@
 #include <cstdint>
 
 #include "bvh.cuh"
+#include "mesh_render.cuh"
+#include "superleaf.cuh"
 #include "trace.cuh"
 
 namespace spira {
 
-template <int kForm>
+// Leaves: RowLeaves<kForm> (leaf rows) or BlockLeaves (superleaf blocks).
+template <class Leaves>
 __global__ void __launch_bounds__(128)
     bvh_megakernel(const float* __restrict__ cam_g,
                    const float* __restrict__ sph_g, int n_spheres,
                    const float* __restrict__ mat_g, int n_mats,
-                   const float4* __restrict__ pairs,
-                   const float4* __restrict__ slots, int root,
+                   const float4* __restrict__ pairs, Leaves leaves, int root,
                    float* __restrict__ out, int width, int height, int spp,
                    int max_depth, uint32_t seed, float du, float dv,
                    float inv_spp, int has_lens) {
-  extern __shared__ float smem[];
-  float* cam = smem;
-  float* sph = cam + kCamFields;
-  float* mat = sph + n_spheres * kSphereFields;
-  const int n_sph = n_spheres * kSphereFields;
-  const int n_all = kCamFields + n_sph + n_mats * kMatFields;
-  for (int i = threadIdx.x; i < n_all; i += blockDim.x) {
-    float x;
-    if (i < kCamFields) {
-      x = cam_g[i];
-    } else if (i < kCamFields + n_sph) {
-      x = sph_g[i - kCamFields];
-    } else {
-      x = mat_g[i - kCamFields - n_sph];
-    }
-    smem[i] = x;
-  }
-  __syncthreads();
-
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(width) * height) return;
-  const int row = static_cast<int>(idx / width);  // from the image bottom
-  const int col = static_cast<int>(idx % width);
-
-  const PackedIntersect<kForm> intersect{sph, n_spheres, mat, pairs, slots,
-                                         root};
-  const Vec3 acc = trace_pixel(
-      intersect, cam, has_lens != 0, static_cast<uint32_t>(idx),
-      static_cast<float>(row), static_cast<float>(col), seed, spp, max_depth,
-      du, dv);
-  out[idx * 3 + 0] = acc.x * inv_spp;
-  out[idx * 3 + 1] = acc.y * inv_spp;
-  out[idx * 3 + 2] = acc.z * inv_spp;
+  const auto make = [&](const float* sph, const float* mat) {
+    return TreeIntersect<Leaves>{sph, n_spheres, mat, pairs, leaves, root};
+  };
+  render_mesh_pixel(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+                    height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
 }
 
 template <int kForm>
@@ -96,7 +73,7 @@ __global__ void __launch_bounds__(128)
   if (active == nullptr || active[i] > 0.5f) {
     const Vec3 o = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
     const Vec3 d = {dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2]};
-    walk_packed<kForm>(pairs, slots, root, o, d, h);
+    walk_packed(pairs, RowLeaves<kForm>{slots}, root, o, d, h);
   }
   t_out[i] = h.t;
   n_out[3 * i] = h.n.x;
@@ -124,20 +101,40 @@ extern "C" int spira_bvh_megakernel_render(
     void* stream) {
   using namespace spira;
   const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
-  const size_t smem = sizeof(float) * (kCamFields + n_spheres * kSphereFields +
-                                       n_mats * kMatFields);
+  const size_t smem = mesh_smem_bytes(n_spheres, n_mats);
   const auto* p = reinterpret_cast<const float4*>(pairs);
   const auto* s = reinterpret_cast<const float4*>(tri_rows);
   const auto st = static_cast<cudaStream_t>(stream);
   if (form_bw) {
-    bvh_megakernel<kFormBW><<<blocks, kThreads, smem, st>>>(
-        cam, spheres, n_spheres, mats, n_mats, p, s, root, out, width, height,
-        spp, max_depth, seed, du, dv, inv_spp, has_lens);
+    bvh_megakernel<RowLeaves<kFormBW>><<<blocks, kThreads, smem, st>>>(
+        cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormBW>{s}, root,
+        out, width, height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
   } else {
-    bvh_megakernel<kFormMT><<<blocks, kThreads, smem, st>>>(
-        cam, spheres, n_spheres, mats, n_mats, p, s, root, out, width, height,
-        spp, max_depth, seed, du, dv, inv_spp, has_lens);
+    bvh_megakernel<RowLeaves<kFormMT>><<<blocks, kThreads, smem, st>>>(
+        cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormMT>{s}, root,
+        out, width, height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same path tracer over a pair tree whose leaves are superleaf blocks
+// (accel/mxu.py:SuperleafBVH): pairs (P, 16), coeff_uv (B*8, 384), coeff_t
+// and coeff_pay (B*8, 128), float32 row-major.
+extern "C" int spira_bvh_mxu_render(
+    const float* cam, const float* spheres, int n_spheres, const float* mats,
+    int n_mats, const float* pairs, const float* coeff_uv,
+    const float* coeff_t, const float* coeff_pay, int root, float* out,
+    int width, int height, int spp, int max_depth, uint32_t seed, float du,
+    float dv, float inv_spp, int has_lens, void* stream) {
+  using namespace spira;
+  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
+  bvh_megakernel<BlockLeaves><<<blocks, kThreads,
+                               mesh_smem_bytes(n_spheres, n_mats),
+                               static_cast<cudaStream_t>(stream)>>>(
+      cam, spheres, n_spheres, mats, n_mats,
+      reinterpret_cast<const float4*>(pairs),
+      BlockLeaves{coeff_uv, coeff_t, coeff_pay}, root, out, width, height, spp,
+      max_depth, seed, du, dv, inv_spp, has_lens);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -109,8 +109,8 @@ __global__ void __launch_bounds__(128)
   const int row = static_cast<int>(idx / width);  // from the image bottom
   const int col = static_cast<int>(idx % width);
 
-  const SpectralPackedIntersect<kForm> intersect{sph, n_spheres, mat,
-                                                 pairs, slots, root};
+  const SpectralPackedIntersect<kForm> intersect{
+      sph, n_spheres, mat, pairs, RowLeaves<kForm>{slots}, root};
   const Vec3 acc = trace_pixel_spectral(
       intersect, cam, sky, has_lens != 0, static_cast<uint32_t>(idx),
       static_cast<float>(row), static_cast<float>(col), seed, spp, max_depth,

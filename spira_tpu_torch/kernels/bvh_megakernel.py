@@ -15,9 +15,16 @@ at equal distance.
 * :func:`intersect_tile` — the CUDA nearest-hit query
   (``spira_bvh_intersect``) for rays on a CUDA device; on the CPU,
   :func:`intersect_packed_plain`.
+* :func:`render_flat_bvh_mxu_megakernel` — the same tracer and walk over
+  a :class:`~spira_tpu_torch.accel.mxu.SuperleafBVH` whose leaves are
+  128-triangle Plücker blocks (``spira_bvh_mxu_render``, the leaf visit
+  of ``csrc/superleaf.cuh``); ``render_flat_bvh_megakernel(...,
+  mxu_leaf=True)`` runs it.
 * The plain version: :func:`packed_walk`, a per-ray depth-first stack walk
-  vectorised over all rays in lockstep, and :func:`make_packed_intersect`,
-  the ``intersect_fn`` it gives :func:`megakernel.trace_tile`.
+  vectorised over all rays in lockstep, with a leaf visitor for row leaves
+  (:func:`_leaf_hits`) or superleaf blocks (:func:`_block_hits`), and
+  :func:`make_packed_intersect`, the ``intersect_fn`` it gives
+  :func:`megakernel.trace_tile`.
 
 The walk, shared by the kernel and the plain version: spheres first (their
 nearest hit seeds ``best_t``); then pop a pair record, slab-test both
@@ -26,7 +33,9 @@ visit hit leaves at once, nearer child first; push hit internal children
 far first, so the nearer one pops next.  Children are ordered by their
 clamped entry distance, the earlier slot winning a tie.  Leaf triangles are
 tested in slot order with a strict ``t < best_t``, so the first of equal
-hits wins in both versions.
+hits wins in both versions.  A superleaf block tests its 128 lanes in
+order with the same strict ``t < best_t``, so the lowest lane of equal hits
+wins.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..accel.mxu import BLOCK_ROWS, SUPERLEAF, SuperleafBVH
 from ..accel.pairs import TRI_STRIDE, TRIS_PER_ROW, check_stack_depth
 from . import megakernel as mk
 
@@ -62,12 +72,16 @@ def pack_materials(materials):
 
 
 def _require_tree(scene, mxu_leaf: bool = False):
-    """The tables the kernels walk: ``scene.packed``."""
+    """The tables the kernels walk: ``scene.packed`` (row leaves), or with
+    ``mxu_leaf`` the :class:`SuperleafBVH` on ``scene.wide`` (superleaf
+    blocks)."""
     if mxu_leaf:
-        raise NotImplementedError(
-            "mxu_leaf=True (Plücker superleaf leaves) is not ported to "
-            "spira_tpu_torch yet (ROADMAP.md queue 1, item 18)"
-        )
+        if not isinstance(scene.wide, SuperleafBVH):
+            raise ValueError(
+                "mxu_leaf=True needs a SuperleafBVH on scene.wide; call "
+                "spira_tpu_torch.accel.mxu.attach_superleaf"
+            )
+        return _check_packed(scene.wide)
     if scene.packed is None:
         raise ValueError(
             "scene has no packed BVH; call "
@@ -79,6 +93,9 @@ def _require_tree(scene, mxu_leaf: bool = False):
 def _check_packed(packed):
     """Refuse tables the walk cannot take: other record arities or leaf
     forms, and trees deeper than the traversal stack."""
+    if isinstance(packed, SuperleafBVH):
+        check_stack_depth(packed.depth)
+        return packed
     if packed.fanout != 2 or packed.form not in ("bw", "mt"):
         raise ValueError(f"packed BVH with fanout {packed.fanout}, form "
                          f"{packed.form!r}: the walk takes pair records in "
@@ -160,8 +177,74 @@ def _leaf_hits(slots, form, max_leaf, ptr, cnt, o, d, best):
         slot.gather(1, k)[:, 0])
 
 
+def block_views(tables):
+    """The coefficient tables of a superleaf packing as (blocks, 8, 384),
+    (blocks, 8, 128) and (blocks, 8, 128) views."""
+    return (tables.coeff_uv.view(-1, BLOCK_ROWS, 3 * SUPERLEAF),
+            tables.coeff_t.view(-1, BLOCK_ROWS, SUPERLEAF),
+            tables.coeff_pay.view(-1, BLOCK_ROWS, SUPERLEAF))
+
+
+def lane_hits(uv, tc, o, d, best):
+    """The superleaf lane test of ``csrc/superleaf.cuh:visit_block``: the
+    nearest of a block's 128 lanes that beats ``best``, for each ray.
+
+    uv (..., 8, 384) and tc (..., 8, 128): the block's coefficient rows
+    (one block for all rays, or one per ray); o, d (L, 3); best (L,).
+    Each lane sums its column of rows 0-5 against F_uv = [m, d] and of
+    rows 0-2 and 6 against F_o1 = [o, 1], left to right (the rows that
+    meet a zero feature are left out), then takes ``idet = 1/det``, u, v
+    and t, and the hit test of ``spira_tpu/kernels/mxu_megakernel.py:
+    129-135``.  Returns (won (L,) bool, t (L,), lane (L,) long): the
+    lowest lane of equal t, as a strict-``<`` scan in lane order finds
+    it."""
+    ox, oy, oz = (o[:, k, None] for k in range(3))
+    dx, dy, dz = (d[:, k, None] for k in range(3))
+    feats = (oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
+             dx, dy, dz)
+    q = uv[..., 0, :] * feats[0]
+    for k in range(1, 6):
+        q = q + uv[..., k, :] * feats[k]
+    tn = tc[..., 0, :] * ox + tc[..., 1, :] * oy
+    tn = tn + tc[..., 2, :] * oz
+    tn = tn + tc[..., 6, :]
+    det = q[:, :SUPERLEAF]
+    idet = 1.0 / det  # padding lanes: det == 0, every compare fails
+    uu = q[:, SUPERLEAF:2 * SUPERLEAF] * idet
+    vv = q[:, 2 * SUPERLEAF:] * idet
+    tt = tn * idet
+    hit = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > mk.T_MIN)
+           & (tt < best[:, None]) & (det.abs() > 1e-12))
+    tt = torch.where(hit, tt, torch.inf)
+    lane = torch.argmin(tt, dim=1)
+    t = tt.gather(1, lane[:, None])[:, 0]
+    return t < best, t, lane
+
+
+def _block_hits(views, ptr, o, d, best):
+    """Nearest hit among the 128 lanes of each ray's block ``ptr`` that
+    beats ``best``: (won, t, normal, mat, slot = block * 128 + lane)."""
+    uv, tc, pay = views
+    won, t, lane = lane_hits(uv[ptr], tc[ptr], o, d, best)
+    rows = pay[ptr, 0:4].gather(2, lane[:, None, None].expand(-1, 4, 1))
+    return won, t, rows[:, 0:3, 0], rows[:, 3, 0], ptr * SUPERLEAF + lane
+
+
+def _leaf_visitor(packed):
+    """``visit(ptr, cnt, o, d, best) -> (won, t, normal, mat, slot)`` over
+    the leaves of ``packed``: superleaf blocks or rows of triangles."""
+    if isinstance(packed, SuperleafBVH):
+        views = block_views(packed)
+        return lambda ptr, cnt, o, d, best: _block_hits(views, ptr, o, d,
+                                                        best)
+    slots = packed.tri_rows.reshape(-1, TRI_STRIDE)
+    return lambda ptr, cnt, o, d, best: _leaf_hits(
+        slots, packed.form, packed.max_leaf, ptr, cnt, o, d, best)
+
+
 def packed_walk(packed, o, d, best, active=None):
-    """Nearest triangle hit of each ray over the packed tables, beating
+    """Nearest triangle hit of each ray over the packed tables (a
+    PackedBVH, or a SuperleafBVH whose leaves are blocks), beating
     ``best``: returns (t, normal (N,3), mat id as float (-1: none),
     slot (-1: none)).  o, d: (N, 3); best: (N,) initial search bound;
     ``active``: optional (N,) bool, rays left out keep ``best``.
@@ -172,7 +255,7 @@ def packed_walk(packed, o, d, best, active=None):
     n_rays = o.shape[0]
     dev = o.device
     pairs = packed.pairs
-    slots = packed.tri_rows.reshape(-1, TRI_STRIDE)
+    visit = _leaf_visitor(packed)
     inv = torch.where(d.abs() > 1e-12, 1.0 / d, 1e12)
     t = best.clone()
     nrm = torch.zeros_like(o)
@@ -201,9 +284,8 @@ def packed_walk(packed, o, d, best, active=None):
             sel = (hit & (cnt > 0.5)).nonzero()[:, 0]
             if sel.numel():
                 g = live[sel]
-                won, tw, nw, mw, sw = _leaf_hits(
-                    slots, packed.form, packed.max_leaf, ptr[sel],
-                    cnt[sel], o_l[sel], d_l[sel], t[g])
+                won, tw, nw, mw, sw = visit(ptr[sel], cnt[sel], o_l[sel],
+                                            d_l[sel], t[g])
                 g = g[won]
                 t[g] = tw[won]
                 nrm[g] = nw[won]
@@ -218,18 +300,17 @@ def packed_walk(packed, o, d, best, active=None):
     return t, nrm, mid, slot
 
 
-def make_packed_intersect(spheres, packed, mat_table):
-    """The ``intersect_fn`` for :func:`megakernel.trace_tile` over a packed
-    mesh scene: the sphere loop seeds ``best_t``, the packed walk beats it,
-    and triangle hits take their material row from ``mat_table``
-    (:func:`pack_materials`)."""
+def make_walk_intersect(spheres, walk, mat_table):
+    """The ``intersect_fn`` for :func:`megakernel.trace_tile` over a mesh
+    scene: the sphere loop seeds ``best_t``, ``walk(o, d, best, active) ->
+    (t, normal, mat id, slot)`` beats it, and triangle hits take their
+    material row from ``mat_table`` (:func:`pack_materials`)."""
 
     def intersect(o3, d3, active=None):
         st = mk.init_hit_state(d3[0])
         st = mk.sphere_unroll(spheres, o3, d3, st)
-        t, nrm, mid, _ = packed_walk(packed, torch.stack(o3, -1),
-                                     torch.stack(d3, -1), st["best_t"],
-                                     active)
+        t, nrm, mid, _ = walk(torch.stack(o3, -1), torch.stack(d3, -1),
+                              st["best_t"], active)
         tri = mid >= 0.0
         st["best_t"] = t
         st["hit_is_tri"] = tri
@@ -239,6 +320,51 @@ def make_packed_intersect(spheres, packed, mat_table):
         return mk.finish_intersect(o3, d3, st)
 
     return intersect
+
+
+def make_packed_intersect(spheres, packed, mat_table):
+    """:func:`make_walk_intersect` over :func:`packed_walk` of ``packed``."""
+    return make_walk_intersect(
+        spheres, lambda o, d, best, active: packed_walk(packed, o, d, best,
+                                                        active), mat_table)
+
+
+def sphere_tuples(scene):
+    """The sphere table as the tracers' per-sphere scalar tuples."""
+    sph_arr = mk.pack_scene(scene)
+    return [tuple(sph_arr[k, f] for f in range(14))
+            for k in range(scene.spheres.count)]
+
+
+def trace_mesh(scene, camera, intersect_fn, *, width, height, spp,
+               max_depth, seed, inclusive_uv):
+    """Plain mesh render through :func:`megakernel.trace_tile` with
+    ``intersect_fn`` → flat (H*W, 3) bottom-up HDR buffer.  Each call adds
+    one to ``trace_mesh.calls``."""
+    trace_mesh.calls += 1
+    cam = mk.cam_tuple(mk.pack_camera(camera), camera.has_lens)
+    pixel = torch.arange(height * width, dtype=torch.int64,
+                         device=scene.device)
+    du, dv = mk._uv_scale(width, height, inclusive_uv)
+    r, g, b = mk.trace_tile(
+        pixel,
+        (pixel // width).to(torch.float32),
+        (pixel % width).to(torch.float32),
+        cam,
+        (),
+        seed=seed,
+        spp=spp,
+        max_depth=max_depth,
+        du=du,
+        dv=dv,
+        intersect_fn=intersect_fn,
+    )
+    inv = mk._inv_spp(spp)
+    return torch.stack([r * inv, g * inv, b * inv], dim=-1)
+
+
+#: Plain mesh renders since the count was last reset (set it to 0 to reset).
+trace_mesh.calls = 0
 
 
 def render_flat_bvh_fused(
@@ -251,35 +377,17 @@ def render_flat_bvh_fused(
     max_depth: int = 4,
     seed: int = 0,
     inclusive_uv: bool = True,
+    mxu_leaf: bool = False,
 ):
     """Plain-PyTorch packed-BVH render → flat (H*W, 3) bottom-up HDR
     buffer, on the scene's device.  Same math, walk and RNG as the CUDA
-    kernel."""
-    packed = _require_tree(scene)
-    cam = mk.cam_tuple(mk.pack_camera(camera), camera.has_lens)
-    sph_arr = mk.pack_scene(scene)
-    spheres = [tuple(sph_arr[k, f] for f in range(14))
-               for k in range(scene.spheres.count)]
-    intersect = make_packed_intersect(spheres, packed,
+    kernel; ``mxu_leaf`` walks the superleaf tree on ``scene.wide``."""
+    packed = _require_tree(scene, mxu_leaf)
+    intersect = make_packed_intersect(sphere_tuples(scene), packed,
                                       pack_materials(scene.materials))
-    pixel = torch.arange(height * width, dtype=torch.int64,
-                         device=scene.device)
-    du, dv = mk._uv_scale(width, height, inclusive_uv)
-    r, g, b = mk.trace_tile(
-        pixel,
-        (pixel // width).to(torch.float32),
-        (pixel % width).to(torch.float32),
-        cam,
-        spheres,
-        seed=seed,
-        spp=spp,
-        max_depth=max_depth,
-        du=du,
-        dv=dv,
-        intersect_fn=intersect,
-    )
-    inv = mk._inv_spp(spp)
-    return torch.stack([r * inv, g * inv, b * inv], dim=-1)
+    return trace_mesh(scene, camera, intersect, width=width, height=height,
+                      spp=spp, max_depth=max_depth, seed=seed,
+                      inclusive_uv=inclusive_uv)
 
 
 def intersect_packed_plain(packed, origins, dirs, active=None,
@@ -302,10 +410,9 @@ def intersect_packed_plain(packed, origins, dirs, active=None,
 # ----------------------------------------------------------------------------
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_RENDER_ARGTYPES = (
-    _VP, _VP, _I,  # cam, spheres, n_spheres
-    _VP, _I,  # mats, n_mats
-    _VP, _VP, _I, _I,  # pairs, tri_rows, root, form_bw
+#: a mesh render entry's arguments before and after its tree tables
+_RENDER_HEAD = (_VP, _VP, _I, _VP, _I)  # cam, spheres, n_spheres, mats, n_mats
+_RENDER_TAIL = (
     _VP, _I, _I, _I, _I,  # out, width, height, spp, max_depth
     ctypes.c_uint32, _F, _F, _F, _I,  # seed, du, dv, inv_spp, has_lens
     _VP,  # stream
@@ -318,16 +425,71 @@ _INTERSECT_ARGTYPES = (
 )
 
 
+def _check_aligned(name, t, device, cols):
+    mk._check_table(name, t, device, cols)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_root(tree):
+    if not 0 <= tree.root < tree.pairs.shape[0]:
+        raise ValueError(f"packed root {tree.root} outside the "
+                         f"{tree.pairs.shape[0]} pair records")
+
+
 def _check_tree_tables(packed, device):
-    for name, t, cols in (("pairs", packed.pairs, 16),
-                          ("tri_rows", packed.tri_rows,
-                           TRIS_PER_ROW * TRI_STRIDE)):
-        mk._check_table(f"packed {name}", t, device, cols)
-        if t.data_ptr() % 16:
-            raise ValueError(f"packed {name} must be 16-byte aligned")
-    if not 0 <= packed.root < packed.pairs.shape[0]:
-        raise ValueError(f"packed root {packed.root} outside the "
-                         f"{packed.pairs.shape[0]} pair records")
+    if isinstance(packed, SuperleafBVH):
+        raise ValueError("the nearest-hit kernel walks row leaves (a "
+                         "PackedBVH), not superleaf blocks")
+    _check_aligned("packed pairs", packed.pairs, device, 16)
+    _check_aligned("packed tri_rows", packed.tri_rows, device,
+                   TRIS_PER_ROW * TRI_STRIDE)
+    _check_root(packed)
+
+
+def check_block_tables(tables, device, n_blocks):
+    """The coefficient tables of ``n_blocks`` superleaf blocks, as the
+    kernels read them: float32, row-major, on ``device``."""
+    for name, cols in (("coeff_uv", 3 * SUPERLEAF), ("coeff_t", SUPERLEAF),
+                       ("coeff_pay", SUPERLEAF)):
+        t = getattr(tables, name)
+        _check_aligned(f"superleaf {name}", t, device, cols)
+        if t.shape[0] != n_blocks * BLOCK_ROWS:
+            raise ValueError(f"superleaf {name} has {t.shape[0]} rows, not "
+                             f"{BLOCK_ROWS} for each of {n_blocks} blocks")
+
+
+def launch_render(what, library, symbol, tree_argtypes, tree_args, scene,
+                  camera, *, width, height, spp, max_depth, seed,
+                  inclusive_uv):
+    """Pack and check the camera, sphere and material tables of ``scene``
+    on its CUDA device and launch the mesh render entry ``symbol`` of
+    ``csrc/<library>.cu`` with the (already checked) tree arguments
+    ``tree_args``: returns the flat (H*W, 3) output."""
+    device = scene.device
+    mk._check_launch_args(device, width, height, spp, max_depth, what)
+    with torch.no_grad():
+        cam = mk.pack_camera(camera).contiguous()
+        sph = mk.pack_scene(scene).contiguous()
+        mat = pack_materials(scene.materials).contiguous()
+    mk._check_table("camera table", cam, device, mk.N_CAM_FIELDS)
+    mk._check_table("sphere table", sph, device, mk.N_SPHERE_FIELDS)
+    mk._check_table("material table", mat, device, N_MAT_FIELDS)
+    mk._check_smem(cam, sph, mat)
+    du, dv = mk._uv_scale(width, height, inclusive_uv)
+    out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
+    fn = _build.entry(library, symbol,
+                      _RENDER_HEAD + tuple(tree_argtypes) + _RENDER_TAIL)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            cam.data_ptr(), sph.data_ptr(), sph.shape[0], mat.data_ptr(),
+            mat.shape[0], *tree_args, out.data_ptr(), width, height, spp,
+            max_depth, seed & 0xFFFFFFFF, du, dv, mk._inv_spp(spp),
+            int(camera.has_lens), stream,
+        )
+    mk._launch_error(what, err)
+    return out
 
 
 def render_flat_bvh_megakernel(
@@ -350,46 +512,77 @@ def render_flat_bvh_megakernel(
     ``render_flat_bvh_megakernel.launches``; a scene on the CPU runs
     :func:`render_flat_bvh_fused`.  Same PCG stream as the sphere
     megakernel.  Any other device, and any input the kernel does not
-    take, raises.
+    take, raises.  ``mxu_leaf`` walks the superleaf tree on
+    ``scene.wide`` instead: :func:`render_flat_bvh_mxu_megakernel`.
     """
-    packed = _require_tree(scene, mxu_leaf)
-    device = scene.device
-    if device.type == "cpu":
-        return render_flat_bvh_fused(
+    if mxu_leaf:
+        return render_flat_bvh_mxu_megakernel(
             scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-        )
-    mk._check_launch_args(device, width, height, spp, max_depth,
-                          "render_flat_bvh_megakernel")
-    with torch.no_grad():
-        cam = mk.pack_camera(camera).contiguous()
-        sph = mk.pack_scene(scene).contiguous()
-        mat = pack_materials(scene.materials).contiguous()
-    mk._check_table("camera table", cam, device, mk.N_CAM_FIELDS)
-    mk._check_table("sphere table", sph, device, mk.N_SPHERE_FIELDS)
-    mk._check_table("material table", mat, device, N_MAT_FIELDS)
-    _check_tree_tables(packed, device)
-    mk._check_smem(cam, sph, mat)
-    du, dv = mk._uv_scale(width, height, inclusive_uv)
-    out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
-    fn = _build.entry("bvh_megakernel", "spira_bvh_megakernel_render",
-                      _RENDER_ARGTYPES)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            cam.data_ptr(), sph.data_ptr(), sph.shape[0], mat.data_ptr(),
-            mat.shape[0], packed.pairs.data_ptr(), packed.tri_rows.data_ptr(),
-            packed.root, int(packed.form == "bw"), out.data_ptr(), width,
-            height, spp, max_depth, seed & 0xFFFFFFFF, du, dv,
-            mk._inv_spp(spp), int(camera.has_lens), stream,
-        )
-    mk._launch_error("bvh_megakernel", err)
+            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv)
+    packed = _require_tree(scene)
+    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+              seed=seed, inclusive_uv=inclusive_uv)
+    if scene.device.type == "cpu":
+        return render_flat_bvh_fused(scene, camera, **kw)
+    _check_tree_tables(packed, scene.device)
+    out = launch_render(
+        "bvh_megakernel", "bvh_megakernel", "spira_bvh_megakernel_render",
+        (_VP, _VP, _I, _I),  # pairs, tri_rows, root, form_bw
+        (packed.pairs.data_ptr(), packed.tri_rows.data_ptr(), packed.root,
+         int(packed.form == "bw")), scene, camera, **kw)
     render_flat_bvh_megakernel.launches += 1
     return out
 
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 render_flat_bvh_megakernel.launches = 0
+
+
+def render_flat_bvh_mxu_megakernel(
+    scene,
+    camera,
+    *,
+    width: int,
+    height: int,
+    spp: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    inclusive_uv: bool = True,
+):
+    """Packed-BVH render whose leaves are superleaf blocks → flat (H*W, 3)
+    bottom-up HDR buffer: the counterpart of the JAX packet kernel with
+    ``mxu_leaf=True``.
+
+    Requires a :class:`~spira_tpu_torch.accel.mxu.SuperleafBVH` on
+    ``scene.wide`` (:func:`spira_tpu_torch.accel.mxu.attach_superleaf`).
+    A scene on a CUDA device launches ``spira_bvh_mxu_render`` (the walk
+    of kernel #2 with the block visit of ``csrc/superleaf.cuh``) and adds
+    one to ``render_flat_bvh_mxu_megakernel.launches``; a scene on the
+    CPU runs :func:`render_flat_bvh_fused` with ``mxu_leaf=True``.  The
+    fp32 result is the JAX kernel's ``mxu_precision="highest"``; that TPU
+    knob is not taken.
+    """
+    tree = _require_tree(scene, mxu_leaf=True)
+    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+              seed=seed, inclusive_uv=inclusive_uv)
+    if scene.device.type == "cpu":
+        return render_flat_bvh_fused(scene, camera, mxu_leaf=True, **kw)
+    device = scene.device
+    _check_aligned("superleaf pairs", tree.pairs, device, 16)
+    _check_root(tree)
+    check_block_tables(tree, device, tree.n_blocks)
+    out = launch_render(
+        "bvh_mxu_megakernel", "bvh_megakernel", "spira_bvh_mxu_render",
+        (_VP, _VP, _VP, _VP, _I),  # pairs, coeff_uv, coeff_t, coeff_pay, root
+        (tree.pairs.data_ptr(), tree.coeff_uv.data_ptr(),
+         tree.coeff_t.data_ptr(), tree.coeff_pay.data_ptr(), tree.root),
+        scene, camera, **kw)
+    render_flat_bvh_mxu_megakernel.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last reset (set it to 0 to reset).
+render_flat_bvh_mxu_megakernel.launches = 0
 
 
 def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):

@@ -16,7 +16,16 @@ are
 * ``cuda_spectral_bvh`` — the hand-written CUDA spectral packed-BVH kernel
   (the plain version on the CPU); it renders spectrally whatever
   ``spectral`` says, as the JAX package's ``pallas_spectral_bvh`` does;
+* ``cuda_mxu`` — the streaming superleaf kernel (every ray tests every
+  128-triangle block; JAX's ``pallas_mxu``), RGB only, packing
+  ``scene.wide`` with ``attach_mxu`` when it holds no MXUBVH;
+* ``cuda_bvh_mxu`` — the packed-BVH kernel over a pair tree whose leaves
+  are superleaf blocks (JAX's ``pallas_bvh_mxu``), RGB only, packing
+  ``scene.wide`` with ``attach_superleaf`` when it holds no SuperleafBVH;
 * ``fused``    — the plain PyTorch tracer (RGB or spectral), on any device.
+
+``engine="auto"`` never picks the two superleaf engines, as in JAX: they
+are the retired experiments of :mod:`spira_tpu_torch.experiments`.
 
 Every other path of the JAX renderer raises ``NotImplementedError`` naming
 the ROADMAP item (queue 1) that brings it.
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .accel.mxu import MXUBVH, SuperleafBVH, attach_mxu, attach_superleaf
 from .io import image as img_io
 from .kernels.bvh_megakernel import render_flat_bvh_megakernel
 from .kernels.megakernel import (
@@ -33,18 +43,37 @@ from .kernels.megakernel import (
     render_flat_fused,
     render_flat_megakernel,
 )
+from .kernels.mxu_megakernel import render_flat_mxu_megakernel
 from .kernels.spectral_bvh import render_flat_spectral_bvh_megakernel
 from .kernels.spectral_fused import (
     render_flat_fused_spectral,
     render_flat_spectral_megakernel,
 )
 
-ENGINES = ("cuda", "cuda_bvh", "cuda_spectral_bvh", "fused")
+
+def _render_flat_mxu(scene, camera, **kw):
+    if not isinstance(scene.wide, MXUBVH):
+        # host-side packing; attach once outside render loops
+        scene = attach_mxu(scene)
+    return render_flat_mxu_megakernel(scene, camera, **kw)
+
+
+def _render_flat_bvh_mxu(scene, camera, **kw):
+    if not isinstance(scene.wide, SuperleafBVH):
+        # host-side packing; attach once outside render loops
+        scene = attach_superleaf(scene)
+    return render_flat_bvh_megakernel(scene, camera, mxu_leaf=True, **kw)
+
+
+ENGINES = ("cuda", "cuda_bvh", "cuda_spectral_bvh", "cuda_mxu",
+           "cuda_bvh_mxu", "fused")
 #: engine -> (RGB render, spectral render)
 _ENGINE_FNS = {
     "cuda": (render_flat_megakernel, render_flat_spectral_megakernel),
     "cuda_bvh": (render_flat_bvh_megakernel, None),
     "cuda_spectral_bvh": (render_flat_spectral_bvh_megakernel,) * 2,
+    "cuda_mxu": (_render_flat_mxu, None),
+    "cuda_bvh_mxu": (_render_flat_bvh_mxu, None),
     "fused": (render_flat_fused, render_flat_fused_spectral),
 }
 
@@ -110,12 +139,12 @@ def render_flat_engine(
     """Flat (H*W, 3) bottom-up HDR render with engine dispatch: linear
     RGB, or with ``spectral`` linear sRGB from the spectral XYZ film."""
     engine = select_engine(scene, semantics, spectral, engine, camera=camera)
-    if engine == "cuda_bvh" and spectral:
+    fn = _ENGINE_FNS[engine][bool(spectral)]
+    if fn is None:
         raise ValueError(
-            "engine 'cuda_bvh' renders RGB only; use "
+            f"engine {engine!r} renders RGB only; use "
             "engine='cuda_spectral_bvh' (or 'auto') for spectral mesh scenes"
         )
-    fn = _ENGINE_FNS[engine][bool(spectral)]
     return fn(
         scene, camera, width=width, height=height, spp=spp,
         max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,

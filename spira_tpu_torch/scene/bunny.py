@@ -15,6 +15,7 @@ import urllib.request
 
 import numpy as np
 
+from ..core.device import resolve_device
 from .geometry import Triangles, make_spheres, make_triangles
 from .materials import make_materials
 from .obj import icosphere_mesh, load_obj_mesh
@@ -64,7 +65,8 @@ def _part(subdivisions, scale3, rotate_deg, translate, material=0,
             v[:, i] = c * vi - s * vj
             v[:, j] = s * vi + c * vj
     v += np.asarray(translate, np.float64)
-    return make_triangles(v.astype(np.float32), faces, material)
+    return make_triangles(v.astype(np.float32), faces, material,
+                          device="cpu")
 
 
 def procedural_bunny(material: int = 0, scale: float = 1.0):
@@ -109,7 +111,8 @@ def create_bunny_scene(
 ):
     """The bunny (the real OBJ when available, else the procedural
     stand-in) over a ground sphere under the demo light, with a two-level
-    BVH and (``pack``) pair tables for the BVH kernels, on ``device``.
+    BVH and (``pack``) pair tables for the BVH kernels, on ``device``
+    (``None``: the card).  The tables are built on the host.
 
     Returns (scene, info): which mesh was used, its triangle and node
     counts.
@@ -118,12 +121,14 @@ def create_bunny_scene(
     from ..accel.pairs import attach_packed
     from .scene import make_scene
 
+    device = resolve_device(device)
     materials = make_materials(
         [
             dict(albedo=(0.75, 0.71, 0.68), metallic=0.0, roughness=0.6),
             dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),
             dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
-        ]
+        ],
+        device="cpu",
     )
     if obj_path is None and allow_download:
         obj_path = download_bunny()
@@ -144,7 +149,8 @@ def create_bunny_scene(
             # ground top at y=0 so the bunny's feet rest on it
             ((0.0, -100.0, 0.0), 100.0, 1),
             ((0.0, 5.0, 0.0), 1.0, 2),
-        ]
+        ],
+        device="cpu",
     )
     scene = make_scene(spheres=spheres, triangles=triangles,
                        materials=materials, bvh=bvh)
@@ -152,12 +158,11 @@ def create_bunny_scene(
         scene = attach_packed(scene)
     info = dict(source=source, triangles=int(triangles.count),
                 nodes=int(bvh.node_count))
-    if device is not None:
-        scene = scene.to(device)
-    return scene, info
+    return scene.to(device), info
 
 
 def bunny_camera(aspect_ratio, device=None):
+    """The bunny's camera, on ``device`` (``None``: the card)."""
     from .camera import make_camera
 
     return make_camera(

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core import vecmath as vm
+from ..core.device import resolve_device
 from ..core.types import tensor_dataclass
 
 
@@ -38,6 +39,9 @@ def make_camera(
     focus_dist=None,
     device=None,
 ) -> Camera:
+    """The camera frame as tensors on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -71,7 +75,8 @@ def make_camera(
 
 
 def default_camera(aspect_ratio, device=None) -> Camera:
-    """The demo camera: lookfrom (0,1,3), lookat origin, vfov 60."""
+    """The demo camera: lookfrom (0,1,3), lookat origin, vfov 60, on
+    ``device`` (``None``: the card)."""
     return make_camera(
         lookfrom=(0.0, 1.0, 3.0),
         lookat=(0.0, 0.0, 0.0),

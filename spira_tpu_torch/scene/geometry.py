@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.types import tensor_dataclass
 
 
@@ -26,7 +27,9 @@ class Spheres:
 
 
 def make_spheres(records, device=None) -> Spheres:
-    """records: list of (center, radius, material_index), 0-based indices."""
+    """records: list of (center, radius, material_index), 0-based indices;
+    on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return Spheres(
         centers=torch.tensor(
             [r[0] for r in records], dtype=torch.float32, device=device
@@ -41,6 +44,7 @@ def make_spheres(records, device=None) -> Spheres:
 
 
 def empty_spheres(device=None) -> Spheres:
+    device = resolve_device(device)
     return Spheres(
         centers=torch.zeros((0, 3), dtype=torch.float32, device=device),
         radii=torch.zeros((0,), dtype=torch.float32, device=device),
@@ -74,8 +78,10 @@ def make_triangles(vertices, faces, material, device=None) -> Triangles:
 
     ``material`` is a scalar or a (T,) array of material indices.  The
     edges and normals are computed in numpy, as the JAX package does, so
-    both packages hold the same values.
+    both packages hold the same values.  The tensors go to ``device``
+    (``None``: the card).
     """
+    device = resolve_device(device)
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int64)
     v0 = vertices[faces[:, 0]]
@@ -93,6 +99,7 @@ def make_triangles(vertices, faces, material, device=None) -> Triangles:
 
 
 def empty_triangles(device=None) -> Triangles:
+    device = resolve_device(device)
     z = torch.zeros((0, 3), dtype=torch.float32, device=device)
     return Triangles(
         v0=z, e1=z, e2=z, normal=z,
@@ -101,9 +108,11 @@ def empty_triangles(device=None) -> Triangles:
 
 
 def concat_triangles(parts) -> Triangles:
+    """The parts' triangles in order, on their device (no parts: an empty
+    host table)."""
     parts = [p for p in parts if p.count > 0]
     if not parts:
-        return empty_triangles()
+        return empty_triangles("cpu")
     return Triangles(
         v0=torch.cat([p.v0 for p in parts]),
         e1=torch.cat([p.e1 for p in parts]),

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core import colorimetry as cl
+from ..core.device import resolve_device
 from ..core.types import tensor_dataclass
 
 
@@ -52,8 +53,10 @@ def make_materials(records, device=None) -> Materials:
 
     The spectral tables are the Smits upsampling of albedo and emission
     (:func:`spira_tpu_torch.core.colorimetry.rgb_to_spd`, on the host); a
-    record's own ``albedo_spd`` or ``emission_spd`` wins over it.
+    record's own ``albedo_spd`` or ``emission_spd`` wins over it.  The
+    tensors go to ``device`` (``None``: the card).
     """
+    device = resolve_device(device)
 
     def col(name, default):
         return torch.tensor(

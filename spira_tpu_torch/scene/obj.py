@@ -4,6 +4,8 @@ Counterpart of :mod:`spira_tpu.scene.obj`: the OBJ parser with fan
 triangulation, the center/normalize/scale/rotate/translate pipeline, and the
 icosphere and cube generators.  All host-side numpy, as in the JAX package;
 the results feed :func:`make_triangles`, which puts them on ``device``.
+These build host tables for the BVH builders, so their ``device`` is the
+CPU unless the caller names another.
 """
 
 from __future__ import annotations
@@ -83,8 +85,10 @@ def transform_vertices(
     return v.astype(np.float32)
 
 
-def load_obj_mesh(path: str, material: int = 0, device=None,
+def load_obj_mesh(path: str, material: int = 0, device="cpu",
                   **transform_kw) -> Triangles:
+    """An OBJ mesh, transformed, as a host table (on the CPU unless
+    ``device`` names another)."""
     verts, faces = load_obj(path)
     verts = transform_vertices(verts, **transform_kw)
     return make_triangles(verts, faces, material, device=device)
@@ -135,9 +139,10 @@ def icosphere_mesh(subdivisions=2):
 
 def icosphere(
     center=(0.0, 0.0, 0.0), radius=1.0, subdivisions=2, material: int = 0,
-    device=None,
+    device="cpu",
 ) -> Triangles:
-    """Subdivided icosahedron."""
+    """Subdivided icosahedron, as a host table (on the CPU unless
+    ``device`` names another)."""
     verts, faces = icosphere_mesh(subdivisions)
     v = verts * radius + np.asarray(center, np.float64)
     return make_triangles(v.astype(np.float32), faces, material,
@@ -145,8 +150,9 @@ def icosphere(
 
 
 def cube(center=(0.0, 0.0, 0.0), size=1.0, material: int = 0,
-         device=None) -> Triangles:
-    """Axis-aligned cube of edge ``size`` — 12 triangles."""
+         device="cpu") -> Triangles:
+    """Axis-aligned cube of edge ``size`` — 12 triangles, as a host table
+    (on the CPU unless ``device`` names another)."""
     h = size / 2.0
     c = np.asarray(center, np.float64)
     corners = np.asarray(

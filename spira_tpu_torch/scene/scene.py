@@ -1,8 +1,10 @@
 """Scene dataclass and the built-in scenes.
 
-Counterpart of :mod:`spira_tpu.scene.scene`.  The BVH tables of the mesh
-scenes are built on the host (NumPy and the shared C++ builder) and the
-finished scene is moved to ``device``.
+Counterpart of :mod:`spira_tpu.scene.scene`.  The built-in scenes are
+made on ``device``, the card when it is ``None``
+(:func:`spira_tpu_torch.core.device.resolve_device`).  The BVH tables of
+the mesh scenes are built on the host (NumPy and the shared C++ builder)
+and the finished scene is moved to ``device``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.types import tensor_dataclass
 from .camera import make_camera
 from .geometry import (
@@ -33,7 +36,10 @@ class Scene:
     ``bvh`` is ``None`` for brute-force intersection, or a
     :class:`spira_tpu_torch.accel.bvh.FlatBVH`; ``packed`` holds the
     pair-record tables the BVH kernels walk
-    (:func:`spira_tpu_torch.accel.pairs.attach_packed`).
+    (:func:`spira_tpu_torch.accel.pairs.attach_packed`); ``wide`` holds a
+    16-wide or superleaf packing (:func:`spira_tpu_torch.accel.wide.
+    attach_wide`, :func:`spira_tpu_torch.accel.mxu.attach_mxu`,
+    :func:`spira_tpu_torch.accel.mxu.attach_superleaf`).
     """
 
     spheres: Spheres
@@ -41,6 +47,7 @@ class Scene:
     materials: Materials
     bvh: Optional[Any] = None
     packed: Optional[Any] = None
+    wide: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -49,8 +56,14 @@ class Scene:
 
 def make_scene(
     spheres=None, triangles=None, materials=None, bvh=None, packed=None,
+    wide=None,
 ) -> Scene:
-    device = materials.albedo.device if materials is not None else None
+    """A scene of the given parts; a missing geometry table is made empty
+    on the device of the parts given."""
+    given = [t for t in (materials and materials.albedo,
+                         spheres and spheres.centers,
+                         triangles and triangles.v0) if t is not None]
+    device = given[0].device if given else None
     return Scene(
         spheres=spheres if spheres is not None else empty_spheres(device),
         triangles=(
@@ -59,12 +72,14 @@ def make_scene(
         materials=materials,
         bvh=bvh,
         packed=packed,
+        wide=wide,
     )
 
 
 def create_scene(device=None) -> Scene:
     """The reference demo scene: diffuse red, grey ground, mirror metal,
     glass-like metal 0.9, white light with emission 5."""
+    device = resolve_device(device)
     materials = make_materials(
         [
             dict(albedo=(0.7, 0.3, 0.3), metallic=0.0, roughness=0.5),
@@ -97,6 +112,7 @@ def create_cornell_box(light_emission=(15.0, 15.0, 15.0), device=None):
     """Cornell-style box: emissive area light at the ceiling, colored
     diffuse walls, one metal and one dielectric sphere, in a 2×2×2 box
     centered at the origin (12 triangles, 2 spheres)."""
+    device = resolve_device(device)
     materials = make_materials(
         [
             dict(albedo=(0.73, 0.73, 0.73)),  # 0 white walls
@@ -162,13 +178,15 @@ def create_mesh_scene(obj_path: str | None = None, subdivisions: int = 3,
     from ..accel.bvh import build_two_level
     from .obj import icosphere, load_obj_mesh
 
+    device = resolve_device(device)
     materials = make_materials(
         [
             dict(albedo=(0.65, 0.55, 0.45), metallic=0.0, roughness=0.6),  # mesh
             dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),  # ground
             dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),  # light
             dict(albedo=(0.8, 0.8, 0.8), metallic=1.0, roughness=0.05),  # mirror
-        ]
+        ],
+        device="cpu",
     )
     if obj_path is not None:
         mesh = load_obj_mesh(
@@ -191,14 +209,16 @@ def create_mesh_scene(obj_path: str | None = None, subdivisions: int = 3,
         [
             ((0.0, -100.5, 0.0), 100.0, 1),
             ((0.0, 5.0, 0.0), 1.0, 2),
-        ]
+        ],
+        device="cpu",
     )
     scene = make_scene(spheres=spheres, triangles=triangles,
                        materials=materials, bvh=bvh)
-    return scene.to(device) if device is not None else scene
+    return scene.to(device)
 
 
 def cornell_camera(aspect_ratio=1.0, device=None):
+    """The Cornell box's camera, on ``device`` (``None``: the card)."""
     return make_camera(
         lookfrom=(0.0, 0.0, 3.4),
         lookat=(0.0, 0.0, 0.0),

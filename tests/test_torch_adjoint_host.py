@@ -144,19 +144,22 @@ def host_adjoint(tmp_path_factory):
     return run
 
 
-def _quad_scene():
+def _quad_scene(device):
     """The demo scene plus a 2-triangle back wall."""
     verts = np.array(
         [[-2, -0.5, -1.5], [2, -0.5, -1.5], [2, 1.5, -1.5], [-2, 1.5, -1.5]],
         np.float32,
     )
-    quad = sp.make_triangles(verts, np.array([[0, 1, 2], [0, 2, 3]]), 2)
-    return dataclasses.replace(sp.create_scene(), triangles=quad)
+    quad = sp.make_triangles(verts, np.array([[0, 1, 2], [0, 2, 3]]), 2,
+                            device=device)
+    return dataclasses.replace(sp.create_scene(device=device),
+                               triangles=quad)
 
 
-def _lens(aspect):
+def _lens(aspect, device):
     return sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
-                          aspect_ratio=aspect, aperture=0.2, focus_dist=3.0)
+                          aspect_ratio=aspect, aperture=0.2, focus_dist=3.0,
+                          device=device)
 
 
 CASES = {
@@ -181,8 +184,8 @@ CASES = {
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_host_adjoint_matches_autograd(host_adjoint, name):
     build_scene, build_cam, shape, grad_spp, loss_mode, seed = CASES[name]
-    scene = build_scene()
-    cam = build_cam(shape["width"] / shape["height"])
+    scene = build_scene(device="cpu")
+    cam = build_cam(shape["width"] / shape["height"], device="cpu")
     tables = [t.detach().contiguous() for t in mk.pack_tables(scene, cam)]
     pix = torch.from_numpy(np.random.default_rng(1).uniform(
         0.0, 1.0, (shape["width"] * shape["height"], 3)).astype(np.float32))

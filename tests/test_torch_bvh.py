@@ -86,7 +86,8 @@ def test_procedural_bunny_parts_and_camera():
     assert sum(p.count for p in port) == 72960
     for p, r in zip(port, ref):
         _assert_equal(p, r, TRI_FIELDS)
-    cam, jcam = tbunny.bunny_camera(16 / 9), jbunny.bunny_camera(16 / 9)
+    cam = tbunny.bunny_camera(16 / 9, device="cpu")
+    jcam = jbunny.bunny_camera(16 / 9)
     _assert_equal(cam, jcam, ("origin", "u", "v", "lens_radius"))
 
 
@@ -115,8 +116,8 @@ def test_build_two_level_mesh_scene(use_native):
     _assert_equal(bvh, jb, BVH_FIELDS)
     _assert_equal(tris, jt, TRI_FIELDS)
     assert bvh.max_leaf == jb.max_leaf
-    scene, ref = sp.create_mesh_scene(subdivisions=2), j_create_mesh_scene(
-        subdivisions=2)
+    scene = sp.create_mesh_scene(subdivisions=2, device="cpu")
+    ref = j_create_mesh_scene(subdivisions=2)
     _assert_equal(scene.bvh, ref.bvh, BVH_FIELDS)
     _assert_equal(scene.triangles, ref.triangles, TRI_FIELDS)
     _assert_equal(scene.spheres, ref.spheres, ("centers", "radii",
@@ -125,8 +126,8 @@ def test_build_two_level_mesh_scene(use_native):
 
 @pytest.mark.parametrize("form", ["bw", "mt"])
 def test_pack_bvh_value_exact(form):
-    scene, ref = sp.create_mesh_scene(subdivisions=2), j_create_mesh_scene(
-        subdivisions=2)
+    scene = sp.create_mesh_scene(subdivisions=2, device="cpu")
+    ref = j_create_mesh_scene(subdivisions=2)
     got = tpairs.pack_bvh(scene.bvh, scene.triangles, form=form)
     want = jpairs.pack_bvh(ref.bvh, ref.triangles, form=form)
     _assert_equal(got, want, PACKED_FIELDS)
@@ -137,20 +138,23 @@ def test_pack_bvh_value_exact(form):
 
 def test_attach_packed_and_converter_value_exact():
     ref = jpairs.attach_packed(j_create_mesh_scene(subdivisions=2))
-    scene = sp.attach_packed(sp.create_mesh_scene(subdivisions=2))
-    conv = sp.scene_from_numpy(jax.tree_util.tree_map(np.asarray, ref))
+    scene = sp.attach_packed(sp.create_mesh_scene(subdivisions=2,
+                                                  device="cpu"))
+    conv = sp.scene_from_numpy(jax.tree_util.tree_map(np.asarray, ref),
+                               device="cpu")
     for port in (scene, conv):
         _assert_equal(port.bvh, ref.bvh, BVH_FIELDS)
         _assert_meta(port.bvh, ref.bvh, ("max_leaf", "n_sph"))
         _assert_equal(port.packed, ref.packed, PACKED_FIELDS)
         _assert_meta(port.packed, ref.packed, PACKED_META)
     with pytest.raises(ValueError, match="built BVH"):
-        sp.attach_packed(sp.create_scene())
+        sp.attach_packed(sp.create_scene(device="cpu"))
 
 
 def test_traverse_oracle_matches_jax():
     ref = jpairs.attach_packed(j_create_mesh_scene(subdivisions=1))
-    scene = sp.attach_packed(sp.create_mesh_scene(subdivisions=1))
+    scene = sp.attach_packed(sp.create_mesh_scene(subdivisions=1,
+                                                  device="cpu"))
     rng = np.random.default_rng(4)
     origins = rng.uniform(-2, 2, (64, 3)).astype(np.float32)
     dirs = rng.normal(size=(64, 3)).astype(np.float32)
@@ -222,7 +226,7 @@ def test_pack_bvh_refuses_too_deep():
 
 
 def test_pack_bvh_refuses_quad_records():
-    scene = sp.create_mesh_scene(subdivisions=1)
+    scene = sp.create_mesh_scene(subdivisions=1, device="cpu")
     with pytest.raises(ValueError, match="TPU tuning knob"):
         tpairs.pack_bvh(scene.bvh, scene.triangles, fanout=4)
     with pytest.raises(ValueError, match="leaf form"):

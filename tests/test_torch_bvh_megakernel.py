@@ -40,8 +40,8 @@ def mesh():
     jcam = st.make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
                           aspect_ratio=W / H)
     as_np = jax.tree_util.tree_map(np.asarray, (jscene, jcam))
-    return (jscene, jcam), (sp.scene_from_numpy(as_np[0]),
-                            sp.camera_from_numpy(as_np[1]))
+    return (jscene, jcam), (sp.scene_from_numpy(as_np[0], device="cpu"),
+                            sp.camera_from_numpy(as_np[1], device="cpu"))
 
 
 def _random_rays(n, seed, spread=2.0):
@@ -87,7 +87,7 @@ def test_intersect_matches_jax_kernel_and_oracle(mesh):
 def test_intersect_forms_slots_and_active(form):
     """Both leaf forms find the same hits; the winner slot maps through
     prim_map to a triangle of the winning material; inactive rays miss."""
-    scene = sp.create_mesh_scene(subdivisions=1)
+    scene = sp.create_mesh_scene(subdivisions=1, device="cpu")
     packed = tpairs.pack_bvh(scene.bvh, scene.triangles, form=form)
     origins, dirs = _random_rays(512, seed=5, spread=1.5)
     aim = np.array([0.0, 0.1, 0.0], np.float32) - origins[::2]
@@ -159,11 +159,11 @@ def test_mesh_free_packed_scene_renders_as_sphere_kernel():
     bit for bit: the BVH path shares its PCG stream and shading."""
     # below the ground sphere: every ray toward it meets the ground first
     far = icosphere(center=(0.0, -300.0, 0.0), radius=0.1, subdivisions=1)
-    base = sp.create_scene()
+    base = sp.create_scene(device="cpu")
     scene = sp.attach_packed(dataclasses.replace(
         base, triangles=far,
         bvh=build_bvh_for_triangles(far)))
-    cam = sp.default_camera(4.0)
+    cam = sp.default_camera(4.0, device="cpu")
     kw = dict(width=32, height=8, spp=2, max_depth=3, seed=9)
     torch.testing.assert_close(
         tbk.render_flat_bvh_fused(scene, cam, **kw),
@@ -173,7 +173,7 @@ def test_mesh_free_packed_scene_renders_as_sphere_kernel():
 def test_wrapper_refusals(mesh):
     _, (scene, cam) = mesh
     kw = dict(width=8, height=8, spp=1, max_depth=1)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="attach_superleaf"):
         tbk.render_flat_bvh_megakernel(scene, cam, mxu_leaf=True, **kw)
     with pytest.raises(ValueError, match="attach_packed"):
         tbk.render_flat_bvh_megakernel(

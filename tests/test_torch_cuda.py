@@ -1,7 +1,9 @@
 """The CUDA kernels against the port's plain versions, on the card: the
 sphere megakernel, the packed-BVH path tracer, the packed-BVH nearest-hit
-query, the spectral megakernel and spectral packed-BVH path tracer, and
-the adjoint kernel against autograd through the plain tracer.
+query, the spectral megakernel and spectral packed-BVH path tracer, the
+adjoint kernel against autograd through the plain tracer, and the
+superleaf kernels (the streaming path tracer and query, the packed-BVH
+path tracer with superleaf leaves).
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -22,6 +24,7 @@ from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
 from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import grad_megakernel as gk
 from spira_tpu_torch.kernels import megakernel as mk
+from spira_tpu_torch.kernels import mxu_megakernel as xk
 from spira_tpu_torch.kernels import spectral_bvh as sb
 from spira_tpu_torch.kernels import spectral_fused as sf
 from spira_tpu_torch.scene.geometry import empty_spheres
@@ -119,8 +122,8 @@ def test_kernel_deterministic_and_seed_sensitive(cuda):
 def test_kernel_wrapper_checks(cuda):
     scene = sp.create_scene(device=cuda)
     with pytest.raises(ValueError, match="camera table is on cpu"):
-        mk.render_flat_megakernel(scene, sp.default_camera(2.0), width=16,
-                                  height=8)
+        mk.render_flat_megakernel(scene, sp.default_camera(2.0, device="cpu"),
+                                  width=16, height=8)
     cam = sp.default_camera(2.0, device=cuda)
     with pytest.raises(ValueError, match="width, height, spp"):
         mk.render_flat_megakernel(scene, cam, width=0, height=8)
@@ -138,8 +141,8 @@ def test_kernel_wrapper_checks(cuda):
 # ---------------------------------------------------------------------------
 
 def _mesh(device, form="bw", subdivisions=2):
-    scene = sp.create_mesh_scene(subdivisions=subdivisions)
-    return sp.attach_packed(scene, form=form).to(device)
+    scene = sp.create_mesh_scene(subdivisions=subdivisions, device=device)
+    return sp.attach_packed(scene, form=form)
 
 
 def _rays(n, device, seed=0):
@@ -213,14 +216,15 @@ def test_bvh_wrapper_refusals(cuda):
         scene.packed, depth=pairs.TRAVERSAL_STACK + 1))
     with pytest.raises(ValueError, match="traversal stack"):
         bk.render_flat_bvh_megakernel(deep, cam, **kw)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="attach_superleaf"):
         bk.render_flat_bvh_megakernel(scene, cam, mxu_leaf=True, **kw)
     cpu_tables = dataclasses.replace(scene, packed=scene.packed.to("cpu"))
     with pytest.raises(ValueError, match="packed pairs is on cpu"):
         bk.render_flat_bvh_megakernel(cpu_tables, cam, **kw)
     with pytest.raises(ValueError, match="camera table is on cpu"):
         bk.render_flat_bvh_megakernel(
-            scene, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0)), **kw)
+            scene, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                                  device="cpu"), **kw)
     o, d = _rays(256, cuda)
     with pytest.raises(ValueError, match="packed pairs is on cpu"):
         bk.intersect_tile(cpu_tables.packed, o, d)
@@ -279,10 +283,10 @@ def _dispersive_mesh(device, form="bw"):
         dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
         dict(albedo=(1.0, 1.0, 1.0), metallic=1.0, roughness=0.0, ior=1.5,
              transmission=1.0, cauchy_b=0.01),
-    ])
+    ], device="cpu")
     spheres = sp.make_spheres([((0.0, -100.5, 0.0), 100.0, 1),
                                ((0.0, 5.0, 0.0), 1.0, 2),
-                               ((0.9, 0.0, 0.6), 0.35, 3)])
+                               ((0.9, 0.0, 0.6), 0.35, 3)], device="cpu")
     scene = sp.make_scene(spheres=spheres, triangles=mesh,
                           materials=materials,
                           bvh=build_bvh_for_triangles(mesh))
@@ -360,7 +364,8 @@ def test_spectral_wrapper_refusals(cuda):
         sf.render_flat_spectral_megakernel(big, cam, **kw)
     with pytest.raises(ValueError, match="camera table is on cpu"):
         sf.render_flat_spectral_megakernel(
-            scene, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0)), **kw)
+            scene, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                                  device="cpu"), **kw)
     mesh = _dispersive_mesh(cuda)
     deep = dataclasses.replace(mesh, packed=dataclasses.replace(
         mesh.packed, depth=pairs.TRAVERSAL_STACK + 1))
@@ -481,3 +486,117 @@ def test_grad_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="shared-memory"):
         gk.render_grad_megakernel(many, cam, big, pix, loss_mode=False,
                                   **kw)
+
+
+# ---------------------------------------------------------------------------
+# The superleaf kernels
+# ---------------------------------------------------------------------------
+
+def _superleaf_scenes(device, subdivisions=2):
+    """The mesh scene with its row tables and each superleaf packing."""
+    rows = _mesh(device, subdivisions=subdivisions)
+    return rows, sp.attach_mxu(rows), sp.attach_superleaf(rows)
+
+
+def test_mxu_intersect_matches_plain(cuda):
+    """Kernel #8 against ``intersect_mxu_plain``: the same lane test in the
+    same order, so bit for bit; one launch; the packed-BVH query finds the
+    same hits."""
+    rows, stream, _ = _superleaf_scenes(cuda)
+    o, d = _rays(8192, cuda, seed=4)
+    before = xk.intersect_tile_mxu.launches
+    got = xk.intersect_tile_mxu(stream.wide, o, d)
+    assert xk.intersect_tile_mxu.launches == before + 1
+    want = xk.intersect_mxu_plain(stream.wide, o, d)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hit = got[0] < 1e19
+    assert 1000 < int(hit.sum()) < 8192
+    # another leaf test of the same triangles (Plücker against
+    # Baldwin–Weber): t to rtol 1e-4 / atol 1e-5, as the CPU tests hold the
+    # two walks; a ray through an edge may fall to either side, so the miss
+    # sets and material ids agree but for a 1e-3 share
+    ref = bk.intersect_tile(rows.packed, o, d)
+    both = hit & (ref[0] < 1e19)
+    assert float(((ref[0] < 1e19) != hit).float().mean()) <= 1e-3
+    torch.testing.assert_close(got[0][both], ref[0][both], rtol=1e-4,
+                               atol=1e-5)
+    assert float((got[2] == ref[2]).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("engine", ["cuda_mxu", "cuda_bvh_mxu"])
+def test_mxu_render_matches_plain(cuda, engine):
+    """Kernels #7 and #2b at 128x64, spp 2, depth 4 against their plain
+    versions, one launch each; channel means within 0.5% and 99% of
+    pixel-channels within 1e-4 of the plain version and of cuda_bvh's
+    image (same PCG stream, another intersector)."""
+    rows, stream, walk = _superleaf_scenes(cuda)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=2.0, device=cuda)
+    kw = dict(width=128, height=64, spp=2, max_depth=4, seed=3)
+    if engine == "cuda_mxu":
+        scene, fn = stream, xk.render_flat_mxu_megakernel
+        plain = xk.render_flat_mxu_fused(scene, cam, **kw)
+    else:
+        scene, fn = walk, bk.render_flat_bvh_mxu_megakernel
+        plain = bk.render_flat_bvh_fused(scene, cam, mxu_leaf=True, **kw)
+    before = fn.launches
+    kernel = fn(scene, cam, **kw)
+    assert fn.launches == before + 1
+    _assert_close_images(kernel, plain, 1e-4, 0.99)
+    _assert_close_images(kernel, bk.render_flat_bvh_megakernel(rows, cam,
+                                                               **kw),
+                         1e-4, 0.99)
+
+
+def test_mxu_engines_go_through_kernels_and_are_deterministic(cuda):
+    """render() on the superleaf engines launches their kernel once and no
+    other; ``engine="auto"`` keeps cuda_bvh; one seed repeats bit for bit,
+    another differs."""
+    rows, stream, walk = _superleaf_scenes(cuda, subdivisions=1)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=2.0, device=cuda)
+    assert sp.select_engine(walk, "physical", False) == "cuda_bvh"
+    counters = (bk.render_flat_bvh_megakernel, xk.render_flat_mxu_megakernel,
+                bk.render_flat_bvh_mxu_megakernel)
+    for scene, engine, launched in ((stream, "cuda_mxu", 1),
+                                    (walk, "cuda_bvh_mxu", 2),
+                                    (rows, "cuda_mxu", 1)):  # attaches
+        before = [f.launches for f in counters]
+        img = sp.render(scene, cam, 64, 32, samples_per_pixel=2,
+                        max_depth=3, engine=engine)
+        after = [f.launches for f in counters]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(k == launched) for k in range(3)]
+        assert img.std() > 0
+    kw = dict(width=64, height=16, spp=2, max_depth=3)
+    for fn, scene in ((xk.render_flat_mxu_megakernel, stream),
+                      (bk.render_flat_bvh_mxu_megakernel, walk)):
+        a = fn(scene, cam, seed=5, **kw)
+        b = fn(scene, cam, seed=5, **kw)
+        c = fn(scene, cam, seed=6, **kw)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert (a - c).abs().max() > 0
+
+
+def test_mxu_wrapper_refusals(cuda):
+    rows, stream, walk = _superleaf_scenes(cuda, subdivisions=1)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), device=cuda)
+    kw = dict(width=16, height=8, spp=1, max_depth=1)
+    deep = dataclasses.replace(walk, wide=dataclasses.replace(
+        walk.wide, depth=pairs.TRAVERSAL_STACK + 1))
+    with pytest.raises(ValueError, match="traversal stack"):
+        bk.render_flat_bvh_mxu_megakernel(deep, cam, **kw)
+    with pytest.raises(ValueError, match="attach_mxu"):
+        xk.render_flat_mxu_megakernel(rows, cam, **kw)
+    cpu_tables = dataclasses.replace(stream, wide=stream.wide.to("cpu"))
+    with pytest.raises(ValueError, match="superleaf coeff_uv is on cpu"):
+        xk.render_flat_mxu_megakernel(cpu_tables, cam, **kw)
+    o, d = _rays(256, cuda)
+    with pytest.raises(ValueError, match="superleaf coeff_uv is on cpu"):
+        xk.intersect_tile_mxu(cpu_tables.wide, o, d)
+    with pytest.raises(ValueError, match="dirs is on cpu"):
+        xk.intersect_tile_mxu(stream.wide, o, d.cpu())
+    with pytest.raises(ValueError, match="row leaves"):
+        bk.intersect_tile(walk.wide, o, d)

@@ -83,7 +83,8 @@ def _lens_camera():
 
 def _port(jscene, jcam):
     as_np = jax.tree_util.tree_map(np.asarray, (jscene, jcam))
-    return sp.scene_from_numpy(as_np[0]), sp.camera_from_numpy(as_np[1])
+    return (sp.scene_from_numpy(as_np[0], device="cpu"),
+            sp.camera_from_numpy(as_np[1], device="cpu"))
 
 
 def _with(objs, params, rep):
@@ -184,7 +185,8 @@ def test_camera_gradients_finite_where_the_reference_is_nan():
     """test_grad.py's view (24x12, spp 2, depth 4, seed 5): the horizon is
     in sight, and a grazing miss lane's untaken refraction used to give
     sqrt'(0) = inf times a zero cotangent, NaN in every camera field."""
-    scene, cam = sp.create_scene(), sp.default_camera(W / H)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(W / H, device="cpu")
     target = _target(W * H)
     _, got = _port_step(scene, cam, target,
                         dict(width=W, height=H, spp=2, max_depth=4, seed=5))
@@ -209,7 +211,8 @@ def test_grad_matches_finite_differences():
     """test_grad.py's check on the port: the step is deterministic given the
     seed, so central differences give the directional derivative of the
     same estimator (depth 4 keeps Russian roulette off)."""
-    scene, cam = sp.create_scene(), sp.default_camera(W / H)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(W / H, device="cpu")
     target = torch.full((W * H, 3), 0.25)
     loss = _loss_fn(scene, cam, target)
     albedo = scene.materials.albedo.clone().requires_grad_()
@@ -241,7 +244,8 @@ def test_grad_matches_finite_differences():
 def test_remat_gradients_equal_without_remat():
     """The per-sample checkpoint replays each sample's paths in the
     backward pass and changes no gradient bit."""
-    scene, cam = sp.create_scene(), sp.default_camera(W / H)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(W / H, device="cpu")
     kw = dict(width=W, height=H, spp=2, max_depth=4, seed=7)
     cot = torch.from_numpy(_target(W * H))
     grads = []
@@ -258,7 +262,8 @@ def test_remat_gradients_equal_without_remat():
 
 def test_sample_offset_shifts_the_sample_index():
     """spp samples from sample_offset k are samples k.. of a longer run."""
-    scene, cam = sp.create_scene(), sp.default_camera(W / H)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(W / H, device="cpu")
     tables = tmk.pack_tables(scene, cam)
     pixel = torch.arange(W * H)
     args = (pixel, (pixel // W).float(), (pixel % W).float(),
@@ -273,7 +278,8 @@ def test_sample_offset_shifts_the_sample_index():
 
 
 def test_hybrid_forward_is_the_render_and_seed_gets_no_gradient():
-    scene, cam = sp.create_scene(), sp.default_camera(W / H)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(W / H, device="cpu")
     kw = dict(width=W, height=H, spp=2, max_depth=3, seed=4)
     img = tmk.render_flat_hybrid_grad(scene, cam, **kw)
     assert not img.requires_grad  # no leaf asked for a gradient

@@ -59,7 +59,8 @@ def _setup():
 
 def _port(jscene, jcam):
     as_np = jax.tree_util.tree_map(np.asarray, (jscene, jcam))
-    return sp.scene_from_numpy(as_np[0]), sp.camera_from_numpy(as_np[1])
+    return (sp.scene_from_numpy(as_np[0], device="cpu"),
+            sp.camera_from_numpy(as_np[1], device="cpu"))
 
 
 def _compare(field, got, want):
@@ -106,7 +107,8 @@ def test_loss_and_grads_match_jax_kernel(grad_spp):
 
 
 def test_cotangents_have_the_scene_types():
-    scene, cam = sp.create_scene(), sp.default_camera(4.0)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(4.0, device="cpu")
     target = torch.full((32 * 8, 3), 0.3)
     kw = dict(width=32, height=8, spp=2, max_depth=2, seed=1)
     loss, d_scene, d_cam = sp.render_mse_loss_and_grads(scene, cam, target,
@@ -128,14 +130,16 @@ def test_cotangents_have_the_scene_types():
 
 def _spheres(n):
     if n == 0:
-        return empty_spheres()
-    return sp.make_spheres([((0.3 * i, 0.0, -2.0), 0.1, 0) for i in range(n)])
+        return empty_spheres("cpu")
+    return sp.make_spheres([((0.3 * i, 0.0, -2.0), 0.1, 0) for i in range(n)],
+                           device="cpu")
 
 
 @pytest.mark.parametrize("what", ["no spheres", "17 spheres", "triangles",
                                   "thin lens"])
 def test_refuses_what_the_kernel_does_not_take(what):
-    scene, cam = sp.create_scene(), sp.default_camera(2.0)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(2.0, device="cpu")
     if what == "no spheres":
         scene = dataclasses.replace(scene, spheres=_spheres(0))
     elif what == "17 spheres":
@@ -144,12 +148,13 @@ def test_refuses_what_the_kernel_does_not_take(what):
         verts = np.array([[0, 0, -2], [1, 0, -2], [0, 1, -2]], np.float32)
         scene = dataclasses.replace(
             scene, triangles=sp.make_triangles(verts, np.array([[0, 1, 2]]),
-                                               0))
+                                               0, device="cpu"))
     else:
         # the reference reads 12 camera fields and would trace this lens
         # camera as a pinhole, with no error
         cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
-                             aspect_ratio=2.0, aperture=0.2, focus_dist=3.0)
+                             aspect_ratio=2.0, aperture=0.2, focus_dist=3.0,
+                             device="cpu")
     target = torch.zeros(16 * 8, 3)
     for fn in (sp.render_mse_loss_and_grads,
                tgk.render_mse_loss_and_grads_plain):

@@ -48,7 +48,8 @@ def _lens_camera(aspect):
 
 def _port(jscene, jcam):
     as_np = jax.tree_util.tree_map(np.asarray, (jscene, jcam))
-    return sp.scene_from_numpy(as_np[0]), sp.camera_from_numpy(as_np[1])
+    return (sp.scene_from_numpy(as_np[0], device="cpu"),
+            sp.camera_from_numpy(as_np[1], device="cpu"))
 
 
 def _assert_images_agree(got, want, atol, frac):
@@ -112,7 +113,8 @@ def test_russian_roulette_reached_at_depth6():
 
 
 def test_cpu_wrapper_runs_plain_version_and_counts_no_launch():
-    scene, cam = sp.create_scene(), sp.default_camera(2.0)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(2.0, device="cpu")
     kw = dict(width=32, height=8, spp=1, max_depth=2, seed=4)
     before = tmk.render_flat_megakernel.launches
     got = tmk.render_flat_megakernel(scene, cam, **kw)
@@ -126,24 +128,26 @@ def _strip(n_tris):
         [[i, 0.0, -2.0] for i in range(n_tris + 2)], np.float32
     ) + np.array([[0.0, (i % 2), 0.0] for i in range(n_tris + 2)], np.float32)
     faces = np.array([[i, i + 1, i + 2] for i in range(n_tris)])
-    return sp.make_triangles(verts, faces, 0)
+    return sp.make_triangles(verts, faces, 0, device="cpu")
 
 
 def test_rejects_more_than_32_triangles():
-    scene = dataclasses.replace(sp.create_scene(), triangles=_strip(33))
-    cam = sp.default_camera(1.0)
+    scene = dataclasses.replace(sp.create_scene(device="cpu"),
+                                triangles=_strip(33))
+    cam = sp.default_camera(1.0, device="cpu")
     for fn in (tmk.render_flat_megakernel, tmk.render_flat_fused):
         with pytest.raises(ValueError, match="at most 32"):
             fn(scene, cam, width=16, height=8, spp=1, max_depth=1)
-    ok = dataclasses.replace(sp.create_scene(), triangles=_strip(32))
+    ok = dataclasses.replace(sp.create_scene(device="cpu"),
+                             triangles=_strip(32))
     out = tmk.render_flat_fused(ok, cam, width=16, height=8, spp=1,
                                 max_depth=1)
     assert out.shape == (128, 3)
 
 
 def test_wrapper_refuses_other_devices():
-    scene = sp.create_scene().to("meta")
-    cam = sp.default_camera(2.0).to("meta")
+    scene = sp.create_scene(device="cpu").to("meta")
+    cam = sp.default_camera(2.0, device="cpu").to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tmk.render_flat_megakernel(scene, cam, width=16, height=8)
 

@@ -27,8 +27,8 @@ KW = dict(samples_per_pixel=2, max_depth=2, seed=5)
 def scenes():
     jscene, jcam = st.create_scene(), st.default_camera(W / H)
     as_np = jax.tree_util.tree_map(np.asarray, (jscene, jcam))
-    return (jscene, jcam), (sp.scene_from_numpy(as_np[0]),
-                            sp.camera_from_numpy(as_np[1]))
+    return (jscene, jcam), (sp.scene_from_numpy(as_np[0], device="cpu"),
+                            sp.camera_from_numpy(as_np[1], device="cpu"))
 
 
 def test_render_matches_jax_uint8(scenes):
@@ -112,7 +112,8 @@ def _big_mesh(scene):
     verts = np.array([[i, i % 2, -2.0] for i in range(35)], np.float32)
     faces = np.array([[i, i + 1, i + 2] for i in range(33)])
     return dataclasses.replace(scene,
-                               triangles=sp.make_triangles(verts, faces, 0))
+                               triangles=sp.make_triangles(verts, faces, 0,
+                                                        device="cpu"))
 
 
 @pytest.mark.parametrize(
@@ -143,7 +144,9 @@ def test_import_leaves_jax_out():
         "from spira_tpu_torch.kernels import megakernel, bvh_megakernel\n"
         "from spira_tpu_torch.kernels import spectral_fused, spectral_bvh\n"
         "from spira_tpu_torch.core import colorimetry\n"
-        "from spira_tpu_torch.accel import bvh, native, pairs\n"
+        "from spira_tpu_torch.accel import bvh, mxu, native, pairs, wide\n"
+        "from spira_tpu_torch.kernels import mxu_megakernel\n"
+        "from spira_tpu_torch import experiments\n"
         "from spira_tpu_torch.scene import bunny, obj\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'spira_tpu', 'triton')]\n"

@@ -42,11 +42,11 @@ FIT_RTOL, FIT_ATOL = 1e-5, 1e-6
 
 def _to_port(jscene, jcam=None):
     as_np = jax.tree_util.tree_map(np.asarray, jscene)
-    scene = sp.scene_from_numpy(as_np)
+    scene = sp.scene_from_numpy(as_np, device="cpu")
     if jcam is None:
         return scene
-    return scene, sp.camera_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                              jcam))
+    return scene, sp.camera_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jcam), device="cpu")
 
 
 def _assert_fit_close(got, want, materials):
@@ -105,17 +105,21 @@ _TETRA = ([(0.0, 0.9, 0.0), (-0.55, 0.05, 0.35), (0.55, 0.05, 0.35),
           [(0, 1, 2), (0, 2, 3), (0, 3, 1), (1, 3, 2)])
 
 
+def _tetra(material):
+    return sp.make_triangles(*_TETRA, material=material, device="cpu")
+
+
 def _port_mesh_scene(mesh):
     materials, spheres = _icosphere_records()
     return sp.attach_packed(sp.make_scene(
-        spheres=sp.make_spheres(spheres), triangles=mesh,
-        materials=sp.make_materials(materials),
+        spheres=sp.make_spheres(spheres, device="cpu"), triangles=mesh,
+        materials=sp.make_materials(materials, device="cpu"),
         bvh=build_bvh_for_triangles(mesh)))
 
 
 def _mesh_camera(width, height):
     return sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
-                          aspect_ratio=width / height)
+                          aspect_ratio=width / height, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +131,7 @@ def _mesh_camera(width, height):
 def test_make_materials_spd_tables_match_jax(scene_fn):
     kw = dict(subdivisions=1) if scene_fn == "create_mesh_scene" else {}
     want = getattr(st, scene_fn)(**kw).materials
-    got = getattr(sp, scene_fn)(**kw).materials
+    got = getattr(sp, scene_fn)(**kw, device="cpu").materials
     for name in ("albedo_spd", "emission_spd"):
         g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
         assert g.dtype == w.dtype == np.float32, name
@@ -139,7 +143,7 @@ def test_make_materials_record_spd_wins():
     records = [dict(albedo=(0.5, 0.2, 0.1), albedo_spd=spd),
                dict(albedo=(1.0, 1.0, 1.0), emission=(2.0, 1.0, 0.5),
                     emission_spd=2.0 * spd)]
-    got = sp.make_materials(records)
+    got = sp.make_materials(records, device="cpu")
     want = jmat.make_materials(records)
     np.testing.assert_array_equal(got.albedo_spd[0].numpy(), spd)
     np.testing.assert_array_equal(got.emission_spd[1].numpy(), 2.0 * spd)
@@ -158,7 +162,7 @@ def test_scene_from_numpy_carries_spd_tables():
     bare = jax.tree_util.tree_map(np.asarray, jscene)
     bare = dataclasses.replace(bare, materials=dataclasses.replace(
         bare.materials, albedo_spd=None, emission_spd=None))
-    got = sp.scene_from_numpy(bare).materials
+    got = sp.scene_from_numpy(bare, device="cpu").materials
     assert got.albedo_spd is None and got.emission_spd is None
 
 
@@ -184,7 +188,7 @@ def test_host_constants_match_jax():
 @pytest.mark.parametrize("scene_fn", ["create_scene", "create_cornell_box"])
 def test_pack_scene_spectral_matches_jax(scene_fn):
     jscene = getattr(st, scene_fn)()
-    for scene in (_to_port(jscene), getattr(sp, scene_fn)()):
+    for scene in (_to_port(jscene), getattr(sp, scene_fn)(device="cpu")):
         sph, tri = tsf.pack_scene_spectral(scene)
         jsph, jtri = jsf.pack_scene_spectral_jnp(jscene)
         _assert_fit_close(sph.numpy(), np.asarray(jsph), scene.materials)
@@ -210,7 +214,7 @@ def test_pack_materials_spectral_matches_jax():
 
 
 def test_pack_materials_spectral_needs_tables():
-    mats = sp.create_scene().materials
+    mats = sp.create_scene(device="cpu").materials
     bare = dataclasses.replace(mats, albedo_spd=None)
     with pytest.raises(ValueError, match="albedo_spd"):
         tsf.pack_materials_spectral(bare)
@@ -263,8 +267,8 @@ def test_fused_spectral_matches_jax_dispersive_depth6():
     got = tsf.render_flat_fused_spectral(scene, cam, **kw).numpy()
     _assert_images_agree(got, want)
     # the port's own scene builders give the same tables
-    own = sp.make_scene(spheres=sp.make_spheres(spheres),
-                        materials=sp.make_materials(materials))
+    own = sp.make_scene(spheres=sp.make_spheres(spheres, device="cpu"),
+                        materials=sp.make_materials(materials, device="cpu"))
     for a, b in zip(tsf.pack_scene_spectral(own),
                     tsf.pack_scene_spectral(scene)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -298,7 +302,7 @@ def test_spectral_bvh_matches_jax_kernel():
 def test_spectral_bvh_equals_brute_on_tetra():
     """The plain BVH path and the plain brute path give the same image on
     a scene both hold (the same tracer, streams and hits)."""
-    scene = _port_mesh_scene(sp.make_triangles(*_TETRA, material=0))
+    scene = _port_mesh_scene(_tetra(0))
     cam = _mesh_camera(128, 8)
     kw = dict(width=128, height=8, spp=2, max_depth=6, seed=7)
     bvh = tsb.render_flat_spectral_bvh_fused(scene, cam, **kw)
@@ -309,8 +313,8 @@ def test_spectral_bvh_equals_brute_on_tetra():
 
 def test_spectral_bvh_without_spheres():
     """A packed scene with no spheres renders, and equals the brute path."""
-    scene = _port_mesh_scene(sp.make_triangles(*_TETRA, material=2))
-    scene = dataclasses.replace(scene, spheres=empty_spheres())
+    scene = _port_mesh_scene(_tetra(2))
+    scene = dataclasses.replace(scene, spheres=empty_spheres("cpu"))
     cam = _mesh_camera(32, 8)
     kw = dict(width=32, height=8, spp=1, max_depth=3, seed=1)
     got = tsb.render_flat_spectral_bvh_megakernel(scene, cam, **kw)
@@ -321,7 +325,8 @@ def test_spectral_bvh_without_spheres():
 
 
 def test_spectral_differs_from_rgb():
-    scene, cam = sp.create_scene(), sp.default_camera(2.0)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(2.0, device="cpu")
     kw = dict(width=32, height=16, spp=2, max_depth=3, seed=0)
     rgb = tmk.render_flat_fused(scene, cam, **kw)
     spec = tsf.render_flat_fused_spectral(scene, cam, **kw)
@@ -339,7 +344,8 @@ def test_render_spectral_small_scene_on_cpu():
     """spectral=True on a CPU small scene runs the plain spectral tracer,
     under 'auto' ('fused') and under 'cuda' (its plain version); no kernel
     is launched."""
-    scene, cam = sp.create_cornell_box(), sp.cornell_camera(2.0)
+    scene = sp.create_cornell_box(device="cpu")
+    cam = sp.cornell_camera(2.0, device="cpu")
     kw = dict(spp=1, max_depth=2, seed=4)
     want = tsf.render_flat_fused_spectral(scene, cam, width=16, height=8,
                                           **kw)
@@ -356,7 +362,7 @@ def test_render_spectral_small_scene_on_cpu():
 
 
 def test_render_spectral_mesh_scene_on_cpu():
-    scene = _port_mesh_scene(sp.make_triangles(*_TETRA, material=0))
+    scene = _port_mesh_scene(_tetra(0))
     cam = _mesh_camera(16, 8)
     kw = dict(spp=1, max_depth=2, seed=2)
     with pytest.raises(NotImplementedError, match="item 10") as err:
@@ -381,12 +387,14 @@ def test_render_spectral_mesh_scene_on_cpu():
 
 
 def test_spectral_wrapper_refusals():
-    scene, cam = sp.create_scene(), sp.default_camera(2.0)
+    scene = sp.create_scene(device="cpu")
+    cam = sp.default_camera(2.0, device="cpu")
     kw = dict(width=8, height=8, spp=1, max_depth=1)
     verts = np.array([[i, i % 2, -2.0] for i in range(35)], np.float32)
     faces = np.array([[i, i + 1, i + 2] for i in range(33)])
     big = dataclasses.replace(scene,
-                              triangles=sp.make_triangles(verts, faces, 0))
+                              triangles=sp.make_triangles(verts, faces, 0,
+                                                           device="cpu"))
     for fn in (tsf.render_flat_spectral_megakernel,
                tsf.render_flat_fused_spectral):
         with pytest.raises(ValueError, match="at most 32"):
