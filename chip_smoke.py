@@ -6,7 +6,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card and toolchain: requires CUDA, prints the card's name and power
    limit, the torch/CUDA versions, and builds the kernels from ``csrc/``
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), with each kernel's
+   registers, stack and spills from ``ptxas -v``;
+1b. the peak-rate probes (``spira_tpu_torch.bench``): kernel #9 in every
+   mode and #10 in float32 and bfloat16 against their plain versions at
+   the JAX shapes, on the JAX probes' inputs and on an input that varies
+   by element; then the profilers' runs (``vpu_peak.time_modes``,
+   ``packet_profile.tier_vpu``) at a grid that fills every SM, with launch
+   counts, each launch's output held against its plain version on the
+   same input; #9's rates give the special-function weights
+   (``vpu_peak.sol_rates``) that price every bound below;
 2. each kernel against its plain PyTorch version on the card, same tables
    and seed, with the tolerances stated beside each case: the sphere
    megakernel (``SPHERE_CASES``), the packed-BVH nearest-hit query on
@@ -17,10 +26,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the plain tracer (``GRAD_CASES``), with a central-difference
    check of its gradients, the streaming superleaf query on the bunny's
    random and primary rays, and the streaming superleaf path tracer and
-   the superleaf-leaf BVH path tracer (``MXU_CASES``);
+   the superleaf-leaf BVH path tracer (``MXU_CASES``); the counting build
+   of the packed-BVH path tracer on the bunny: its image bit-equal to the
+   uncounted kernel's, its totals equal to the plain counting walk's, and
+   pops == traversals + pushes;
 3. the main paths, through the user's entry points, each with every launch
    count set to 0 just before and read just after: ``render`` of the bunny
-   at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), ``intersect_tile``
+   at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), the same through
+   ``render_bvh_with_counters`` (the counting build), ``intersect_tile``
    on the bunny's primary rays, ``render`` of the sphere demo scene at the
    same shape (engine ``cuda``), and ``render(..., spectral=True)`` of the
    Cornell box (engine ``cuda``, the spectral megakernel) and of the bunny
@@ -36,13 +49,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    image held against its plain version and against ``cuda_bvh``'s image
    of the same scene and seed, and ``intersect_tile_mxu`` on the bunny's
    primary rays, held against the packed-BVH query;
-4. timing with CUDA events (one warm-up, median of ``REPEATS``, of
+4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card;
-   each kernel's bound (the larger of its float32 operations over the
-   card's peak rate and its bytes over the memory rate) from the work
-   this run's inputs need, counted with the plain versions; the superleaf
-   kernels beside ``cuda_bvh`` on the same calls.
+   each kernel's bound from the work this run's inputs need (counted
+   with the plain versions, #2's by its counting build and held against
+   the plain count), priced by ``utils/sol.py``: the largest of the ALU
+   instructions at the card's issue rate (128 lanes a clock an SM at the
+   max SM clock), the special-function calls times the weights phase 1b
+   measured at the same rate, and the bytes over the memory rate, with
+   the data-sheet bound (every operation over 67 TFLOP/s) beside it; the
+   probes' bound is their counted operations at the issue rate; each
+   kernel's share of its bound and launches x (time - bound), largest
+   first; the superleaf kernels beside ``cuda_bvh`` on the same calls;
+   the counting build's time beside the uncounted one.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
@@ -57,8 +77,6 @@ import json
 import math
 import os
 import re
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -67,34 +85,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-REPEATS = 5
-#: the plain versions, seconds a call, are reference only
+#: the plain versions, seconds a call, are reference only: timed this
+#: many times (the kernels bench.timing.REPEATS times)
 PLAIN_REPEATS = 2
 MAIN = dict(width=640, height=360, spp=16, max_depth=4)
-#: the card's peaks (NVIDIA H100 SXM data sheet, at a 700 W limit):
-#: float32 outside the tensor cores, and device-memory bandwidth
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
-#: float32 operations per unit of work, counted by hand from the CUDA
-#: sources: transcendentals, square roots and divisions count one each,
-#: the integer PCG hash counts nothing, so a bound from these is a lower
-#: bound.  Per segment (one bounce of one path): a sphere test
-#: (trace.cuh:nearest_sphere), a triangle test (nearest_tri, its
-#: determinant test passing); per BVH pop (bvh.cuh): a pair record's two
-#: slab tests; per leaf triangle: the BW or MT test; per ray of a walk:
-#: the reciprocal direction; per hit: point, normal,
-#: emission, scatter lobe, throughput, offset (RGB), plus the 8 Chebyshev
-#: SPD evaluations of 12 terms (spectral.cuh); per miss: the sky; per
-#: sample: ray generation (spectral: plus 12 sky SPDs and the CIE lobes);
-#: per replayed hit: the reverse sweep of adjoint.cuh (recomputed lobe,
-#: three norm3 adjoints, the intersection adjoint); per superleaf block
-#: visit (superleaf.cuh:visit_block): m = o x d, and per lane of it 33 for
-#: det/u/v (18 products, 15 sums), 6 for t, the reciprocal, 3 products,
-#: u + v, 6 comparisons and |det|.
-OPS = dict(sphere_test=18, tri_test=51, pop=55, leaf_tri=40, ray=3,
-           hit=115, miss=10, sample=30, spectral_hit=515, spectral_miss=30,
-           spectral_sample=706, adjoint_hit=210, block=9, lane=51)
-#: lanes of a superleaf block
-SUPERLEAF = 128
+#: the peak-rate probes' comparisons: the separate
+#: multiply-add and kernel #10 bit-equal; the contracted step (plain
+#: version: the float64 sum rounded once, so a double rounding may move a
+#: last bit) within PEAK_FMA_ULP units in the last place of the chains'
+#: sums; the special-function chains (torch's calls on the card against
+#: nvcc's, the same precise library functions) within PEAK_SPECIAL_RTOL
+PEAK_FMA_ULP, PEAK_SPECIAL_RTOL = 4, 1e-6
 #: the shape the kernel table of PERF.md times the BVH kernel and its
 #: plain version at
 BVH_TIMED = dict(width=640, height=360, spp=4, max_depth=4)
@@ -188,32 +189,7 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, repeats=REPEATS):
-    """Median wall time on the card of ``fn()``, by CUDA events."""
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_breakdown(fn, runs=REPEATS):
+def device_breakdown(fn, runs=5):
     """Kernel time on the card by name over ``runs`` calls of ``fn``
     (torch.profiler), and the card's idle share of the host's window."""
     from torch.profiler import ProfilerActivity, profile
@@ -346,6 +322,7 @@ def compare_intersect(name, kernel_fn, plain_fn, o, d):
 
 def counters():
     """Every kernel wrapper with a launch count, by kernel name."""
+    from spira_tpu_torch.bench import packet_profile, vpu_peak
     from spira_tpu_torch.kernels import (
         bvh_megakernel,
         grad_megakernel,
@@ -358,6 +335,9 @@ def counters():
     return dict(
         megakernel=megakernel.render_flat_megakernel,
         bvh_megakernel=bvh_megakernel.render_flat_bvh_megakernel,
+        bvh_counted=bvh_megakernel.render_bvh_with_counters,
+        vpu_peak=vpu_peak.vpu_peak,
+        vpu_dtype=packet_profile.vpu_dtype,
         bvh_intersect=bvh_megakernel.intersect_tile,
         spectral_megakernel=spectral_fused.render_flat_spectral_megakernel,
         spectral_bvh_megakernel=(
@@ -440,37 +420,34 @@ def count_work(module, factory, fn, stream_blocks=0):
             setattr(module, factory, made)
         bk._slab, bk._leaf_hits = slab, leaf_hits
         bk._block_hits = block_hits
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return work
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time the card could take for
-    ``ops`` float32 operations and ``nbytes`` bytes."""
-    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def price(work, rates):
+    """A kernel's bound for ``work`` (operations by ``sol.CLASSES`` and
+    ``bytes``), priced by ``sol.lower_bound_seconds`` at ``rates``:
+    bound_ms, bound_by ("bytes" or "operations"), the term that bounds it
+    (alu, special or bytes), every term in ms, and the data-sheet bound
+    beside it for the record."""
+    from spira_tpu_torch.utils import sol
+
+    b = sol.lower_bound_seconds(work, rates)
+    return dict(bound_ms=b["bound_s"] * 1e3,
+                bound_by="bytes" if b["bound_by"] == "bytes" else "operations",
+                bound_term=b["bound_by"],
+                bound_terms_ms={k: v * 1e3 for k, v in b["terms"].items()},
+                datasheet_bound_ms=sol.datasheet_bound_seconds(work) * 1e3,
+                ops=work)
 
 
-def render_ops(work, samples, n_spheres, n_tris, spectral=False,
-               bvh=False):
-    """A path tracer's float32 operations for ``work`` (count_work) over
-    ``samples`` camera samples (OPS)."""
-    misses = work["segments"] - work["hits"]
-    per_segment = OPS["sphere_test"] * n_spheres + (
-        OPS["ray"] if bvh else OPS["tri_test"] * n_tris)
-    ops = work["segments"] * per_segment + walk_ops(work)
-    if spectral:
-        return (ops + work["hits"] * OPS["spectral_hit"]
-                + misses * OPS["spectral_miss"]
-                + samples * OPS["spectral_sample"])
-    return (ops + work["hits"] * OPS["hit"] + misses * OPS["miss"]
-            + samples * OPS["sample"])
+def sol_bound(units, nbytes, rates):
+    """:func:`price` of ``units`` of work (``sol.OPS`` names) and
+    ``nbytes`` bytes."""
+    from spira_tpu_torch.utils import sol
 
-
-def walk_ops(work):
-    return (work["pops"] * OPS["pop"] + work["leaf_tris"] * OPS["leaf_tri"]
-            + work["blocks"] * (OPS["block"] + SUPERLEAF * OPS["lane"]))
+    return price(dict(sol.ops_of(units), bytes=nbytes), rates)
 
 
 def table_bytes(*tensors):
@@ -629,6 +606,110 @@ def check_main(what, kernel, img, plain_img, got, png):
         raise AssertionError(f"{what}: uint8 means differ by {gap} > 1")
 
 
+def check_peak(vp, x, outs, where):
+    """Kernel #9's outputs ``{mode: output}`` on ``x`` against its plain
+    version on the same input: separate bit-equal, contracted within
+    PEAK_FMA_ULP, the special functions within PEAK_SPECIAL_RTOL."""
+    checks = []
+    for mode, k in outs.items():
+        p = vp.peak_plain(x, mode)
+        torch.cuda.synchronize()
+        if k.shape != p.shape or not torch.isfinite(k).all():
+            raise AssertionError(f"#9 {mode} {where}: bad shape or not "
+                                 f"finite")
+        diff = (k - p).abs()
+        rel = float((diff / p.abs().clamp(min=1e-30)).max())
+        same = torch.equal(k, p)
+        if mode == "separate":
+            ok, limit = same, "bit-equal"
+        elif mode == "contracted":
+            # the chains' sums are positive: float32 bit patterns order them
+            ulp = int((k.view(torch.int32) - p.view(torch.int32)).abs().max())
+            ok, limit = ulp <= PEAK_FMA_ULP, f"{PEAK_FMA_ULP} ulp (got {ulp})"
+        else:
+            ok, limit = rel <= PEAK_SPECIAL_RTOL, f"rel {PEAK_SPECIAL_RTOL:g}"
+        log(f"[compare] #9 {mode} {where}: max abs {float(diff.max()):.3e}, "
+            f"max rel {rel:.3e}, bit-equal {same} (limit {limit})")
+        if not ok:
+            raise AssertionError(f"#9 {mode} {where}: kernel disagrees with "
+                                 f"plain")
+        checks.append(dict(case=f"#9 {mode} {where}",
+                           max_abs_err=float(diff.max()), max_rel_err=rel,
+                           bit_equal=same))
+    return checks
+
+
+def check_dtype(pp, x, outs, where):
+    """Kernel #10's outputs ``{dtype: output}`` on ``x`` against its plain
+    version on the same input: bit-equal (one rounding to the type per
+    operation on both sides)."""
+    checks = []
+    for dtype, k in outs.items():
+        p = pp.vpu_dtype_plain(x, dtype)
+        torch.cuda.synchronize()
+        same = torch.equal(k, p)
+        max_abs = float((k - p).abs().max())
+        log(f"[compare] #10 {dtype} {where}: max abs {max_abs:.3e}, "
+            f"bit-equal {same} (limit bit-equal); first value "
+            f"{float(k[0]):.8g}")
+        if not same or not torch.isfinite(k).all():
+            raise AssertionError(f"#10 {dtype} {where}: kernel disagrees "
+                                 f"with plain")
+        checks.append(dict(case=f"#10 {dtype} {where}", max_abs_err=max_abs,
+                           bit_equal=same))
+    return checks
+
+
+def check_probes_jax_shapes(vp, pp, device):
+    """Both probes at the JAX shapes, on the JAX probes' inputs (#9: a
+    (32, 128) tile of ones; #10: a (256, 128) tile of 0.5) and on an input
+    that varies by element."""
+    n9, n10 = int(np.prod(vp.JAX_SHAPE)), pp.ROWS * pp.COLS
+    checks = []
+    for what, x in (("ones", torch.ones(n9, device=device)),
+                    ("varied", vp.probe_input(n9, device, seed=1))):
+        checks += check_peak(vp, x, {m: vp.vpu_peak(x, m) for m in vp.MODES},
+                             f"{vp.JAX_SHAPE} {what}")
+    for what, x in (("0.5", torch.full((n10,), 0.5, device=device)),
+                    ("varied", vp.probe_input(n10, device, seed=1))):
+        checks += check_dtype(pp, x, {d: pp.vpu_dtype(x, d)
+                                      for d in pp.DTYPES},
+                              f"({pp.ROWS}, {pp.COLS}) {what}")
+    return checks
+
+
+def check_counted(bk, scene, cam):
+    """The counting build of #2 on ``scene``: its image bit-equal to the
+    uncounted kernel's at MAIN, its totals at BVH_TIMED equal to the plain
+    counting walk's, its image there held against the plain version's,
+    and pops == traversals + pushes."""
+    img, ctr = bk.render_bvh_with_counters(scene, cam, **MAIN)
+    ref = bk.render_flat_bvh_megakernel(scene, cam, **MAIN)
+    torch.cuda.synchronize()
+    same = torch.equal(img, ref)
+    log(f"[compare] #2 counting build 640x360 spp16 d4 against the "
+        f"uncounted kernel: bit-equal {same}; counters {ctr}")
+    if not same:
+        raise AssertionError("#2: the counting build's image differs")
+    img4, ctr4 = bk.render_bvh_with_counters(scene, cam, **BVH_TIMED)
+    plain_img, plain_counts = bk.render_bvh_counters_fused(scene, cam,
+                                                           **BVH_TIMED)
+    torch.cuda.synchronize()
+    plain = {k: int(v.sum()) for k, v in plain_counts.items()}
+    log(f"[compare] #2 counting build 640x360 spp4 d4: kernel {ctr4}, plain "
+        f"walk {plain}")
+    if ctr4 != plain:
+        raise AssertionError("#2: the counting kernel's totals differ from "
+                             "the plain walk's")
+    for c in (ctr, ctr4):
+        if c["pops"] != c["traversals"] + c["pushes"]:
+            raise AssertionError(f"#2: pops != traversals + pushes in {c}")
+    check = check_images("#2 counting build 640x360 spp4 d4", img4,
+                         plain_img, BVH_TOL)
+    return dict(counters_640x360_spp16_d4=ctr, counters_640x360_spp4_d4=ctr4,
+                image_bit_equal_uncounted=same, **check)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save", help="also write the main paths' PNGs "
@@ -642,6 +723,11 @@ def main() -> int:
     # ---- 1. card and toolchain
     import spira_tpu_torch as sp
     from spira_tpu_torch import _build
+    from spira_tpu_torch.bench import packet_profile as pp
+    from spira_tpu_torch.bench import timing
+    from spira_tpu_torch.bench.timing import card_line
+    from spira_tpu_torch.bench.timing import cuda_ms as time_ms
+    from spira_tpu_torch.bench import vpu_peak as vp
     from spira_tpu_torch.io import image as img_io
     from spira_tpu_torch.kernels import bvh_megakernel as bk
     from spira_tpu_torch.kernels import grad_megakernel as gk
@@ -649,6 +735,7 @@ def main() -> int:
     from spira_tpu_torch.kernels import mxu_megakernel as xk
     from spira_tpu_torch.kernels import spectral_bvh as sb
     from spira_tpu_torch.kernels import spectral_fused as sf
+    from spira_tpu_torch.utils import sol
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -657,7 +744,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     names = ("megakernel", "bvh_megakernel", "spectral_megakernel",
-             "grad_megakernel", "mxu_megakernel")
+             "grad_megakernel", "mxu_megakernel", "peak")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.load, names)))
     ptxas = {}
@@ -676,6 +763,64 @@ def main() -> int:
                 ptxas.setdefault(kernel, []).append(line.strip())
     for kernel, lines in ptxas.items():
         log(f"[ptxas] {kernel}: {' | '.join(lines)}")
+
+    # ---- 1b. the peak-rate probes (#9, #10): each against its plain
+    # version at the JAX shape, then the profilers' runs at a grid that
+    # fills every SM, each output held against the plain version; #9's
+    # rates give the special-function weights of every bound below
+    launches = {}
+    probe_checks = check_probes_jax_shapes(vp, pp, device)
+    probe = dict(n_peak=vp.fill_elements(device),
+                 n_dtype=vp.fill_elements(device, pp.WAVES))
+    x_peak = vp.probe_input(probe["n_peak"], device)
+    reset_counts()
+    peak_ms, peak_out = vp.time_modes(x_peak)
+    dtype_rows, dtype_out = pp.tier_vpu(device, card=card)
+    torch.cuda.synchronize()
+    got = counts()
+    for kernel in ("vpu_peak", "vpu_dtype"):
+        launches[kernel] = got[kernel]
+        if got[kernel] < 11:
+            raise AssertionError(f"the probes launched {kernel} "
+                                 f"{got[kernel]} times")
+    if sum(got.values()) != got["vpu_peak"] + got["vpu_dtype"]:
+        raise AssertionError(f"the probes launched {got}")
+    # the timed launches' outputs, against the plain versions on the same
+    # inputs (tier_vpu steps vpu_peak.probe_input of each grid's size)
+    probe_checks += check_peak(vp, x_peak, peak_out,
+                               f"fill grid {probe['n_peak']} varied")
+    for grid, n in (("jax", pp.ROWS * pp.COLS), ("fill", probe["n_dtype"])):
+        probe_checks += check_dtype(
+            pp, vp.probe_input(n, device),
+            {d: dtype_out[grid, d] for d in pp.DTYPES},
+            f"{grid} grid {n} varied")
+    peak_checks = [c for c in probe_checks if c["case"].startswith("#9")]
+    dtype_checks = [c for c in probe_checks if c["case"].startswith("#10")]
+    peak_rates = vp.rates_from_ms(peak_ms, probe["n_peak"])
+    issue_rate = sol.issue_rate_per_s(
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        timing.max_sm_clock_hz())
+    rates = vp.sol_rates(peak_rates, issue_rate, f"{card}, this run")
+    dtype_ms = {(r["grid"], r["dtype"]): r["ms"] for r in dtype_rows}
+    for mode in vp.MODES:
+        log(f"[probe] {card}: #9 {mode}, {probe['n_peak']} elements: "
+            f"{peak_ms[mode]:.4f} ms, {peak_rates[mode]:.5g} "
+            f"{'lane-ops' if mode in vp.INSTRUCTIONS else 'calls'}/s")
+    for r in dtype_rows:
+        log(f"[probe] {card}: #10 {r['dtype']} {r['grid']} grid, "
+            f"{r['elements']} elements: {r['ms']:.4f} ms, "
+            f"{r['gflop_s']:.6g} GFLOP/s")
+    achieved = peak_rates["separate"]  # 3 lane-ops, 3 instructions a step
+    contracted = (peak_rates["contracted"] * vp.INSTRUCTIONS["contracted"]
+                  / vp.LANE_OPS)
+    log(f"[probe] {card}: issue rate {issue_rate:.5g} instructions/s "
+        f"({sol.LANES_PER_SM_CLOCK} lanes a clock an SM at the max SM "
+        f"clock); #9 separate issues {achieved:.5g} ALU instructions/s "
+        f"({achieved / issue_rate:.4f} of it, -fmad=false), contracted "
+        f"{contracted:.5g} ({contracted / issue_rate:.4f}); special-function "
+        f"weights in ALU instructions "
+        f"{({k: round(v, 3) for k, v in rates.weights.items()})}; launches "
+        f"{got}")
 
     t0 = time.perf_counter()
     bunny, info = sp.create_bunny_scene(allow_download=False, device=device)
@@ -761,6 +906,8 @@ def main() -> int:
         plain = bk.render_flat_bvh_fused(scene, cam, **shape)
         torch.cuda.synchronize()
         bvh_checks.append(check_images(name, kernel, plain, BVH_TOL))
+    counted_checks = check_counted(bk, bunny, bunny_cam)
+    counted = counted_checks["counters_640x360_spp4_d4"]
     spectral_checks = []
     for name, key, shape, tol in SPECTRAL_CASES:
         scene, cam = scenes[key]
@@ -794,7 +941,6 @@ def main() -> int:
     # ---- 3. the main paths, through the user's entry points
     main_args = dict(samples_per_pixel=MAIN["spp"],
                      max_depth=MAIN["max_depth"])
-    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.save or tmp
         os.makedirs(out_dir, exist_ok=True)
@@ -813,6 +959,19 @@ def main() -> int:
         check_main(f"bunny render {shape_name}", "bvh_megakernel", img,
                    to_uint8(bk.render_flat_bvh_fused(bunny, bunny_cam,
                                                      **MAIN)), got, png)
+
+        # the counting build of #2 on the bunny: one launch, nothing else
+        reset_counts()
+        _, ctr = bk.render_bvh_with_counters(bunny, bunny_cam, **MAIN)
+        torch.cuda.synchronize()
+        got = counts()
+        launches["bvh_counted"] = got["bvh_counted"]
+        want = dict.fromkeys(got, 0)
+        want["bvh_counted"] = 1
+        log(f"[main] bunny render_bvh_with_counters {shape_name}: "
+            f"{ctr}, launches {got}")
+        if got != want:
+            raise AssertionError(f"render_bvh_with_counters launched {got}")
 
         # the nearest-hit query on the bunny's primary rays
         reset_counts()
@@ -1013,6 +1172,19 @@ def main() -> int:
         f"{bvh_k / bvh_p:.5f}")
     log(f"[time] {card}: bunny 640x360 spp16 d4 kernel {bvh_full:.3f} ms "
         f"({mrays(MAIN, bvh_full):.1f} Mrays/s)")
+    counted_k = time_ms(lambda: bk.render_bvh_with_counters(
+        bunny, bunny_cam, **BVH_TIMED))
+    counted_full = time_ms(lambda: bk.render_bvh_with_counters(
+        bunny, bunny_cam, **MAIN))
+    log(f"[time] {card}: bunny counting build spp4 d4 {counted_k:.3f} ms, "
+        f"spp16 d4 {counted_full:.3f} ms: {counted_k / bvh_k:.4f} and "
+        f"{counted_full / bvh_full:.4f} of the uncounted kernel's")
+    peak_plain_ms = time_ms(lambda: vp.peak_plain(x_peak), PLAIN_REPEATS)
+    x_dtype = vp.probe_input(probe["n_dtype"], device)
+    dtype_plain_ms = time_ms(lambda: pp.vpu_dtype_plain(x_dtype),
+                             PLAIN_REPEATS)
+    log(f"[time] {card}: probes' plain versions at the fill grid: #9 "
+        f"separate {peak_plain_ms:.3f} ms, #10 f32 {dtype_plain_ms:.3f} ms")
     isect_k = time_ms(lambda: bk.intersect_tile(bunny.packed,
                                                 *rays["primary"]))
     isect_p = time_ms(lambda: bk.intersect_packed_plain(
@@ -1090,7 +1262,8 @@ def main() -> int:
         f"plain {t_['plain_ms']:.3f} ms, kernel/plain "
         f"{t_['ms'] / t_['plain_ms']:.5f}; the packed-BVH query on the same "
         f"rays {isect_k:.4f} ms")
-    times = (bvh_k, bvh_p, bvh_full, isect_k, isect_p, sph_k, sph_p, sph_big,
+    times = (bvh_k, bvh_p, bvh_full, counted_k, counted_full, peak_plain_ms,
+             dtype_plain_ms, isect_k, isect_p, sph_k, sph_p, sph_big,
              spec_k, spec_p, rgb_cornell, sbvh_k, sbvh_p, sbvh_full,
              *(x for t_ in mxu_t.values() for x in t_.values()))
     if not all(math.isfinite(x) for x in times):
@@ -1167,9 +1340,19 @@ def main() -> int:
     n_px = w * h
     sph_work = count_work(mk, "make_brute_intersect",
                           run(mk.render_flat_fused, demo, demo_cam, MAIN))
-    bvh_work = count_work(bk, "make_packed_intersect",
-                          run(bk.render_flat_bvh_fused, bunny, bunny_cam,
-                              BVH_TIMED))
+    # #2's inventory from its counting build; count_work's plain count of
+    # the same render must agree with it
+    bvh_work = dict(segments=counted["traversals"], hits=counted["hits"],
+                    pops=counted["pops"], leaf_tris=counted["leaf_tris"],
+                    blocks=0)
+    bvh_plain_work = count_work(bk, "make_packed_intersect",
+                                run(bk.render_flat_bvh_fused, bunny,
+                                    bunny_cam, BVH_TIMED))
+    log(f"[work] #2 bunny spp4: counting kernel {bvh_work}, count_work on "
+        f"the plain version {bvh_plain_work}")
+    if bvh_work != bvh_plain_work:
+        raise AssertionError("#2: the counting kernel's inventory differs "
+                             "from count_work's")
     spec_work = count_work(sf, "make_brute_intersect_spectral",
                            run(sf.render_flat_fused_spectral, cornell,
                                cornell_cam, MAIN))
@@ -1196,53 +1379,80 @@ def main() -> int:
 
     demo_tables = table_bytes(*tables)
     n_bunny_sph = bunny.spheres.count
-    sph_ops = render_ops(sph_work, n_px * MAIN["spp"], demo.spheres.count, 0)
+    sph_units = sol.path_units(sph_work, n_px * MAIN["spp"],
+                               demo.spheres.count, 0)
     bounds = dict(
-        megakernel=bound(sph_ops, demo_tables + out_bytes),
-        bvh_megakernel=bound(
-            render_ops(bvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
-                       bvh=True), bvh_tables + out_bytes),
+        megakernel=sol_bound(sph_units, demo_tables + out_bytes, rates),
+        bvh_megakernel=sol_bound(
+            sol.path_units(bvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
+                           bvh=True, form=bunny.packed.form),
+            bvh_tables + out_bytes, rates),
         # bytes: the rays in, t, normal and material id out, the tables
-        bvh_intersect=bound(n_px * OPS["ray"] + walk_ops(isect_work),
-                            bvh_tables + n_px * (24 + 20)),
-        spectral_megakernel=bound(
-            render_ops(spec_work, n_px * MAIN["spp"], cornell.spheres.count,
-                       cornell.triangles.count, spectral=True),
-            out_bytes),
-        spectral_bvh_megakernel=bound(
-            render_ops(sbvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
-                       spectral=True, bvh=True), bvh_tables + out_bytes),
+        bvh_intersect=sol_bound(
+            dict(ray=n_px, **sol.walk_units(isect_work, bunny.packed.form)),
+            bvh_tables + n_px * (24 + 20), rates),
+        spectral_megakernel=sol_bound(
+            sol.path_units(spec_work, n_px * MAIN["spp"],
+                           cornell.spheres.count, cornell.triangles.count,
+                           spectral=True), out_bytes, rates),
+        spectral_bvh_megakernel=sol_bound(
+            sol.path_units(sbvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph,
+                           0, spectral=True, bvh=True,
+                           form=bunny.packed.form),
+            bvh_tables + out_bytes, rates),
         # loss mode at exact replay: the forward, the replay's forward,
         # and the reverse sweep of every replayed hit; bytes: tables,
         # target, gradient tables
-        grad_megakernel=bound(2 * sph_ops + sph_work["hits"]
-                              * OPS["adjoint_hit"],
-                              2 * demo_tables + out_bytes + 8),
-        bvh_mxu_megakernel=bound(
-            render_ops(bvh_mxu_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
-                       bvh=True),
+        grad_megakernel=sol_bound(
+            dict({u: 2 * n for u, n in sph_units.items()},
+                 adjoint_hit=sph_work["hits"]),
+            2 * demo_tables + out_bytes + 8, rates),
+        bvh_mxu_megakernel=sol_bound(
+            sol.path_units(bvh_mxu_work, n_px * BVH_TIMED["spp"],
+                           n_bunny_sph, 0, bvh=True),
             table_bytes(bunny_sl.wide.pairs) + coeff_bytes(bunny_sl.wide)
-            + out_bytes),
-        mxu_megakernel=bound(
-            render_ops(mxu_work, n_px * BVH_TIMED["spp"],
-                       mesh_mxu.spheres.count, 0),
-            coeff_bytes(mesh_mxu.wide) + out_bytes),
+            + out_bytes, rates),
+        mxu_megakernel=sol_bound(
+            sol.path_units(mxu_work, n_px * BVH_TIMED["spp"],
+                           mesh_mxu.spheres.count, 0),
+            coeff_bytes(mesh_mxu.wide) + out_bytes, rates),
         # bytes: the rays in, t, normal and material id out, the tables
-        mxu_intersect=bound(walk_ops(mxu_isect_work),
-                            coeff_bytes(bunny_mxu) + n_px * (24 + 20)),
+        mxu_intersect=sol_bound(sol.walk_units(mxu_isect_work),
+                            coeff_bytes(bunny_mxu) + n_px * (24 + 20),
+                            rates),
+        # the probes: their counted operations (one ALU instruction each,
+        # in separate mode and in float32) at the issue rate; bytes: one
+        # float32 in and out an element
+        vpu_peak=price(dict(alu=vp.ops_per_launch("separate",
+                                                  probe["n_peak"]),
+                            bytes=8 * probe["n_peak"]), rates),
+        vpu_dtype=price(dict(alu=pp.flops_per_launch(probe["n_dtype"]),
+                             bytes=8 * probe["n_dtype"]), rates),
     )
-    for name, (ms, by) in bounds.items():
-        log(f"[bound] {card}: {name} {ms:.4f} ms, by {by} (F32 peak "
-            f"{F32_PEAK:.3g} FLOP/s, memory {HBM_RATE:.3g} B/s)")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
+    log(f"[bound] {card}: priced by utils/sol.py ({rates.source}): ALU "
+        f"at the issue rate {rates.alu_per_s:.4g} instructions/s, special "
+        f"functions at weights "
+        f"{({k: round(v, 2) for k, v in rates.weights.items()})} ALU "
+        f"instructions over the same rate, memory "
+        f"{rates.hbm_bytes_per_s:.3g} B/s; beside each, for the record, the "
+        f"data-sheet bound (every operation over "
+        f"{sol.DATASHEET_F32_PER_S:.3g} FLOP/s)")
+    for name, b in bounds.items():
+        log(f"[bound] {card}: {name} {b['bound_ms']:.4f} ms, by "
+            f"{b['bound_term']} (terms ms "
+            f"{({k: round(v, 5) for k, v in b['bound_terms_ms'].items()})}"
+            f"); data-sheet bound {b['datasheet_bound_ms']:.4f} ms")
 
     def bound_keys(name):
-        ms, by = bounds[name]
-        # no single PyTorch call computes a path tracer, a BVH walk or
-        # its adjoint
-        return dict(bound_ms=ms, bound_by=by, library_ms=None)
+        b = bounds[name]
+        # no single PyTorch call computes a path tracer, a BVH walk, its
+        # adjoint or the probes' register chains
+        return dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                    library_ms=None, bound_term=b["bound_term"],
+                    bound_terms_ms=b["bound_terms_ms"],
+                    datasheet_bound_ms=b["datasheet_bound_ms"])
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {
             "name": "megakernel",
             "route": "cuda",
@@ -1273,6 +1483,13 @@ def main() -> int:
             "mrays_640x360_spp16_d4": mrays(MAIN, bvh_full),
             "profile_640x360_spp16_d4": bvh_prof,
             "checks": bvh_checks,
+            "ptxas": ptxas.get("bvh_megakernel", []),
+            "counted_entry": "spira_bvh_megakernel_render_counted",
+            "counted_launches": launches["bvh_counted"],
+            "counted_ms": counted_k,
+            "counted_ms_640x360_spp16_d4": counted_full,
+            "counted_ptxas": ptxas.get("bvh_megakernel_counted", []),
+            "counted_checks": counted_checks,
         },
         {
             "name": "bvh_intersect",
@@ -1394,7 +1611,55 @@ def main() -> int:
             "profile_640x360_spp16_d4": mxu_prof["bvh_mxu_megakernel"],
             "checks": mxu_checks[2:] + main_mxu_checks[:2],
         },
-    ]}), flush=True)
+        {
+            "name": "vpu_peak",
+            "route": "cuda",
+            **bound_keys("vpu_peak"),
+            "source": "spira_tpu_torch/csrc/peak.cu",
+            "replaces": "benchmarks/vpu_peak.py:31",
+            "launches": launches["vpu_peak"],
+            "max_abs_err": max(c["max_abs_err"] for c in peak_checks),
+            "ms": peak_ms["separate"],
+            "plain_ms": peak_plain_ms,
+            "shape": f"{probe['n_peak']} elements x {vp.CHAINS} chains x "
+                     f"{vp.ITERS} iterations, mode separate",
+            "ms_by_mode": peak_ms,
+            "rates_by_mode": peak_rates,
+            "instructions_per_chain_iteration": vp.INSTRUCTIONS,
+            "sol_rates": rates.as_dict(),
+            "issue_rate": issue_rate,
+            "checks": peak_checks,
+        },
+        {
+            "name": "vpu_dtype",
+            "route": "cuda",
+            **bound_keys("vpu_dtype"),
+            "source": "spira_tpu_torch/csrc/peak.cu",
+            "replaces": "benchmarks/packet_profile.py:94",
+            "launches": launches["vpu_dtype"],
+            "max_abs_err": max(c["max_abs_err"] for c in dtype_checks),
+            "ms": dtype_ms[("fill", "f32")],
+            "plain_ms": dtype_plain_ms,
+            "shape": f"{probe['n_dtype']} elements x {pp.CHAIN} steps, f32",
+            "bf16_ms": dtype_ms[("fill", "bf16")],
+            "gflop_s_fill": {r["dtype"]: r["gflop_s"] for r in dtype_rows
+                             if r["grid"] == "fill"},
+            "rows": dtype_rows,
+            "checks": dtype_checks,
+        },
+    ]
+    # share of the bound at the timed shape, and the redesign ranking:
+    # launches on the main path x (time - bound), largest first
+    for k in kernels:
+        k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])
+        k["rank_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
+    for k in sorted(kernels, key=lambda k: -k["rank_ms"]):
+        log(f"[rank] {card}: {k['name']}: {k['launches']} launches x "
+            f"({k['ms']:.4f} - {k['bound_ms']:.4f} ms) = {k['rank_ms']:.3f} "
+            f"ms; {k['share_of_bound_pct']:.3f}% of its bound, by "
+            f"{k['bound_term']}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -151,31 +151,96 @@ struct RowLeaves {
   }
 };
 
+// What a walk counts.  NoCount: nothing, with empty inline methods, so
+// every kernel that walks without counting compiles as it did before the
+// counts existed.  WalkCounts: one thread's work totals, the counting build
+// of kernel #2 (spira_tpu/kernels/bvh_megakernel.py:_kernel with
+// counters=True), counted per ray where JAX counts per TPU packet:
+//   pops                records popped
+//   pushes              internal children pushed
+//   traversals          walks entered (one per live path segment)
+//   leaf_visits         leaf children visited
+//   leaf_tris           leaf triangles tested (new: the per-thread leaf
+//                       loop's cost)
+//   leaf_visits_primary leaf visits at bounce 0
+//   hits                segments whose nearest hit is a surface (counted by
+//                       CountingIntersect, for the bound's hit/miss terms)
+// JAX's pop_batches, leaf_blocks_run/total and leaf_retests_culled count
+// the K-pop packet batch, leaf_gate and defer_leaves, TPU knobs that are
+// not ported; they have no counterpart.  Every popped record is the root
+// or was pushed, so pops == traversals + pushes.
+struct NoCount {
+  __device__ __forceinline__ void walk() {}
+  __device__ __forceinline__ void pop() {}
+  __device__ __forceinline__ void push() {}
+  __device__ __forceinline__ void leaf(int) {}
+};
+
+constexpr int kNumCounts = 7;
+
+struct WalkCounts {
+  uint32_t pops = 0, pushes = 0, traversals = 0, leaf_visits = 0,
+           leaf_tris = 0, leaf_visits_primary = 0, hits = 0;
+  int bounce = 0;  // the bounce of the walk in progress
+
+  __device__ __forceinline__ void walk() { ++traversals; }
+  __device__ __forceinline__ void pop() { ++pops; }
+  __device__ __forceinline__ void push() { ++pushes; }
+  __device__ __forceinline__ void leaf(int cnt) {
+    ++leaf_visits;
+    leaf_tris += static_cast<uint32_t>(cnt);
+    if (bounce == 0) ++leaf_visits_primary;
+  }
+};
+
 // The nearest triangle hit below h.t over the whole tree;
-// `leaves(ptr, cnt, o, d, h)` tests a leaf child.
-template <class Leaves>
+// `leaves(ptr, cnt, o, d, h)` tests a leaf child; `count` counts the walk
+// (NoCount or WalkCounts).
+template <class Leaves, class Count>
 __device__ void walk_packed(const float4* __restrict__ pairs,
                             const Leaves& leaves, int root, Vec3 o, Vec3 d,
-                            TriHit& h) {
+                            TriHit& h, Count& count) {
   const Vec3 inv = {fabsf(d.x) > 1e-12f ? 1.0f / d.x : 1e12f,
                     fabsf(d.y) > 1e-12f ? 1.0f / d.y : 1e12f,
                     fabsf(d.z) > 1e-12f ? 1.0f / d.z : 1e12f};
   int stack[kStackSize];
   int sp = 0;
   stack[sp++] = root;
+  count.walk();
   while (sp > 0) {
     const float4* r = pairs + static_cast<int64_t>(stack[--sp]) * 4;
+    count.pop();
     const float best = h.t;
     const Child c0 = slab_child(__ldg(r), __ldg(r + 1), o, inv, best);
     const Child c1 = slab_child(__ldg(r + 2), __ldg(r + 3), o, inv, best);
     const bool near0 = c0.tn <= c1.tn;
     const Child cn = near0 ? c0 : c1;
     const Child cf = near0 ? c1 : c0;
-    if (cn.hit && cn.cnt > 0) leaves(cn.ptr, cn.cnt, o, d, h);
-    if (cf.hit && cf.cnt > 0) leaves(cf.ptr, cf.cnt, o, d, h);
-    if (cf.hit && cf.cnt == 0) stack[sp++] = cf.ptr;
-    if (cn.hit && cn.cnt == 0) stack[sp++] = cn.ptr;
+    if (cn.hit && cn.cnt > 0) {
+      count.leaf(cn.cnt);
+      leaves(cn.ptr, cn.cnt, o, d, h);
+    }
+    if (cf.hit && cf.cnt > 0) {
+      count.leaf(cf.cnt);
+      leaves(cf.ptr, cf.cnt, o, d, h);
+    }
+    if (cf.hit && cf.cnt == 0) {
+      count.push();
+      stack[sp++] = cf.ptr;
+    }
+    if (cn.hit && cn.cnt == 0) {
+      count.push();
+      stack[sp++] = cn.ptr;
+    }
   }
+}
+
+template <class Leaves>
+__device__ __forceinline__ void walk_packed(const float4* __restrict__ pairs,
+                                            const Leaves& leaves, int root,
+                                            Vec3 o, Vec3 d, TriHit& h) {
+  NoCount none;
+  walk_packed(pairs, leaves, root, o, d, h, none);
 }
 
 // The surface of a nearest hit: the triangle hit th, or, where no
@@ -212,12 +277,35 @@ struct TreeIntersect {
   Leaves leaves;
   int root;
 
-  __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
+  template <class Count>
+  __device__ SurfaceHit intersect(Vec3 o, Vec3 d, Count& count) const {
     float best_t = kInf;
     const int sphere = nearest_sphere<kSph>(spheres, n_spheres, o, d, best_t);
     TriHit th{best_t, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
-    walk_packed(pairs, leaves, root, o, d, th);
+    walk_packed(pairs, leaves, root, o, d, th, count);
     return resolve_hit<kSph, kMat>(spheres, sphere, mats, th, o, d);
+  }
+
+  __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
+    NoCount none;
+    return intersect(o, d, none);
+  }
+};
+
+// TreeIntersect counting its walks into *counts, and the segments that hit
+// a surface; takes the bounce index (trace.cuh:WantsBounce) for the
+// primary-bounce leaf visits.
+template <class Leaves>
+struct CountingIntersect {
+  TreeIntersect<Leaves> tree;
+  WalkCounts* counts;
+
+  __device__ void begin_bounce(int b) const { counts->bounce = b; }
+
+  __device__ SurfaceHit operator()(Vec3 o, Vec3 d) const {
+    const SurfaceHit h = tree.intersect(o, d, *counts);
+    if (h.hit) ++counts->hits;
+    return h;
   }
 };
 

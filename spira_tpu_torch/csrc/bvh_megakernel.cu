@@ -10,6 +10,10 @@
 // (its leaf visit _make_mxu_leaf_visit): the same walk over a pair tree
 // whose leaves are 128-triangle superleaf blocks (superleaf.cuh).  All three
 // share one walk, bvh.cuh:walk_packed, templated on its leaf visitor.
+// spira_bvh_megakernel_render_counted is the counting build of the first
+// (_kernel with counters=True): the same kernel over CountingIntersect,
+// each thread counting its walks (bvh.cuh:WalkCounts), the block summing
+// them once at the end.
 //
 // Work split: one thread per pixel (render) or per ray (intersect), 128
 // threads a block.  The render kernel copies the camera, sphere and
@@ -55,6 +59,59 @@ __global__ void __launch_bounds__(128)
   };
   render_mesh_pixel(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
                     height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+}
+
+// Add one thread's counts to totals[kNumCounts]: a warp sum of each count
+// (a warp's 32-bit sums do not overflow at any frame a call can render),
+// the warps' sums in shared memory, then one 64-bit atomicAdd per block and
+// counter.  Every thread of the block calls it.
+__device__ void add_block_counts(const WalkCounts& c,
+                                 unsigned long long* __restrict__ totals) {
+  __shared__ unsigned long long part[kNumCounts];
+  if (threadIdx.x < kNumCounts) part[threadIdx.x] = 0;
+  __syncthreads();
+  const uint32_t v[kNumCounts] = {c.pops,        c.pushes,
+                                  c.traversals,  c.leaf_visits,
+                                  c.leaf_tris,   c.leaf_visits_primary,
+                                  c.hits};
+#pragma unroll
+  for (int k = 0; k < kNumCounts; ++k) {
+    uint32_t s = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(&part[k], static_cast<unsigned long long>(s));
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kNumCounts) atomicAdd(&totals[threadIdx.x],
+                                          part[threadIdx.x]);
+}
+
+// Kernel #2 counting its work (CountingIntersect) into totals.
+template <int kForm>
+__global__ void __launch_bounds__(128)
+    bvh_megakernel_counted(const float* __restrict__ cam_g,
+                           const float* __restrict__ sph_g, int n_spheres,
+                           const float* __restrict__ mat_g, int n_mats,
+                           const float4* __restrict__ pairs,
+                           RowLeaves<kForm> leaves, int root,
+                           unsigned long long* __restrict__ totals,
+                           float* __restrict__ out, int width, int height,
+                           int spp, int max_depth, uint32_t seed, float du,
+                           float dv, float inv_spp, int has_lens) {
+  WalkCounts counts;
+  const auto make = [&](const float* sph, const float* mat) {
+    return CountingIntersect<RowLeaves<kForm>>{
+        TreeIntersect<RowLeaves<kForm>>{sph, n_spheres, mat, pairs, leaves,
+                                        root},
+        &counts};
+  };
+  render_mesh_pixel(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+                    height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  add_block_counts(counts, totals);
 }
 
 template <int kForm>
@@ -113,6 +170,36 @@ extern "C" int spira_bvh_megakernel_render(
     bvh_megakernel<RowLeaves<kFormMT>><<<blocks, kThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormMT>{s}, root,
         out, width, height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// spira_bvh_megakernel_render counting its work: adds the frame's totals
+// (pops, pushes, traversals, leaf_visits, leaf_tris, leaf_visits_primary,
+// hits; bvh.cuh:WalkCounts) to totals[7], int64, which the caller zeroes.
+extern "C" int spira_bvh_megakernel_render_counted(
+    const float* cam, const float* spheres, int n_spheres, const float* mats,
+    int n_mats, const float* pairs, const float* tri_rows, int root,
+    int form_bw, long long* totals, float* out, int width, int height,
+    int spp, int max_depth, uint32_t seed, float du, float dv, float inv_spp,
+    int has_lens, void* stream) {
+  using namespace spira;
+  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
+  const size_t smem = mesh_smem_bytes(n_spheres, n_mats);
+  const auto* p = reinterpret_cast<const float4*>(pairs);
+  const auto* s = reinterpret_cast<const float4*>(tri_rows);
+  auto* tot = reinterpret_cast<unsigned long long*>(totals);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (form_bw) {
+    bvh_megakernel_counted<kFormBW><<<blocks, kThreads, smem, st>>>(
+        cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormBW>{s}, root,
+        tot, out, width, height, spp, max_depth, seed, du, dv, inv_spp,
+        has_lens);
+  } else {
+    bvh_megakernel_counted<kFormMT><<<blocks, kThreads, smem, st>>>(
+        cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormMT>{s}, root,
+        tot, out, width, height, spp, max_depth, seed, du, dv, inv_spp,
+        has_lens);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -278,6 +278,20 @@ __device__ __forceinline__ Vec3 scatter_dir(Vec3 d, Vec3 n, bool entering,
   return nd;
 }
 
+// Whether an intersector takes the bounce index: one with a
+// `begin_bounce(int)` method has it called before each bounce's
+// intersection, as JAX's trace_tile passes `bounce` to an intersect_fn
+// that sets `wants_bounce` (spira_tpu/kernels/megakernel.py:322-326).
+// Every other intersector compiles as before.
+template <class T, class = void>
+struct WantsBounce {
+  static constexpr bool value = false;
+};
+template <class T>
+struct WantsBounce<T, decltype(void(&T::begin_bounce))> {
+  static constexpr bool value = true;
+};
+
 // Trace `spp` samples of one pixel; returns the summed radiance.
 // pixel: the PCG counter row * width + col (row counted from the image
 // bottom, unpadded width); cam: the 20-float camera record.
@@ -298,6 +312,7 @@ __device__ Vec3 trace_pixel(const Intersect& intersect, const float* cam,
     float tr = 1.0f, tg = 1.0f, tb = 1.0f;
     float lr = 0.0f, lg = 0.0f, lb = 0.0f;
     for (int b = 0; b < max_depth; ++b) {
+      if constexpr (WantsBounce<Intersect>::value) intersect.begin_bounce(b);
       const SurfaceHit h = intersect(o, d);
       if (!h.hit) {
         // ---- miss: sky gradient

@@ -15,6 +15,9 @@ at equal distance.
 * :func:`intersect_tile` — the CUDA nearest-hit query
   (``spira_bvh_intersect``) for rays on a CUDA device; on the CPU,
   :func:`intersect_packed_plain`.
+* :func:`render_bvh_with_counters` — the counting build of the CUDA path
+  tracer (``spira_bvh_megakernel_render_counted``): the same image and the
+  frame's work counters; on the CPU, :func:`render_bvh_counters_fused`.
 * :func:`render_flat_bvh_mxu_megakernel` — the same tracer and walk over
   a :class:`~spira_tpu_torch.accel.mxu.SuperleafBVH` whose leaves are
   128-triangle Plücker blocks (``spira_bvh_mxu_render``, the leaf visit
@@ -51,6 +54,10 @@ from . import megakernel as mk
 
 #: width of the material table (:func:`pack_materials`).
 N_MAT_FIELDS = 16
+#: the work counters of :func:`render_bvh_with_counters`, in the counting
+#: kernel's order (``csrc/bvh.cuh:WalkCounts``)
+COUNTERS = ("pops", "pushes", "traversals", "leaf_visits", "leaf_tris",
+            "leaf_visits_primary", "hits")
 
 
 def pack_materials(materials):
@@ -242,7 +249,15 @@ def _leaf_visitor(packed):
         slots, packed.form, packed.max_leaf, ptr, cnt, o, d, best)
 
 
-def packed_walk(packed, o, d, best, active=None):
+def new_counts(n_rays, device):
+    """Zeroed per-ray counters (:data:`COUNTERS`, each (N,) int64) for
+    :func:`packed_walk`."""
+    return {k: torch.zeros(n_rays, dtype=torch.int64, device=device)
+            for k in COUNTERS}
+
+
+def packed_walk(packed, o, d, best, active=None, counts=None,
+                primary=False):
     """Nearest triangle hit of each ray over the packed tables (a
     PackedBVH, or a SuperleafBVH whose leaves are blocks), beating
     ``best``: returns (t, normal (N,3), mat id as float (-1: none),
@@ -251,7 +266,15 @@ def packed_walk(packed, o, d, best, active=None):
 
     Each ray walks depth first with its own stack; all rays advance in
     lockstep, one record per ray and step, and a ray leaves the step set
-    when its stack empties."""
+    when its stack empties.
+
+    ``counts`` (:func:`new_counts`, row leaves only) adds each ray's work
+    to its entries, as the counting kernel counts it per thread
+    (``csrc/bvh.cuh:WalkCounts``): ``traversals`` (this walk), ``pops``,
+    ``pushes``, ``leaf_visits``, ``leaf_tris`` and, with ``primary`` (the
+    walk of bounce 0), ``leaf_visits_primary``."""
+    if counts is not None and isinstance(packed, SuperleafBVH):
+        raise ValueError("counts: the counting walk takes row leaves")
     n_rays = o.shape[0]
     dev = o.device
     pairs = packed.pairs
@@ -269,8 +292,12 @@ def packed_walk(packed, o, d, best, active=None):
     live = torch.arange(n_rays, device=dev)
     if active is not None:
         live = live[active]
+    if counts is not None:
+        counts["traversals"][live] += 1
     while live.numel():
         sp[live] -= 1
+        if counts is not None:
+            counts["pops"][live] += 1
         rec = pairs[stack[live, sp[live]]]
         o_l, d_l, best_l = o[live], d[live], t[live]
         h0, tn0, p0, c0 = _slab(rec, 0, o_l, inv[live], best_l)
@@ -284,6 +311,11 @@ def packed_walk(packed, o, d, best, active=None):
             sel = (hit & (cnt > 0.5)).nonzero()[:, 0]
             if sel.numel():
                 g = live[sel]
+                if counts is not None:
+                    counts["leaf_visits"][g] += 1
+                    counts["leaf_tris"][g] += cnt[sel].long()
+                    if primary:
+                        counts["leaf_visits_primary"][g] += 1
                 won, tw, nw, mw, sw = visit(ptr[sel], cnt[sel], o_l[sel],
                                             d_l[sel], t[g])
                 g = g[won]
@@ -294,6 +326,8 @@ def packed_walk(packed, o, d, best, active=None):
         for hit, ptr, cnt in (far, near):  # internal children, far first
             push = hit & (cnt == 0.0)
             g = live[push]
+            if counts is not None:
+                counts["pushes"][g] += 1
             stack[g, sp[g]] = ptr[push]
             sp[g] += 1
         live = live[sp[live] > 0]
@@ -322,11 +356,32 @@ def make_walk_intersect(spheres, walk, mat_table):
     return intersect
 
 
-def make_packed_intersect(spheres, packed, mat_table):
-    """:func:`make_walk_intersect` over :func:`packed_walk` of ``packed``."""
-    return make_walk_intersect(
-        spheres, lambda o, d, best, active: packed_walk(packed, o, d, best,
-                                                        active), mat_table)
+def make_packed_intersect(spheres, packed, mat_table, counts=None):
+    """:func:`make_walk_intersect` over :func:`packed_walk` of ``packed``.
+
+    With ``counts`` (:func:`new_counts` over the pixels) each live ray's
+    walk adds its work there, and its hits to ``counts["hits"]``; the
+    intersect then sets ``wants_bounce``, so :func:`megakernel.trace_tile`
+    passes the bounce and bounce 0 counts its primary leaf visits."""
+    if counts is None:
+        return make_walk_intersect(
+            spheres, lambda o, d, best, active: packed_walk(
+                packed, o, d, best, active), mat_table)
+    bounce_now = [0]
+    inner = make_walk_intersect(
+        spheres, lambda o, d, best, active: packed_walk(
+            packed, o, d, best, active, counts, primary=bounce_now[0] == 0),
+        mat_table)
+
+    def intersect(o3, d3, active=None, bounce=0):
+        bounce_now[0] = bounce
+        out = inner(o3, d3, active)
+        hit = out[0] if active is None else out[0] & active
+        counts["hits"] += hit.long()
+        return out
+
+    intersect.wants_bounce = True
+    return intersect
 
 
 def sphere_tuples(scene):
@@ -388,6 +443,31 @@ def render_flat_bvh_fused(
     return trace_mesh(scene, camera, intersect, width=width, height=height,
                       spp=spp, max_depth=max_depth, seed=seed,
                       inclusive_uv=inclusive_uv)
+
+
+def render_bvh_counters_fused(
+    scene,
+    camera,
+    *,
+    width: int,
+    height: int,
+    spp: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    inclusive_uv: bool = True,
+):
+    """The plain version of :func:`render_bvh_with_counters`: the render
+    of :func:`render_flat_bvh_fused` with the walk counting each pixel's
+    work; returns (flat (H*W, 3), per-pixel counts {name: (H*W,) int64})."""
+    packed = _require_tree(scene)
+    counts = new_counts(width * height, scene.device)
+    intersect = make_packed_intersect(sphere_tuples(scene), packed,
+                                      pack_materials(scene.materials),
+                                      counts)
+    flat = trace_mesh(scene, camera, intersect, width=width, height=height,
+                      spp=spp, max_depth=max_depth, seed=seed,
+                      inclusive_uv=inclusive_uv)
+    return flat, counts
 
 
 def intersect_packed_plain(packed, origins, dirs, active=None,
@@ -536,6 +616,61 @@ def render_flat_bvh_megakernel(
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 render_flat_bvh_megakernel.launches = 0
+
+
+def render_bvh_with_counters(
+    scene,
+    camera,
+    *,
+    width: int,
+    height: int,
+    spp: int = 16,
+    max_depth: int = 4,
+    seed: int = 0,
+    inclusive_uv: bool = True,
+):
+    """The packed-BVH render and its work counters: (flat (H*W, 3)
+    bottom-up HDR buffer, {counter: total over the frame}), the
+    counterpart of the JAX ``render_bvh_with_counters``.
+
+    The counters (:data:`COUNTERS`) are per ray where JAX's are per TPU
+    packet: ``pops`` (records popped), ``pushes`` (internal children
+    pushed), ``traversals`` (walks entered: one per live path segment),
+    ``leaf_visits`` (leaf children visited), ``leaf_tris`` (leaf triangles
+    tested), ``leaf_visits_primary`` (leaf visits at bounce 0) and
+    ``hits`` (segments whose nearest hit is a surface).  Every popped
+    record is the root or was pushed: ``pops == traversals + pushes``.
+    JAX's ``pop_batches``, ``leaf_blocks_run``/``leaf_blocks_total`` and
+    ``leaf_retests_culled`` count the K-pop packet batch, ``leaf_gate``
+    and ``defer_leaves``, TPU knobs that are not ported, and are left out.
+
+    A scene on a CUDA device launches the counting build of kernel #2
+    (``spira_bvh_megakernel_render_counted``: the same image as
+    :func:`render_flat_bvh_megakernel` on the same seed) and adds one to
+    ``render_bvh_with_counters.launches``; a scene on the CPU runs
+    :func:`render_bvh_counters_fused`.  Row leaves only (``scene.packed``).
+    """
+    packed = _require_tree(scene)
+    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+              seed=seed, inclusive_uv=inclusive_uv)
+    if scene.device.type == "cpu":
+        flat, counts = render_bvh_counters_fused(scene, camera, **kw)
+        return flat, {k: int(v.sum()) for k, v in counts.items()}
+    _check_tree_tables(packed, scene.device)
+    totals = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                         device=scene.device)
+    out = launch_render(
+        "bvh_megakernel_counted", "bvh_megakernel",
+        "spira_bvh_megakernel_render_counted",
+        (_VP, _VP, _I, _I, _VP),  # pairs, tri_rows, root, form_bw, totals
+        (packed.pairs.data_ptr(), packed.tri_rows.data_ptr(), packed.root,
+         int(packed.form == "bw"), totals.data_ptr()), scene, camera, **kw)
+    render_bvh_with_counters.launches += 1
+    return out, dict(zip(COUNTERS, totals.tolist()))
+
+
+#: Kernel launches since the count was last reset (set it to 0 to reset).
+render_bvh_with_counters.launches = 0
 
 
 def render_flat_bvh_mxu_megakernel(

@@ -314,9 +314,16 @@ def trace_tile(
         alive = torch.ones_like(dx, dtype=torch.bool)
 
         for b in range(max_depth):
-            hit, (px, py, pz), (nx, ny, nz), mats = intersect_fn(
-                (ox, oy, oz), (dx, dy, dz), alive
-            )
+            # an intersect_fn that sets ``wants_bounce`` also gets the
+            # bounce index (the counting walk's primary-bounce visits)
+            if getattr(intersect_fn, "wants_bounce", False):
+                hit, (px, py, pz), (nx, ny, nz), mats = intersect_fn(
+                    (ox, oy, oz), (dx, dy, dz), alive, bounce=b
+                )
+            else:
+                hit, (px, py, pz), (nx, ny, nz), mats = intersect_fn(
+                    (ox, oy, oz), (dx, dy, dz), alive
+                )
             (m_ar, m_ag, m_ab, m_er, m_eg, m_eb, m_metal, m_rough, m_ior,
              m_trans) = mats
             # ---- miss: sky gradient

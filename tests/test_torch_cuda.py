@@ -3,7 +3,8 @@ sphere megakernel, the packed-BVH path tracer, the packed-BVH nearest-hit
 query, the spectral megakernel and spectral packed-BVH path tracer, the
 adjoint kernel against autograd through the plain tracer, and the
 superleaf kernels (the streaming path tracer and query, the packed-BVH
-path tracer with superleaf leaves).
+path tracer with superleaf leaves), the peak-rate probes (kernels #9 and
+#10), and the counting build of the packed-BVH path tracer.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -20,6 +21,8 @@ import torch
 
 import spira_tpu_torch as sp
 from spira_tpu_torch.accel import pairs
+from spira_tpu_torch.bench import packet_profile as pp
+from spira_tpu_torch.bench import vpu_peak as vp
 from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
 from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import grad_megakernel as gk
@@ -600,3 +603,74 @@ def test_mxu_wrapper_refusals(cuda):
         xk.intersect_tile_mxu(stream.wide, o, d.cpu())
     with pytest.raises(ValueError, match="row leaves"):
         bk.intersect_tile(walk.wide, o, d)
+
+
+# ---------------------------------------------------------------------------
+# The peak-rate probes and the counting build of #2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", vp.MODES)
+def test_peak_kernel_matches_plain(cuda, mode):
+    """#9 at the JAX tile (ones) and at a random ragged size: separate
+    bit-equal; contracted within 4 ulp (the plain version's float64 sum
+    may round twice); the special functions within rtol 1e-6 (torch's
+    library calls on the card against nvcc's)."""
+    for x in (torch.ones(vp.JAX_SHAPE, device=cuda),
+              torch.rand(1000, generator=torch.Generator().manual_seed(0))
+              .add_(0.5).to(cuda)):
+        before = vp.vpu_peak.launches
+        k = vp.vpu_peak(x, mode, iters=500)
+        assert vp.vpu_peak.launches == before + 1
+        p = vp.peak_plain(x, mode, iters=500)
+        torch.cuda.synchronize()
+        assert k.shape == x.shape and torch.isfinite(k).all()
+        if mode == "separate":
+            assert torch.equal(k, p)
+        elif mode == "contracted":
+            ulp = (k.view(torch.int32) - p.view(torch.int32)).abs().max()
+            assert int(ulp) <= 4
+        else:
+            torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dtype_kernel_matches_plain(cuda, dtype):
+    """#10 at the JAX tile (0.5) and at a random size: bit-equal, one
+    rounding to the type per operation on both sides."""
+    for x in (torch.full((pp.ROWS, pp.COLS), 0.5, device=cuda),
+              torch.rand(1002, generator=torch.Generator().manual_seed(1))
+              .to(cuda)):
+        before = pp.vpu_dtype.launches
+        k = pp.vpu_dtype(x, dtype)
+        assert pp.vpu_dtype.launches == before + 1
+        p = pp.vpu_dtype_plain(x, dtype)
+        torch.cuda.synchronize()
+        assert k.dtype == torch.float32 and k.shape == x.shape
+        assert torch.equal(k, p)
+    with pytest.raises(ValueError, match="even"):
+        pp.vpu_dtype(torch.ones(3, device=cuda), "bf16")
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_counted_kernel_matches_uncounted_and_plain(cuda, form):
+    """The counting build on the mesh scene at 128x64, spp 2, depth 4:
+    its image bit-equal to the uncounted kernel's, its totals equal to the
+    plain counting walk's, pops == traversals + pushes, one launch."""
+    scene = _mesh(cuda, form)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=2.0, device=cuda)
+    kw = dict(width=128, height=64, spp=2, max_depth=4, seed=3)
+    before = bk.render_bvh_with_counters.launches
+    img, ctr = bk.render_bvh_with_counters(scene, cam, **kw)
+    assert bk.render_bvh_with_counters.launches == before + 1
+    ref = bk.render_flat_bvh_megakernel(scene, cam, **kw)
+    plain_img, plain = bk.render_bvh_counters_fused(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(img, ref)
+    assert ctr == {k: int(v.sum()) for k, v in plain.items()}
+    assert ctr["pops"] == ctr["traversals"] + ctr["pushes"]
+    assert 0 < ctr["leaf_visits_primary"] < ctr["leaf_visits"]
+    kernel, plain_np = img.cpu().numpy(), plain_img.cpu().numpy()
+    np.testing.assert_allclose(kernel.mean(0), plain_np.mean(0),
+                               rtol=MEAN_REL)
+    assert (np.abs(kernel - plain_np) <= 1e-4).mean() >= 0.99

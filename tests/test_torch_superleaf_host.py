@@ -46,9 +46,12 @@ using namespace spira;
 
 // in: int32 mode n_rays n_pairs n_blocks root; float32 origins (n, 3),
 // dirs (n, 3), pairs (P, 16), then mode 0-1: coeff_uv (B*8, 384), coeff_t
-// and coeff_pay (B*8, 128); mode 2-3: tri_rows (B, 128).  Modes: 0 the
-// block stream, 1 the pair walk over blocks, 2 and 3 over BW and MT rows.
-// out: float32 t, normal (n, 3), mat id; int32 slot.
+// and coeff_pay (B*8, 128); mode 2-5: tri_rows (B, 128).  Modes: 0 the
+// block stream, 1 the pair walk over blocks, 2 and 3 over BW and MT rows,
+// 4 and 5 the same walks counting (WalkCounts, bounce 0).
+// out: float32 t, normal (n, 3), mat id; int32 slot; modes 4-5: int32
+// pops, pushes, traversals, leaf_visits, leaf_tris, leaf_visits_primary
+// (6, n).
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   int h[5];
@@ -67,7 +70,7 @@ int main(int argc, char** argv) {
   const auto* p4 = reinterpret_cast<const float4*>(pr.data());
   const auto* s4 = reinterpret_cast<const float4*>(tab.data());
   std::vector<float> out(5 * n);
-  std::vector<int> slot(n);
+  std::vector<int> slot(n), counts(6 * n);
   for (int i = 0; i < n; ++i) {
     const float* r = rays.data() + 3 * i;
     const Vec3 o = {r[0], r[1], r[2]};
@@ -77,6 +80,12 @@ int main(int argc, char** argv) {
     if (mode == 1) walk_packed(p4, BlockLeaves{cuv, ct, cpay}, root, o, d, th);
     if (mode == 2) walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th);
     if (mode == 3) walk_packed(p4, RowLeaves<kFormMT>{s4}, root, o, d, th);
+    WalkCounts c;
+    if (mode == 4) walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th, c);
+    if (mode == 5) walk_packed(p4, RowLeaves<kFormMT>{s4}, root, o, d, th, c);
+    const uint32_t v[6] = {c.pops, c.pushes, c.traversals, c.leaf_visits,
+                           c.leaf_tris, c.leaf_visits_primary};
+    for (int k = 0; k < 6; ++k) counts[k * n + i] = static_cast<int>(v[k]);
     out[i] = th.t;
     out[n + 3 * i] = th.n.x;
     out[n + 3 * i + 1] = th.n.y;
@@ -87,6 +96,7 @@ int main(int argc, char** argv) {
   FILE* g = fopen(argv[2], "wb");
   fwrite(out.data(), 4, out.size(), g);
   fwrite(slot.data(), 4, slot.size(), g);
+  if (mode >= 4) fwrite(counts.data(), 4, counts.size(), g);
   fclose(g);
   return 0;
 }
@@ -121,11 +131,16 @@ def host_walk(tmp_path_factory):
         subprocess.run([str(exe), str(work / "in.bin"), str(work / "out.bin")],
                        check=True)
         raw = np.fromfile(work / "out.bin", np.float32, count=5 * n)
-        slot = np.fromfile(work / "out.bin", np.int32, offset=20 * n)
-        return (torch.from_numpy(raw[:n].copy()),
-                torch.from_numpy(raw[n:4 * n].reshape(n, 3).copy()),
-                torch.from_numpy(raw[4 * n:].astype(np.int32)),
-                torch.from_numpy(slot.copy()))
+        slot = np.fromfile(work / "out.bin", np.int32, offset=20 * n,
+                           count=n)
+        out = (torch.from_numpy(raw[:n].copy()),
+               torch.from_numpy(raw[n:4 * n].reshape(n, 3).copy()),
+               torch.from_numpy(raw[4 * n:].astype(np.int32)),
+               torch.from_numpy(slot.copy()))
+        if mode < 4:
+            return out
+        counts = np.fromfile(work / "out.bin", np.int32, offset=24 * n)
+        return out, torch.from_numpy(counts.reshape(6, n).copy())
 
     return run
 
@@ -179,3 +194,22 @@ def test_host_row_walk_matches_plain(host_walk, scene, form):
     o, d = _rays(512, seed=5)
     want = bk.intersect_packed_plain(packed, o, d, with_slot=True)
     _assert_same(host_walk(2 if form == "bw" else 3, packed, o, d), want)
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_host_counting_walk_matches_plain(host_walk, scene, form):
+    """#2's counting build: the walk with WalkCounts gives the same hits,
+    and per ray the counts of ``packed_walk(..., counts=...)`` at bounce
+    0 (pops, pushes, traversals, leaf visits, leaf triangles, primary
+    visits)."""
+    packed = pairs.pack_bvh(scene.bvh, scene.triangles, form=form)
+    o, d = _rays(512, seed=7)
+    counts = bk.new_counts(512, "cpu")
+    t, n, mid, slot = bk.packed_walk(packed, o, d, torch.full((512,), 1e20),
+                                     counts=counts, primary=True)
+    got, got_counts = host_walk(4 if form == "bw" else 5, packed, o, d)
+    _assert_same(got, (t, n, mid.to(torch.int32), slot))
+    for k, name in enumerate(bk.COUNTERS[:6]):
+        assert torch.equal(got_counts[k].long(), counts[name]), name
+    assert (counts["traversals"] == 1).all()
+    assert counts["leaf_tris"].sum() > counts["leaf_visits"].sum() > 0
