@@ -22,10 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    random and primary rays of the 72,960-triangle bunny, the packed-BVH
    path tracer (``BVH_CASES``), the spectral megakernel
    (``SPECTRAL_CASES``), the spectral packed-BVH path tracer
-   (``SPECTRAL_BVH_CASES``), the adjoint kernel against autograd
-   through the plain tracer (``GRAD_CASES``), with a central-difference
-   check of its gradients, the streaming superleaf query on the bunny's
-   random and primary rays, and the streaming superleaf path tracer and
+   (``SPECTRAL_BVH_CASES``), the adjoint kernels against autograd
+   through the plain tracer (``GRAD_CASES``: VJP mode and loss mode, a
+   ragged grid, the full 16-bounce tape, ``inclusive_uv=False``, a camera
+   inside a sphere), loss mode's loss against the MSE of kernel #1's
+   image, with a central-difference check of its gradients, the
+   streaming superleaf query on the bunny's random and primary rays, and the streaming superleaf path tracer and
    the superleaf-leaf BVH path tracer (``MXU_CASES``); the counting build
    of the packed-BVH path tracer on the bunny: its image bit-equal to the
    uncounted kernel's, its totals equal to the plain counting walk's, and
@@ -43,7 +45,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``render_flat_hybrid_grad``, MSE, ``backward``) on the sphere demo at
    exact replay and at ``grad_spp=4``, a few gradient-descent updates of
    the albedo, each step one forward and one adjoint launch and no plain
-   tracer call; and the superleaf engines: ``render`` of the bunny on
+   tracer call; ``render_mse_loss_and_grads`` there, one launch of loss
+   mode's forward kernel and one of the VJP kernel; and the superleaf
+   engines: ``render`` of the bunny on
    ``cuda_bvh_mxu`` and of the 1,600-triangle mesh scene on ``cuda_mxu``
    at 640x360, spp 16, depth 4, each one launch and no plain call, each
    image held against its plain version and against ``cuda_bvh``'s image
@@ -62,11 +66,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    probes' bound is their counted operations at the issue rate; each
    kernel's share of its bound and launches x (time - bound), largest
    first; the superleaf kernels beside ``cuda_bvh`` on the same calls;
-   the counting build's time beside the uncounted one.
+   the counting build's time beside the uncounted one; the adjoint
+   kernels and the step through ``spira_tpu_torch/bench/grad_step.py``
+   (VJP at grad_spp 16 and 4, a zero cotangent, loss mode and its
+   forward kernel alone, the step at both grad_spp), the VJP bounds at
+   both grad_spp beside loss mode's; ``[rank]`` lines weigh each kernel
+   by its launches in one call of a main path, counted in phase 3: one
+   render() under engine="auto" (the bunny, the sphere demo, and both
+   spectrally), one step, one render_mse_loss_and_grads; the most over
+   those paths, 0 for a kernel none of them launched.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
-paths' PNGs there.
+paths' PNGs there; ``--parent DIR`` also times another commit's adjoint
+kernel and step (a ``git archive`` of it unpacked into ``DIR``) with the
+same script, in a process of its own.
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ import json
 import math
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -163,7 +178,26 @@ GRAD_CASES = (
     ("p: cornell 256x256 spp4 d6 vjp", "cornell_sq",
      dict(width=256, height=256, spp=4, max_depth=6), 4, False),
     ("q: demo 640x360 spp16 d4 loss", "demo", MAIN, 16, True),
+    # 641 * 359 * 3 replayed samples: a ragged last chunk, and warps whose
+    # lanes straddle pixels
+    ("w: demo 641x359 spp3 d4 grad_spp3 vjp", "demo",
+     dict(width=641, height=359, spp=3, max_depth=4), 3, False),
+    # the tape's full depth: 96 KB of tape a block, past the 48 KB a
+    # launch gets without opting in
+    ("x: thin-lens demo 256x128 spp2 d16 vjp", "lens",
+     dict(width=256, height=128, spp=2, max_depth=16), 2, False),
+    ("y: demo 256x128 spp4 d4 vjp exclusive uv", "demo",
+     dict(width=256, height=128, spp=4, max_depth=4, inclusive_uv=False), 4,
+     False),
+    # inside the emissive sphere: every lane adds to one record (VJP mode:
+    # the image there is the same at every seed, so a loss against another
+    # seed's render is 0)
+    ("z: inside the light 256x128 spp4 d4 vjp", "inside",
+     dict(width=256, height=128, spp=4, max_depth=4), 4, False),
 )
+#: loss mode's loss against the MSE of kernel #1's image on the same
+#: target and seed: float32 pixel sums, double block sums
+LOSS_FORWARD_RTOL = 1e-6
 GRAD_LOSS_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
 #: superleaf path tracer cases, limits BVH_TOL: (name, engine, scene key,
 #: shape); "mxu" is the streaming kernel #7, "bvh_mxu" the packed-BVH walk
@@ -343,6 +377,7 @@ def counters():
         spectral_bvh_megakernel=(
             spectral_bvh.render_flat_spectral_bvh_megakernel),
         grad_megakernel=grad_megakernel.render_grad_megakernel,
+        grad_loss_forward=grad_megakernel.loss_forward,
         mxu_megakernel=mxu_megakernel.render_flat_mxu_megakernel,
         mxu_intersect=mxu_megakernel.intersect_tile_mxu,
         bvh_mxu_megakernel=bvh_megakernel.render_flat_bvh_mxu_megakernel,
@@ -513,6 +548,28 @@ def compare_grad(gk, mk, name, scene, cam, shape, grad_spp, loss_mode):
         raise AssertionError(f"{name}: adjoint kernel disagrees with the "
                              f"plain autograd backward")
     return out
+
+
+def check_loss_forward(gk, mk, scene, cam):
+    """Loss mode's forward kernel renders what kernel #1 renders: its loss
+    against the MSE of #1's image on the same target and seed, at MAIN."""
+    tables = [t.detach().contiguous() for t in mk.pack_tables(scene, cam)]
+    target = torch.rand(MAIN["width"] * MAIN["height"], 3,
+                        generator=torch.Generator().manual_seed(3)
+                        ).to(cam.origin.device)
+    loss, *_ = gk.render_grad_megakernel(scene, cam, tables, target,
+                                         loss_mode=True, grad_spp=4, seed=7,
+                                         **MAIN)
+    img = mk.render_flat_megakernel(scene, cam, seed=7, **MAIN)
+    mse = float(((img.double() - target.double()) ** 2).mean())
+    rel = abs(float(loss) / mse - 1.0)
+    log(f"[compare] loss mode's loss {float(loss):.9g} against the MSE of "
+        f"#1's image {mse:.9g}: rel {rel:.2e} (limit {LOSS_FORWARD_RTOL:g})")
+    if not rel <= LOSS_FORWARD_RTOL:
+        raise AssertionError("loss mode's forward disagrees with kernel #1")
+    return dict(case="loss mode's loss against the MSE of #1's image, "
+                "demo 640x360 spp16 d4", loss=float(loss), mse=mse,
+                loss_rel=rel, max_abs_err=abs(float(loss) - mse))
 
 
 def with_materials(scene, **fields):
@@ -714,6 +771,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save", help="also write the main paths' PNGs "
                         "into this directory")
+    parser.add_argument("--parent", help="a checkout of another commit "
+                        "(unpacked into an ignored directory): also time "
+                        "its adjoint kernel and step with "
+                        "spira_tpu_torch/bench/grad_step.py, in a process of "
+                        "its own")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -723,6 +785,7 @@ def main() -> int:
     # ---- 1. card and toolchain
     import spira_tpu_torch as sp
     from spira_tpu_torch import _build
+    from spira_tpu_torch.bench import grad_step as gs
     from spira_tpu_torch.bench import packet_profile as pp
     from spira_tpu_torch.bench import timing
     from spira_tpu_torch.bench.timing import card_line
@@ -769,6 +832,8 @@ def main() -> int:
     # fills every SM, each output held against the plain version; #9's
     # rates give the special-function weights of every bound below
     launches = {}
+    # the kernels' launches in one frame or step of each main path
+    main_runs = {}
     probe_checks = check_probes_jax_shapes(vp, pp, device)
     probe = dict(n_peak=vp.fill_elements(device),
                  n_dtype=vp.fill_elements(device, pp.WAVES))
@@ -865,6 +930,9 @@ def main() -> int:
               sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
                              aspect_ratio=2.0, aperture=0.2, focus_dist=3.0,
                              device=device)),
+        inside=(sp.create_scene(device=device),
+                sp.make_camera((0.0, 5.0, 0.0), (0.0, 5.0, -1.0),
+                               aspect_ratio=2.0, device=device)),
     )
 
     # ---- 2. each kernel against its plain version on the card
@@ -932,6 +1000,7 @@ def main() -> int:
                                     device=device)
         grad_checks.append(compare_grad(gk, mk, name, scene, cam, shape,
                                         grad_spp, loss_mode))
+    loss_forward_check = check_loss_forward(gk, mk, *scenes["demo"])
     m_shape = GRAD_CASES[0][2]
     fd_checks = check_finite_differences(
         sp, scenes["demo"][0],
@@ -956,6 +1025,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = counts()
         launches["bvh_megakernel"] = got["bvh_megakernel"]
+        main_runs["render auto: bunny"] = got
         check_main(f"bunny render {shape_name}", "bvh_megakernel", img,
                    to_uint8(bk.render_flat_bvh_fused(bunny, bunny_cam,
                                                      **MAIN)), got, png)
@@ -995,6 +1065,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = counts()
         launches["megakernel"] = got["megakernel"]
+        main_runs["render auto: demo"] = got
         check_main(f"demo render {shape_name}", "megakernel", img,
                    sp.render(demo, demo_cam, w, h, engine="fused",
                              **main_args), got, png)
@@ -1010,6 +1081,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = counts()
         launches["spectral_megakernel"] = got["spectral_megakernel"]
+        main_runs["render auto: spectral cornell"] = got
         check_main(f"spectral cornell render {shape_name}",
                    "spectral_megakernel", img,
                    sp.render(cornell, cornell_cam, w, h, engine="fused",
@@ -1032,6 +1104,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = counts()
         launches["spectral_bvh_megakernel"] = got["spectral_bvh_megakernel"]
+        main_runs["render auto: spectral bunny"] = got
         check_main(f"spectral bunny render {shape_name}",
                    "spectral_bvh_megakernel", img,
                    to_uint8(sb.render_flat_spectral_bvh_fused(
@@ -1098,19 +1171,10 @@ def main() -> int:
     # the differentiable step of bench.py: forward, MSE against a target
     # rendered at seed 7, backward; gradients for every material field
     step_target = mk.render_flat_megakernel(demo, demo_cam, seed=7, **MAIN)
-    step_fields = ("albedo", "emission", "metallic", "roughness", "ior",
-                   "transmission")
 
     def step(albedo, seed, grad_spp):
-        leaves = {f: getattr(demo.materials, f).detach().clone()
-                  .requires_grad_() for f in step_fields}
-        leaves["albedo"] = albedo.detach().clone().requires_grad_()
-        img = sp.render_flat_hybrid_grad(
-            with_materials(demo, **leaves), demo_cam, seed=seed,
-            grad_spp=grad_spp, **MAIN)
-        loss = ((img - step_target) ** 2).mean()
-        loss.backward()
-        return loss.detach(), {f: v.grad for f, v in leaves.items()}
+        return gs.step(sp, demo, demo_cam, step_target, albedo, seed,
+                       grad_spp, MAIN)
 
     albedo0 = demo.materials.albedo.clone()
     albedo0[:2] = torch.tensor(STEP_ALBEDO, device=device)
@@ -1136,6 +1200,7 @@ def main() -> int:
                     raise AssertionError(f"step: no {f} gradient on the "
                                          f"visible materials 0 and 1")
             launches["grad_megakernel"] += got["grad_megakernel"]
+            main_runs[f"step, grad_spp {grad_spp}"] = got
             losses.append(float(loss))
             albedo = (albedo - STEP_LR * grads["albedo"]).clamp(0.0, 1.0)
         step_runs[grad_spp] = dict(
@@ -1150,6 +1215,27 @@ def main() -> int:
             f" (true {np.round(demo.materials.albedo[:2].tolist(), 4)})")
         if not losses[-1] < losses[0]:
             raise AssertionError("gradient descent did not lower the loss")
+
+    # the loss entry point: loss mode's forward kernel, then the VJP kernel
+    reset_counts()
+    loss, d_scene, d_cam = sp.render_mse_loss_and_grads(
+        demo, demo_cam, step_target, seed=3, **MAIN)
+    torch.cuda.synchronize()
+    got = counts()
+    launches["grad_loss_forward"] = got["grad_loss_forward"]
+    main_runs["render_mse_loss_and_grads"] = got
+    want = dict.fromkeys(got, 0)
+    want.update(grad_megakernel=1, grad_loss_forward=1)
+    log(f"[main] render_mse_loss_and_grads {w}x{h} spp{MAIN['spp']} "
+        f"d{MAIN['max_depth']}: loss {float(loss):.6g}, launches {got}")
+    if got != want:
+        raise AssertionError(f"render_mse_loss_and_grads launched {got}")
+    if not (torch.isfinite(loss)
+            and torch.isfinite(d_scene.materials.albedo).all()
+            and torch.isfinite(d_cam.origin).all()
+            and float(d_scene.materials.albedo.abs().max()) > 0):
+        raise AssertionError("render_mse_loss_and_grads: bad loss or "
+                             "gradients")
 
     # ---- 4. timing
     def mrays(shape, ms):
@@ -1300,46 +1386,53 @@ def main() -> int:
                   mxu_prof["bvh_mxu_megakernel"])
     log_breakdown(card, "#7 mesh 640x360 spp16 d4",
                   mxu_prof["mxu_megakernel"])
-    step_ms = {g: time_ms(lambda g=g: step(albedo0, 0, g))
-               for g in (MAIN["spp"], 4)}
+    # the adjoint kernel and the step (bench/grad_step.py), and the same
+    # for another commit's checkout in a process of its own
+    grad_t = gs.measure(device)
+    vjp_ms, step_ms = grad_t["vjp_ms"], grad_t["step_ms"]
+    vjp_zero_ms, loss_k = grad_t["vjp_zero_cotangent_ms"], grad_t["loss_ms"]
+    fwd_ms = grad_t["loss_kernels_ms"].get("spira::grad_loss_forward")
+    loss_p = grad_checks[4]["plain_ms_once"]
     for g, ms in step_ms.items():
         log(f"[time] {card}: differentiable step demo 640x360 spp16 d4 "
             f"grad_spp {g}: {ms:.3f} ms ({mrays(MAIN, ms):.1f} Mrays/s)")
-    tables = [t.detach().contiguous() for t in mk.pack_tables(demo,
-                                                               demo_cam)]
-    cot = torch.rand(w * h, 3, generator=torch.Generator().manual_seed(5)
-                     ).to(device)
-    vjp_ms = {g: time_ms(lambda g=g: gk.render_grad_megakernel(
-        demo, demo_cam, tables, cot, loss_mode=False, grad_spp=g, **MAIN))
-        for g in (MAIN["spp"], 4)}
-    # a zero cotangent skips every gradient atomicAdd and leaves the rest
-    # of the work as it is: the atomics' share of the time
-    zeros = torch.zeros_like(cot)
-    vjp_zero_ms = time_ms(lambda: gk.render_grad_megakernel(
-        demo, demo_cam, tables, zeros, loss_mode=False, grad_spp=MAIN["spp"],
-        **MAIN))
-    loss_k = time_ms(lambda: gk.render_grad_megakernel(
-        demo, demo_cam, tables, step_target, loss_mode=True,
-        grad_spp=MAIN["spp"], **MAIN))
-    loss_p = grad_checks[4]["plain_ms_once"]
     log(f"[time] {card}: adjoint kernel alone, VJP mode 640x360 spp16 d4: "
-        f"grad_spp 16 {vjp_ms[16]:.3f} ms (zero cotangent, no atomics: "
-        f"{vjp_zero_ms:.3f} ms), grad_spp 4 {vjp_ms[4]:.3f} ms; "
-        f"loss mode (forward at spp 16 + replay of 16) {loss_k:.3f} ms, "
-        f"plain version (one call, case q) {loss_p:.3f} ms, kernel/plain "
-        f"{loss_k / loss_p:.5f}")
+        f"grad_spp 16 {vjp_ms[16]:.3f} ms (zero cotangent, no gradient "
+        f"adds: {vjp_zero_ms:.3f} ms), grad_spp 4 {vjp_ms[4]:.3f} ms; "
+        f"loss mode (forward at spp 16 + replay of 16) {loss_k:.3f} ms, its "
+        f"forward kernel alone {fwd_ms} ms (torch.profiler; by kernel "
+        f"{grad_t['loss_kernels_ms']}), plain version (one call, case q) "
+        f"{loss_p:.3f} ms, kernel/plain {loss_k / loss_p:.5f}")
+    parent_t = None
+    if args.parent:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "spira_tpu_torch", "bench",
+                "grad_step.py"), "--root", args.parent],
+            capture_output=True, text=True, timeout=600, check=True)
+        parent_t = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[time] {card}: the parent's ({args.parent}) adjoint kernel: "
+            f"VJP grad_spp 16 {parent_t['vjp_ms']['16']:.3f} ms (zero "
+            f"cotangent {parent_t['vjp_zero_cotangent_ms']:.3f}), grad_spp 4 "
+            f"{parent_t['vjp_ms']['4']:.3f} ms, loss mode "
+            f"{parent_t['loss_ms']:.3f} ms; step {parent_t['step_ms']}; "
+            f"ptxas {parent_t['ptxas']['grad_megakernel']}")
     step_prof = device_breakdown(lambda: step(albedo0, 0, MAIN["spp"]))
     log_breakdown(card, "differentiable step 640x360 spp16 d4 exact "
                   "replay", step_prof)
     if not all(math.isfinite(x) for x in (*step_ms.values(),
                                           *vjp_ms.values(), vjp_zero_ms,
-                                          loss_k)):
+                                          loss_k, fwd_ms or math.nan)):
         raise AssertionError("timing failed")
 
     # ---- each kernel's bound, from the work this run's inputs need
     n_px = w * h
     sph_work = count_work(mk, "make_brute_intersect",
                           run(mk.render_flat_fused, demo, demo_cam, MAIN))
+    # the first 4 samples of the same render: the grad_spp 4 replay's
+    sph4_work = count_work(mk, "make_brute_intersect",
+                           run(mk.render_flat_fused, demo, demo_cam,
+                               dict(MAIN, spp=4)))
     # #2's inventory from its counting build; count_work's plain count of
     # the same render must agree with it
     bvh_work = dict(segments=counted["traversals"], hits=counted["hits"],
@@ -1377,10 +1470,11 @@ def main() -> int:
     out_bytes = 12 * n_px
     bvh_tables = table_bytes(bunny.packed.pairs, bunny.packed.tri_rows)
 
-    demo_tables = table_bytes(*tables)
+    demo_tables = table_bytes(*mk.pack_tables(demo, demo_cam))
     n_bunny_sph = bunny.spheres.count
     sph_units = sol.path_units(sph_work, n_px * MAIN["spp"],
                                demo.spheres.count, 0)
+    sph4_units = sol.path_units(sph4_work, n_px * 4, demo.spheres.count, 0)
     bounds = dict(
         megakernel=sol_bound(sph_units, demo_tables + out_bytes, rates),
         bvh_megakernel=sol_bound(
@@ -1407,6 +1501,17 @@ def main() -> int:
             dict({u: 2 * n for u, n in sph_units.items()},
                  adjoint_hit=sph_work["hits"]),
             2 * demo_tables + out_bytes + 8, rates),
+        # VJP mode (the step's backward): the replay's forward once and the
+        # reverse sweep of every replayed hit; bytes: tables, cotangent,
+        # gradient tables
+        grad_vjp_16=sol_bound(dict(sph_units, adjoint_hit=sph_work["hits"]),
+                              2 * demo_tables + out_bytes, rates),
+        grad_vjp_4=sol_bound(dict(sph4_units, adjoint_hit=sph4_work["hits"]),
+                             2 * demo_tables + out_bytes, rates),
+        # loss mode's forward: #1's work; bytes: tables, target, cotangent,
+        # the loss
+        grad_loss_forward=sol_bound(sph_units,
+                                    demo_tables + 2 * out_bytes + 8, rates),
         bvh_mxu_megakernel=sol_bound(
             sol.path_units(bvh_mxu_work, n_px * BVH_TIMED["spp"],
                            n_bunny_sph, 0, bvh=True),
@@ -1549,15 +1654,46 @@ def main() -> int:
             "vjp_ms_grad_spp16": vjp_ms[16],
             "vjp_ms_grad_spp4": vjp_ms[4],
             "vjp_ms_grad_spp16_zero_cotangent": vjp_zero_ms,
+            "vjp_bound_ms_grad_spp16": bounds["grad_vjp_16"]["bound_ms"],
+            "vjp_bound_ms_grad_spp4": bounds["grad_vjp_4"]["bound_ms"],
+            "vjp_share_of_bound_pct_grad_spp16": sol.sol_pct(
+                bounds["grad_vjp_16"]["bound_ms"], vjp_ms[16]),
+            "vjp_share_of_bound_pct_grad_spp4": sol.sol_pct(
+                bounds["grad_vjp_4"]["bound_ms"], vjp_ms[4]),
+            "vjp_bound_terms_ms_grad_spp16": (
+                bounds["grad_vjp_16"]["bound_terms_ms"]),
+            # the step takes VJP mode at grad_spp 16: the ranking's time
+            "rank_ms_bound_ms": (vjp_ms[16],
+                                 bounds["grad_vjp_16"]["bound_ms"]),
+            "parent": parent_t,
             "step_ms_grad_spp16": step_ms[16],
             "step_ms_grad_spp4": step_ms[4],
             "step_mrays_grad_spp16": mrays(MAIN, step_ms[16]),
             "step_mrays_grad_spp4": mrays(MAIN, step_ms[4]),
             "step_profile_640x360_spp16_d4": step_prof,
             "step_runs": step_runs,
-            "ptxas": ptxas.get("grad_megakernel", []),
+            "ptxas": ptxas.get("grad_vjp", []),
             "checks": grad_checks,
             "finite_differences": fd_checks,
+        },
+        {
+            "name": "grad_loss_forward",
+            "route": "cuda",
+            **bound_keys("grad_loss_forward"),
+            "source": "spira_tpu_torch/csrc/grad_megakernel.cu",
+            "replaces": "spira_tpu/kernels/grad_megakernel.py:57",
+            "launches": launches["grad_loss_forward"],
+            "max_abs_err": loss_forward_check["max_abs_err"],
+            "ms": fwd_ms,
+            # the plain forward at the same shape (the render the MSE is
+            # taken of)
+            "plain_ms": sph_p,
+            "shape": "loss mode's forward, demo 640x360 spp16 d4 "
+                     "(torch.profiler, in the loss-mode call)",
+            "megakernel_ms_on_card": sph_prof["kernels_ms_per_call"].get(
+                "spira::megakernel"),
+            "ptxas": ptxas.get("grad_loss_forward", []),
+            "checks": [loss_forward_check],
         },
         {
             "name": "mxu_megakernel",
@@ -1649,15 +1785,26 @@ def main() -> int:
         },
     ]
     # share of the bound at the timed shape, and the redesign ranking:
-    # launches on the main path x (time - bound), largest first
+    # launches in one call of a main path (the most over the paths counted
+    # above) x (time - bound), largest first (the script's own counts stay
+    # in "launches")
     for k in kernels:
         k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])
-        k["rank_ms"] = k["launches"] * (k["ms"] - k["bound_ms"])
+        paths = {path: got[k["name"]] for path, got in main_runs.items()
+                 if got[k["name"]]}
+        k["main_path_launches"] = max(paths.values(), default=0)
+        k["main_paths"] = paths
+        ms, bound = k.pop("rank_ms_bound_ms", (k["ms"], k["bound_ms"]))
+        k["rank_ms"] = k["main_path_launches"] * (ms - bound)
+        k["rank_basis_ms"] = dict(ms=ms, bound_ms=bound)
     for k in sorted(kernels, key=lambda k: -k["rank_ms"]):
-        log(f"[rank] {card}: {k['name']}: {k['launches']} launches x "
-            f"({k['ms']:.4f} - {k['bound_ms']:.4f} ms) = {k['rank_ms']:.3f} "
-            f"ms; {k['share_of_bound_pct']:.3f}% of its bound, by "
-            f"{k['bound_term']}")
+        b = k["rank_basis_ms"]
+        log(f"[rank] {card}: {k['name']}: {k['main_path_launches']} "
+            f"main-path launches x ({b['ms']:.4f} - {b['bound_ms']:.4f} ms) "
+            f"= {k['rank_ms']:.3f} ms; {k['share_of_bound_pct']:.3f}% of its "
+            f"bound at {k['shape']}, by {k['bound_term']}; counted on "
+            f"{k['main_paths'] or 'no main path'}; this script launched it "
+            f"{k['launches']} times on its main-path runs")
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

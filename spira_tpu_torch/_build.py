@@ -92,8 +92,8 @@ def load(name: str) -> Library:
 
 def entry(name: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, built on first
-    use, with its argument types; every entry point returns an int (0 on
-    success, else a CUDA error code)."""
+    use, with its argument types; every entry point returns an int (a
+    launch entry 0 on success, else a CUDA error code)."""
     fn = getattr(load(name).lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

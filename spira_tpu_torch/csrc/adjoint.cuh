@@ -21,13 +21,16 @@
 // scale 1/p_cont.  Everything else the reverse sweep needs (hit point,
 // normal before and after the flip, the lobe's intermediates) it
 // recomputes from those with the same arithmetic as the forward; the PCG
-// draws need no tape because the hash is a stateless counter.  The tape
-// lives in the thread's local memory, kMaxTape bounces deep.
+// draws need no tape because the hash is a stateless counter.  Where the
+// tape lives is the caller's choice: `sample_vjp` takes an accessor with
+// `store(b, entry)` and `load(b)` (shared memory, field-major, in
+// grad_megakernel.cu; an array in the host build of the tests).
 //
 // Every float operation is written so that the file also compiles as
-// plain host C++ (no intrinsics); accumulation into the scene tables goes
-// through the `Add` functor the caller passes (shared-memory atomics in
-// grad_megakernel.cu).
+// plain host C++ (no intrinsics).  Accumulation into the scene tables goes
+// through the `Add` functor the caller passes, `add(p, v)` adding v at p
+// (shared-memory atomics into a lane's copy of the accumulators in
+// grad_megakernel.cu, a plain += on the host).
 #pragma once
 
 #include <cstdint>
@@ -39,6 +42,8 @@ namespace spira {
 // The deepest path the tape records; the wrapper refuses a deeper
 // max_depth.
 constexpr int kMaxTape = 16;
+// 32-bit words a tape entry stores (TapeEntry's fields, prim as a float).
+constexpr int kTapeWords = 12;
 
 struct TapeEntry {
   Vec3 o, d;          // the ray at the bounce's start
@@ -80,28 +85,31 @@ __device__ __forceinline__ void add3_to(const Add& add, float* p, Vec3 g) {
   add(p + 2, g.z);
 }
 
-// One sample of trace_pixel's bounce loop, recording the tape; returns the
-// number of entries (the last is a miss, or a hit after which the path
-// ended).  The radiance is not needed: the sample's contribution is linear
-// in the cotangent.
+// One sample of trace_pixel's bounce loop, recording the tape through the
+// accessor (`tape.store(b, entry)`); returns the number of entries (the
+// last is a miss, or a hit after which the path ended).  The radiance is
+// not needed: the sample's contribution is linear in the cotangent.
+template <class Tape>
 __device__ __forceinline__ int trace_taped(
     const float* sph, int n_sph, const float* tri, int n_tri, Vec3 o, Vec3 d,
     uint32_t pixel, uint32_t s32, uint32_t base, uint32_t seed,
-    int max_depth, TapeEntry* tape) {
+    int max_depth, const Tape& tape) {
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
   for (int b = 0; b < max_depth; ++b) {
-    TapeEntry& e = tape[b];
+    TapeEntry e;
     e.o = o;
     e.d = d;
     e.tr = tr;
     e.tg = tg;
     e.tb = tb;
+    e.t = 0.0f;
     e.scale = 1.0f;
     float best_t = kInf;
     const int ks = nearest_sphere(sph, n_sph, o, d, best_t);
     const int kt = nearest_tri(tri, n_tri, o, d, best_t);
     if (!(best_t < kInf)) {
       e.prim = -1;
+      tape.store(b, e);
       return b + 1;
     }
     e.t = best_t;
@@ -124,17 +132,23 @@ __device__ __forceinline__ int trace_taped(
     float ntr = tr * m[0];
     float ntg = tg * m[1];
     float ntb = tb * m[2];
+    bool ends = false;
     if (b > kRRStart) {
       const float p_cont =
           fminf(fmaxf(fmaxf(ntr, fmaxf(ntg, ntb)), 1e-6f), kRRCap);
-      if (lobe.y > p_cont) return b + 1;
-      const float inv_p = 1.0f / p_cont;
-      ntr = ntr * inv_p;
-      ntg = ntg * inv_p;
-      ntb = ntb * inv_p;
-      e.scale = inv_p;
-      if (!(fmaxf(ntr, fmaxf(ntg, ntb)) >= kCutoff)) return b + 1;
+      if (lobe.y > p_cont) {
+        ends = true;
+      } else {
+        const float inv_p = 1.0f / p_cont;
+        ntr = ntr * inv_p;
+        ntg = ntg * inv_p;
+        ntb = ntb * inv_p;
+        e.scale = inv_p;
+        ends = !(fmaxf(ntr, fmaxf(ntg, ntb)) >= kCutoff);
+      }
     }
+    tape.store(b, e);
+    if (ends) return b + 1;
     const float osgn = dot3(nd, n) >= 0.0f ? 1.0f : -1.0f;
     o = {h.p.x + kScatterEps * osgn * n.x, h.p.y + kScatterEps * osgn * n.y,
          h.p.z + kScatterEps * osgn * n.z};
@@ -246,12 +260,13 @@ __device__ __forceinline__ Vec3 scatter_adjoint(
 }
 
 // Adjoint of the sphere root t(o, d, c, r) (the nearer root above kTMin,
-// as nearest_sphere picks it) for the cotangent g_t.
-template <class Add>
-__device__ __forceinline__ void sphere_t_adjoint(const float* s, float* gs,
-                                                 Vec3 o, Vec3 d, float g_t,
-                                                 Vec3& go, Vec3& gd,
-                                                 const Add& add) {
+// as nearest_sphere picks it) for the cotangent g_t; adds to the
+// cotangents of the centre gc and radius gr, which the caller adds to the
+// record once with the normal's.
+__device__ __forceinline__ void sphere_t_adjoint(const float* s, Vec3 o,
+                                                 Vec3 d, float g_t, Vec3& go,
+                                                 Vec3& gd, Vec3& gc,
+                                                 float& gr) {
   const Vec3 oc = {o.x - s[0], o.y - s[1], o.z - s[2]};
   const float r = s[3];
   const float half_b = dot3(oc, d);
@@ -267,8 +282,8 @@ __device__ __forceinline__ void sphere_t_adjoint(const float* s, float* gs,
   const Vec3 goc = add3(scale3(2.0f * g_c, oc), scale3(g_half_b, d));
   gd = add3(gd, scale3(g_half_b, oc));
   go = add3(go, goc);
-  add3_to(add, gs, scale3(-1.0f, goc));
-  add(gs + 3, -2.0f * r * g_c);
+  gc = sub3(gc, goc);
+  gr += -2.0f * r * g_c;
 }
 
 // Adjoint of the Möller–Trumbore distance t(o, d, v0, e1, e2) for the
@@ -348,16 +363,16 @@ __device__ __forceinline__ void camera_adjoint(
 }
 
 // The vector-Jacobian product of sample s of pixel `pixel` with the
-// radiance cotangent gl: traces the sample with a tape, sweeps it in
-// reverse, adds the scene-table cotangents through `add` into gsph/gtri
-// (the tables' layouts) and the camera's into gcam[0..18].
-template <class Add>
-__device__ void sample_vjp(const float* cam, bool has_lens, const float* sph,
-                           float* gsph, int n_sph, const float* tri,
-                           float* gtri, int n_tri, uint32_t pixel,
-                           float row_f, float col_f, uint32_t seed, int s,
-                           int max_depth, float du, float dv, Vec3 gl,
-                           TapeEntry* tape, float* gcam, const Add& add) {
+// radiance cotangent gl: traces the sample with a tape (through the
+// accessor `tape`), sweeps it in reverse, adds the scene-table cotangents
+// through `add` into gsph/gtri (the tables' layouts) and the
+// camera's into gcam[0..18].
+template <class Tape, class Add>
+__device__ __forceinline__ void sample_vjp(
+    const float* cam, bool has_lens, const float* sph, float* gsph,
+    int n_sph, const float* tri, float* gtri, int n_tri, uint32_t pixel,
+    float row_f, float col_f, uint32_t seed, int s, int max_depth, float du,
+    float dv, Vec3 gl, const Tape& tape, float* gcam, const Add& add) {
   const uint32_t s32 = static_cast<uint32_t>(s);
   const uint32_t base =
       s32 * (static_cast<uint32_t>(max_depth) * kStreams + 1u);
@@ -372,7 +387,7 @@ __device__ void sample_vjp(const float* cam, bool has_lens, const float* sph,
   Vec3 go = {0.0f, 0.0f, 0.0f}, gd = {0.0f, 0.0f, 0.0f};
   Vec3 gt = {0.0f, 0.0f, 0.0f};
   for (int b = len - 1; b >= 0; --b) {
-    const TapeEntry& e = tape[b];
+    const TapeEntry e = tape.load(b);
     const Vec3 o = e.o, d = e.d;
     if (e.prim == -1) {
       // ---- miss (the last entry): L += t * (1 - t_sky + k t_sky)
@@ -432,14 +447,18 @@ __device__ void sample_vjp(const float* cam, bool has_lens, const float* sph,
       gnf = add3(gnf, scale3(kScatterEps * osgn, go));
       const Vec3 gn = entering ? gnf : Vec3{-gnf.x, -gnf.y, -gnf.z};
       Vec3 gp = go;
+      // a sphere's centre and radius cotangents, from the normal and the
+      // hit distance, added once
+      Vec3 gc = {0.0f, 0.0f, 0.0f};
+      float gr = 0.0f;
       if (is_tri) {
         add3_to(add, grec + 9, gn);
       } else {
         const Vec3 gnr = norm3_adj(n_raw, gn);
         gp = add3(gp, scale3(inv_r, gnr));
-        add3_to(add, grec, scale3(-inv_r, gnr));
+        gc = scale3(-inv_r, gnr);
         const float g_inv_r = dot3(gnr, sub3(p, {rec[0], rec[1], rec[2]}));
-        add(grec + 3, -g_inv_r * inv_r * inv_r);
+        gr = -g_inv_r * inv_r * inv_r;
       }
       // p = o + t d
       go_in = add3(go_in, gp);
@@ -448,7 +467,9 @@ __device__ void sample_vjp(const float* cam, bool has_lens, const float* sph,
       if (is_tri) {
         tri_t_adjoint(rec, grec, o, d, g_t, go_in, gd_in, add);
       } else {
-        sphere_t_adjoint(rec, grec, o, d, g_t, go_in, gd_in, add);
+        sphere_t_adjoint(rec, o, d, g_t, go_in, gd_in, gc, gr);
+        add3_to(add, grec, gc);
+        add(grec + 3, gr);
       }
     }
     go = go_in;

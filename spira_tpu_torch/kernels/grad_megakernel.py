@@ -1,14 +1,15 @@
-"""Fused forward + adjoint of the path tracer: the MSE loss of a render and
-its gradients in one launch, and the vector-Jacobian product that serves as
-the backward of :func:`.megakernel.render_flat_hybrid_grad`.
+"""Adjoint of the path tracer: the MSE loss of a render and its gradients
+from one call, and the vector-Jacobian product that serves as the backward
+of :func:`.megakernel.render_flat_hybrid_grad`.
 
 Counterpart of :mod:`spira_tpu.kernels.grad_megakernel`.  The work runs
 two ways:
 
-* :func:`render_grad_megakernel` — the hand-written CUDA kernel
-  (``csrc/grad_megakernel.cu`` over the adjoint of ``csrc/adjoint.cuh``),
-  one thread per pixel, for tables on a CUDA device; for tables on the CPU
-  it runs the plain version.
+* :func:`render_grad_megakernel` — the hand-written CUDA kernels
+  (``csrc/grad_megakernel.cu`` over the adjoint of ``csrc/adjoint.cuh``):
+  in loss mode a forward kernel, one thread per pixel, then the VJP
+  kernel, one thread per replayed sample; in VJP mode the VJP kernel
+  alone.  For tables on the CPU it runs the plain version.
 * :func:`grad_tables_plain` — the plain version: autograd through
   :func:`.megakernel.render_flat_fused` with ``remat=True`` at
   ``grad_spp`` samples.
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import types
 
 import torch
 
@@ -35,8 +37,9 @@ N_CAM_FIELDS = 12
 #: the deepest path the adjoint's per-thread tape records
 #: (``csrc/adjoint.cuh:kMaxTape``)
 MAX_TAPE_DEPTH = 16
-#: the kernel's static shared memory (per-warp loss partials)
-_STATIC_SMEM = 32
+#: the shared memory one block of the VJP kernel may take on an H100
+#: (227 KB): tables, their cotangent accumulators and the tape
+_GRAD_SMEM_LIMIT = 232_448
 
 _ARGTYPES = (
     ctypes.c_void_p,  # cam
@@ -45,6 +48,7 @@ _ARGTYPES = (
     ctypes.c_void_p,  # tris
     ctypes.c_int,  # n_tris
     ctypes.c_void_p,  # pix: target (loss mode) or cotangent (VJP mode)
+    ctypes.c_void_p,  # scratch: the cotangent loss mode writes
     ctypes.c_int,  # loss_mode
     ctypes.c_void_p,  # loss (1 double)
     ctypes.c_void_p,  # dcam
@@ -119,9 +123,10 @@ def render_grad_megakernel(scene, camera, tables, pix, *, loss_mode, width,
     gradients are those of its ``grad_spp``-sample replay; loss is ``None``.
 
     Tables on a CUDA device launch ``csrc/grad_megakernel.cu`` (built on
-    first use) and add one to ``render_grad_megakernel.launches``; a build
-    or launch failure raises.  Tables on the CPU run
-    :func:`grad_tables_plain`.
+    first use) and add one to ``render_grad_megakernel.launches``; in loss
+    mode its forward kernel runs first and adds one to
+    ``loss_forward.launches``.  A build or launch failure raises.  Tables
+    on the CPU run :func:`grad_tables_plain`.
     """
     mk._check_fused_supported(scene)
     device = scene.device
@@ -144,15 +149,21 @@ def render_grad_megakernel(scene, camera, tables, pix, *, loss_mode, width,
     mk._check_table("triangle table", tri, device, mk.N_TRI_FIELDS)
     n = width * height
     _check_pix(pix, device, n)
-    # tables and their cotangent accumulators, side by side
-    smem = 8 * (cam.numel() + sph.numel() + tri.numel()) + _STATIC_SMEM
-    if smem > mk._SMEM_LIMIT:
+    # the kernel's own count of a block's bytes: tables, one copy of their
+    # cotangent accumulators (it keeps more only where they fit), the tape
+    smem = _build.entry("grad_megakernel", "spira_grad_smem",
+                        (ctypes.c_int,) * 3)(sph.shape[0], tri.shape[0],
+                                             max_depth)
+    if smem > _GRAD_SMEM_LIMIT:
         raise ValueError(
-            f"scene tables and their gradients take {smem} bytes, over the "
-            f"kernel's {mk._SMEM_LIMIT}-byte shared-memory budget"
+            f"scene tables, their gradients and the depth-{max_depth} tape "
+            f"take {smem} bytes, over the adjoint kernel's "
+            f"{_GRAD_SMEM_LIMIT}-byte shared-memory budget (_GRAD_SMEM_LIMIT)"
         )
     loss = torch.zeros(1, dtype=torch.float64, device=device)
     dcam, dsph, dtri = (torch.zeros_like(t) for t in (cam, sph, tri))
+    scratch = (torch.empty((n, 3), dtype=torch.float32, device=device)
+               if loss_mode else None)
     du, dv = mk._uv_scale(width, height, inclusive_uv)
     cot_scale = (1.0 / (3 * n * grad_spp) if loss_mode
                  else mk._inv_spp(grad_spp))
@@ -161,19 +172,26 @@ def render_grad_megakernel(scene, camera, tables, pix, *, loss_mode, width,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             cam.data_ptr(), sph.data_ptr(), sph.shape[0], tri.data_ptr(),
-            tri.shape[0], pix.data_ptr(), int(loss_mode), loss.data_ptr(),
+            tri.shape[0], pix.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), int(loss_mode),
+            loss.data_ptr(),
             dcam.data_ptr(), dsph.data_ptr(), dtri.data_ptr(), width, height,
             spp, grad_spp, max_depth, seed & 0xFFFFFFFF, du, dv,
             mk._inv_spp(spp), cot_scale, int(camera.has_lens), stream,
         )
     mk._launch_error("grad_megakernel", err)
     render_grad_megakernel.launches += 1
+    loss_forward.launches += int(loss_mode)
     return ((loss[0] / (3 * n)).to(torch.float32) if loss_mode else None,
             dcam, dsph, dtri)
 
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 render_grad_megakernel.launches = 0
+#: Launches of loss mode's forward kernel (``grad_loss_forward``), which
+#: :func:`render_grad_megakernel` makes before the VJP kernel; set
+#: ``loss_forward.launches`` to 0 to reset.
+loss_forward = types.SimpleNamespace(launches=0)
 
 
 # ----------------------------------------------------------------------------
@@ -262,8 +280,9 @@ def render_mse_loss_and_grads(
     inclusive_uv: bool = True,
 ):
     """MSE loss of a render against ``target_flat`` ((H*W, 3) bottom-up
-    HDR) and its gradients, in one launch of the adjoint kernel on the card
-    (the plain version on the CPU).
+    HDR) and its gradients, from one call of the adjoint kernels on the
+    card (the forward kernel, then the VJP kernel; the plain version on the
+    CPU).
 
     Returns ``(loss, d_scene, d_camera)``: ``d_scene`` and ``d_camera`` are
     dataclasses of the scene's and camera's types whose float fields hold

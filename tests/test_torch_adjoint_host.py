@@ -1,13 +1,16 @@
 """The adjoint kernel's device code (``csrc/adjoint.cuh`` over
-``trace.cuh`` and ``pcg.cuh``) built as plain host C++ and run pixel by
-pixel on the CPU, against autograd through the plain tracer
-(``grad_tables_plain``): the CPU check of the arithmetic the CUDA kernel
-runs, before any card sees it.
+``trace.cuh`` and ``pcg.cuh``) built as plain host C++ and run one
+(pixel, sample) at a time on the CPU, against autograd through the plain
+tracer (``grad_tables_plain``): the CPU check of the arithmetic the CUDA
+kernels run, before any card sees them.
 
 The headers use no intrinsics, so with ``__device__`` and
 ``__forceinline__`` defined away a host compiler builds them; the driver
-below does per pixel what ``csrc/grad_megakernel.cu`` does per thread,
-with plain ``+=`` in place of the atomics.  Built with
+below does what ``csrc/grad_megakernel.cu`` does: loss mode's forward pass
+per pixel into a cotangent scratch, then one replay per (pixel, sample)
+in the VJP kernel's order, through the same tape accessor and ``Add``
+functor, an array in place of the shared-memory tape and a plain ``+=``
+in place of the shared-memory atomics.  Built with
 ``-ffp-contract=off`` as the kernel is with ``-fmad=false``.  Limit: each
 table's gradient within 1e-4 relative L2 and the loss within 1e-6
 relative; measured at most 1.7e-6 (the Cornell box's camera table).
@@ -45,6 +48,12 @@ struct HostAdd {
   void operator()(float* p, float v) const { *p += v; }
 };
 
+struct ArrayTape {
+  TapeEntry* e;
+  void store(int b, const TapeEntry& x) const { e[b] = x; }
+  TapeEntry load(int b) const { return e[b]; }
+};
+
 // in: int32 S T W H spp grad_spp depth seed has_lens loss_mode; float32 du
 // dv inv_spp cot_scale; the camera, sphere, triangle tables; the (W*H, 3)
 // target or cotangent.  out: float64 sum of squared residuals; float32
@@ -68,31 +77,43 @@ int main(int argc, char** argv) {
   const float* tri = sph + S * kSphereFields;
   float* gsph = g.data() + kCamFields;
   float* gtri = gsph + S * kSphereFields;
+  // loss mode: the forward kernel's pass, the cotangent into a scratch
+  std::vector<float> cot(3 * W * H);
   double sq = 0.0;
-  std::vector<double> gcam_sum(kCamFields, 0.0);
-  TapeEntry tape[kMaxTape];
+  float scale = c[3];
   for (int idx = 0; idx < W * H; ++idx) {
-    const float row = static_cast<float>(idx / W);
-    const float col = static_cast<float>(idx % W);
-    const uint32_t px = static_cast<uint32_t>(idx);
     const float* p = pix.data() + 3 * idx;
-    Vec3 gl;
-    if (loss_mode) {
-      const BruteIntersect isect{sph, S, tri, T};
-      const Vec3 a = trace_pixel(isect, cam, lens, px, row, col, seed, spp,
-                                 depth, c[0], c[1]);
-      const float r0 = a.x * c[2] - p[0], r1 = a.y * c[2] - p[1];
-      const float r2 = a.z * c[2] - p[2];
-      sq += r0 * r0 + r1 * r1 + r2 * r2;
-      gl = {2.0f * r0 * c[3], 2.0f * r1 * c[3], 2.0f * r2 * c[3]};
-    } else {
-      gl = {p[0] * c[3], p[1] * c[3], p[2] * c[3]};
+    if (!loss_mode) {
+      for (int k = 0; k < 3; ++k) cot[3 * idx + k] = p[k];
+      continue;
     }
+    const BruteIntersect isect{sph, S, tri, T};
+    const Vec3 a = trace_pixel(isect, cam, lens, static_cast<uint32_t>(idx),
+                               static_cast<float>(idx / W),
+                               static_cast<float>(idx % W), seed, spp, depth,
+                               c[0], c[1]);
+    const float r0 = a.x * c[2] - p[0], r1 = a.y * c[2] - p[1];
+    const float r2 = a.z * c[2] - p[2];
+    sq += r0 * r0 + r1 * r1 + r2 * r2;
+    cot[3 * idx + 0] = 2.0f * r0 * c[3];
+    cot[3 * idx + 1] = 2.0f * r1 * c[3];
+    cot[3 * idx + 2] = 2.0f * r2 * c[3];
+  }
+  if (loss_mode) scale = 1.0f;
+  // the VJP kernel's pass: one replay per (pixel, sample), index
+  // pixel * grad_spp + s
+  std::vector<double> gcam_sum(kCamFields, 0.0);
+  TapeEntry entries[kMaxTape];
+  const ArrayTape tape{entries};
+  for (int i = 0; i < W * H * gspp; ++i) {
+    const int idx = i / gspp, s = i % gspp;
+    const float* p = cot.data() + 3 * idx;
+    const Vec3 gl = {p[0] * scale, p[1] * scale, p[2] * scale};
     float gcam[kCamFields] = {0.0f};
-    for (int s = 0; s < gspp; ++s) {
-      sample_vjp(cam, lens, sph, gsph, S, tri, gtri, T, px, row, col, seed,
-                 s, depth, c[0], c[1], gl, tape, gcam, HostAdd{});
-    }
+    sample_vjp(cam, lens, sph, gsph, S, tri, gtri, T,
+               static_cast<uint32_t>(idx), static_cast<float>(idx / W),
+               static_cast<float>(idx % W), seed, s, depth, c[0], c[1], gl,
+               tape, gcam, HostAdd{});
     for (int k = 0; k < kCamFields; ++k) gcam_sum[k] += gcam[k];
   }
   for (int k = 0; k < kCamFields; ++k) g[k] = static_cast<float>(gcam_sum[k]);
@@ -178,6 +199,10 @@ CASES = {
     "cornell_d6": (sp.create_cornell_box, sp.cornell_camera,
                    dict(width=32, height=32, spp=2, max_depth=6), 2, False,
                    2),
+    # the tape's full depth, at a few pixels, in loss mode
+    "cornell_d16_loss": (sp.create_cornell_box, sp.cornell_camera,
+                         dict(width=8, height=4, spp=3, max_depth=16), 3,
+                         True, 5),
 }
 
 
@@ -203,5 +228,5 @@ def test_host_adjoint_matches_autograd(host_adjoint, name):
         err = float(torch.linalg.norm(got - ref))
         assert err <= REL_L2 * den, (table, err / max(den, 1e-30))
     assert float(torch.linalg.norm(want[1])) > 0
-    if name in ("quad_d6", "cornell_d6"):
+    if name in ("quad_d6", "cornell_d6", "cornell_d16_loss"):
         assert float(torch.linalg.norm(want[2])) > 0

@@ -383,6 +383,13 @@ def test_spectral_wrapper_refusals(cuda):
 # The adjoint kernel
 # ---------------------------------------------------------------------------
 
+def _inside_light(aspect, device):
+    """Inside the demo's emissive sphere: every lane of every warp adds to
+    that one record at every bounce."""
+    return sp.make_camera((0.0, 5.0, 0.0), (0.0, 5.0, -1.0),
+                          aspect_ratio=aspect, device=device)
+
+
 # name: (scene, camera, shape, grad_spp, loss mode).  Limits: the loss
 # within 1e-5 relative, each table's gradient within 1e-3 relative L2 of
 # the plain autograd backward (float atomics sum in another order).
@@ -398,6 +405,22 @@ GRAD_CASES = {
     "cornell_d6_vjp": ("create_cornell_box", _cornell,
                        dict(width=64, height=64, spp=2, max_depth=6), 2,
                        False),
+    # 37 * 19 * 3 = 2,109 replayed samples: the last block is ragged, and
+    # a warp's lanes straddle pixels
+    "ragged_grad_spp3_vjp": ("create_scene", _default,
+                             dict(width=37, height=19, spp=3, max_depth=4),
+                             3, False),
+    # the tape's full depth: 96 KB of tape a block, over the 48 KB that a
+    # launch gets without opting in
+    "thin_lens_d16_vjp": ("create_scene", _lens,
+                          dict(width=64, height=32, spp=2, max_depth=16), 2,
+                          False),
+    "exclusive_uv_vjp": ("create_scene", _default,
+                         dict(width=128, height=64, spp=2, max_depth=4,
+                              inclusive_uv=False), 2, False),
+    "inside_light_loss": ("create_scene", _inside_light,
+                          dict(width=64, height=32, spp=4, max_depth=4), 4,
+                          True),
 }
 
 
@@ -431,6 +454,43 @@ def test_grad_kernel_matches_plain(cuda, name):
         assert k.shape == p.shape and torch.isfinite(k).all()
         assert _rel_l2(k, p) <= 1e-3
     assert float(grads_k[1].abs().max()) > 0
+
+
+def test_loss_mode_loss_is_the_forward_kernels_mse(cuda):
+    """Loss mode's forward kernel renders what kernel #1 renders: its loss
+    is the MSE of #1's image against the same target, same seed, within
+    1e-6 relative (float32 per-pixel sums, double block sums)."""
+    scene = sp.create_scene(device=cuda)
+    cam = sp.default_camera(2.0, device=cuda)
+    shape = dict(width=128, height=64, spp=4, max_depth=4, seed=5)
+    tables = [t.detach().contiguous() for t in mk.pack_tables(scene, cam)]
+    g = torch.Generator().manual_seed(2)
+    target = torch.rand(128 * 64, 3, generator=g).to(cuda)
+    before = gk.loss_forward.launches
+    loss, *_ = gk.render_grad_megakernel(scene, cam, tables, target,
+                                         loss_mode=True, grad_spp=2, **shape)
+    assert gk.loss_forward.launches == before + 1
+    img = mk.render_flat_megakernel(scene, cam, **shape)
+    mse = float(((img.double() - target.double()) ** 2).mean())
+    assert abs(float(loss) / mse - 1.0) <= 1e-6
+
+
+@pytest.mark.parametrize("grad_spp", [16, 4])
+def test_step_launches_one_forward_and_one_vjp(cuda, grad_spp):
+    scene = sp.create_scene(device=cuda)
+    cam = sp.default_camera(2.0, device=cuda)
+    emission = scene.materials.emission.clone().requires_grad_()
+    scene = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, emission=emission))
+    counts = (mk.render_flat_megakernel, gk.render_grad_megakernel,
+              gk.loss_forward)
+    before = [f.launches for f in counts]
+    img = sp.render_flat_hybrid_grad(scene, cam, width=64, height=32,
+                                     spp=16, max_depth=4, grad_spp=grad_spp)
+    ((img - 0.3) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == [1, 1, 0]
+    assert torch.isfinite(emission.grad).all()
 
 
 def test_hybrid_step_launches_the_kernels_only(cuda):
@@ -480,10 +540,11 @@ def test_grad_wrapper_refusals(cuda):
     with pytest.raises(ValueError, match="camera table is on cpu"):
         gk.render_grad_megakernel(scene, cam, [tables[0].cpu(), *tables[1:]],
                                   pix, loss_mode=True, **kw)
+    # 2,000 spheres: 256,000 bytes of tables and gradients
     many = dataclasses.replace(
         scene,
         spheres=sp.make_spheres([((0.0, 0.0, -5.0 - i), 0.1, 0)
-                                 for i in range(400)], device=cuda),
+                                 for i in range(2000)], device=cuda),
     )
     big = [t.detach().contiguous() for t in mk.pack_tables(many, cam)]
     with pytest.raises(ValueError, match="shared-memory"):

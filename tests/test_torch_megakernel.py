@@ -74,6 +74,10 @@ CASES = {
     "thin_lens": (st.create_scene, lambda: _lens_camera(4.0),
                   dict(width=128, height=32, spp=2, max_depth=2, seed=1),
                   DEEP),
+    # u = col / W, v = row / H in place of col / (W - 1), row / (H - 1)
+    "exclusive_uv": (st.create_scene, lambda: st.default_camera(2.0),
+                     dict(width=16, height=8, spp=1, max_depth=2, seed=0,
+                          inclusive_uv=False), DEEP),
 }
 
 
