@@ -74,13 +74,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    by its launches in one call of a main path, counted in phase 3: one
    render() under engine="auto" (the bunny, the sphere demo, and both
    spectrally), one step, one render_mse_loss_and_grads; the most over
-   those paths, 0 for a kernel none of them launched.
+   those paths, 0 for a kernel none of them launched; each kernel's time
+   and bound at the main paths' shape, 640x360 spp16 d4 (#2's work from
+   its counting build there, the other path tracers' from their plain
+   versions there; the nearest-hit queries at that frame's primary rays);
+   beside #2's and #5's bounds, the bytes their walks touch a frame and
+   the rate that implies.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
 paths' PNGs there; ``--parent DIR`` also times another commit's adjoint
-kernel and step (a ``git archive`` of it unpacked into ``DIR``) with the
-same script, in a process of its own.
+kernel and step (a ``git archive`` of it unpacked into ``DIR``) with
+``spira_tpu_torch/bench/grad_step.py``, and its mesh frames (#2, #5,
+#2b, #3 at 640x360 spp16 d4) beside this tree's with
+``spira_tpu_torch/bench/mesh_frame.py`` (parent, this, this, parent),
+each run in a process of its own.
 """
 
 from __future__ import annotations
@@ -104,6 +112,7 @@ import torch
 #: many times (the kernels bench.timing.REPEATS times)
 PLAIN_REPEATS = 2
 MAIN = dict(width=640, height=360, spp=16, max_depth=4)
+MAIN_SHAPE = "640x360 spp16 d4"
 #: the peak-rate probes' comparisons: the separate
 #: multiply-add and kernel #10 bit-equal; the contracted step (plain
 #: version: the float64 sum rounded once, so a double rounding may move a
@@ -128,8 +137,11 @@ SPHERE_CASES = (
      dict(width=256, height=256, spp=16, max_depth=6),
      dict(atol=1e-4, frac=0.99, mean_rel=0.005)),
 )
-#: packed-BVH path tracer cases: (name, scene key, shape).  At least 99% of
-#: pixel-channels within 1e-4 and channel means within 0.5%.
+#: packed-BVH path tracer cases: (name, scene key, shape).  Equal to the
+#: plain version to the bit (the same operations in the same order, the
+#: samples of a pixel summed in sample order); BVH_TOL (at least 99% of
+#: pixel-channels within 1e-4, channel means within 0.5%) is the limit of
+#: the engines that are not held to the bit.
 BVH_TOL = dict(atol=1e-4, frac=0.99, mean_rel=0.005)
 BVH_CASES = (
     ("d: bunny 640x360 spp1 d2", "bunny",
@@ -155,7 +167,7 @@ SPECTRAL_CASES = (
      dict(width=256, height=256, spp=16, max_depth=6), BVH_TOL),
     ("i: cornell 640x360 spp16 d4", "cornell", MAIN, BVH_TOL),
 )
-#: spectral packed-BVH cases: (name, scene key, shape), limits BVH_TOL
+#: spectral packed-BVH cases: (name, scene key, shape), equal to the bit
 SPECTRAL_BVH_CASES = (
     ("j: bunny 640x360 spp1 d2", "bunny",
      dict(width=640, height=360, spp=1, max_depth=2)),
@@ -267,10 +279,12 @@ def log_breakdown(card, what, breakdown):
         f"(ms/call): {[(k, round(v, 5)) for k, v in top]}")
 
 
-def check_images(name, kernel, plain, tol):
-    """Hold a kernel's flat HDR buffer against the plain version's."""
+def check_images(name, kernel, plain, tol, exact=False):
+    """Hold a kernel's flat HDR buffer against the plain version's: within
+    ``tol``, and with ``exact`` equal to the bit."""
     if kernel.shape != plain.shape or not torch.isfinite(kernel).all():
         raise AssertionError(f"{name}: kernel output bad shape or not finite")
+    bit_equal = torch.equal(kernel, plain)
     diff = (kernel - plain).abs()
     max_abs = float(diff.max())
     frac_off = float((diff > tol["atol"]).float().mean())
@@ -280,11 +294,13 @@ def check_images(name, kernel, plain, tol):
         f"share > {tol['atol']:g}: {frac_off:.6f} "
         f"(limit {1 - tol['frac']:.4f}), channel means kernel "
         f"{[round(x, 6) for x in km]} plain {[round(x, 6) for x in pm]}, "
-        f"max rel {rel:.2e} (limit {tol['mean_rel']})")
-    if frac_off > 1.0 - tol["frac"] or rel > tol["mean_rel"]:
+        f"max rel {rel:.2e} (limit {tol['mean_rel']}); bit-equal {bit_equal}"
+        f"{' (required)' if exact else ''}")
+    if (frac_off > 1.0 - tol["frac"] or rel > tol["mean_rel"]
+            or (exact and not bit_equal)):
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     return dict(case=name, max_abs_err=max_abs, share_over_atol=frac_off,
-                mean_rel=rel)
+                mean_rel=rel, bit_equal=bit_equal)
 
 
 def compare_sphere(sp, mk, name, scene_fn, cam_fn, shape, tol, device):
@@ -295,19 +311,6 @@ def compare_sphere(sp, mk, name, scene_fn, cam_fn, shape, tol, device):
     plain = mk.render_flat_fused(scene, cam, seed=7, **shape)
     torch.cuda.synchronize()
     return check_images(name, kernel, plain, tol)
-
-
-def primary_rays(cam, width, height):
-    """Pinhole rays through the pixel centres, bottom-up rows: (N, 3)
-    origins and unit directions."""
-    dev = cam.origin.device
-    v = (torch.arange(height, device=dev, dtype=torch.float32) + 0.5) / height
-    u = (torch.arange(width, device=dev, dtype=torch.float32) + 0.5) / width
-    vv, uu = torch.meshgrid(v, u, indexing="ij")
-    d = (cam.lower_left_corner + uu.reshape(-1, 1) * cam.horizontal
-         + vv.reshape(-1, 1) * cam.vertical - cam.origin)
-    d = d / d.norm(dim=1, keepdim=True)
-    return cam.origin.expand_as(d).contiguous(), d.contiguous()
 
 
 def random_rays(n, device, seed=0):
@@ -762,7 +765,7 @@ def check_counted(bk, scene, cam):
         if c["pops"] != c["traversals"] + c["pushes"]:
             raise AssertionError(f"#2: pops != traversals + pushes in {c}")
     check = check_images("#2 counting build 640x360 spp4 d4", img4,
-                         plain_img, BVH_TOL)
+                         plain_img, BVH_TOL, exact=True)
     return dict(counters_640x360_spp16_d4=ctr, counters_640x360_spp4_d4=ctr4,
                 image_bit_equal_uncounted=same, **check)
 
@@ -774,8 +777,9 @@ def main() -> int:
     parser.add_argument("--parent", help="a checkout of another commit "
                         "(unpacked into an ignored directory): also time "
                         "its adjoint kernel and step with "
-                        "spira_tpu_torch/bench/grad_step.py, in a process of "
-                        "its own")
+                        "spira_tpu_torch/bench/grad_step.py and its mesh "
+                        "frames with spira_tpu_torch/bench/mesh_frame.py, "
+                        "each in a process of its own")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -786,6 +790,7 @@ def main() -> int:
     import spira_tpu_torch as sp
     from spira_tpu_torch import _build
     from spira_tpu_torch.bench import grad_step as gs
+    from spira_tpu_torch.bench.mesh_frame import primary_rays
     from spira_tpu_torch.bench import packet_profile as pp
     from spira_tpu_torch.bench import timing
     from spira_tpu_torch.bench.timing import card_line
@@ -973,7 +978,8 @@ def main() -> int:
         kernel = bk.render_flat_bvh_megakernel(scene, cam, **shape)
         plain = bk.render_flat_bvh_fused(scene, cam, **shape)
         torch.cuda.synchronize()
-        bvh_checks.append(check_images(name, kernel, plain, BVH_TOL))
+        bvh_checks.append(check_images(name, kernel, plain, BVH_TOL,
+                                       exact=True))
     counted_checks = check_counted(bk, bunny, bunny_cam)
     counted = counted_checks["counters_640x360_spp4_d4"]
     spectral_checks = []
@@ -991,7 +997,7 @@ def main() -> int:
         plain = sb.render_flat_spectral_bvh_fused(scene, cam, **shape)
         torch.cuda.synchronize()
         spectral_bvh_checks.append(check_images(name, kernel, plain,
-                                                BVH_TOL))
+                                                BVH_TOL, exact=True))
     grad_checks = []
     for name, key, shape, grad_spp, loss_mode in GRAD_CASES:
         scene, cam = scenes[key]
@@ -1403,20 +1409,38 @@ def main() -> int:
         f"forward kernel alone {fwd_ms} ms (torch.profiler; by kernel "
         f"{grad_t['loss_kernels_ms']}), plain version (one call, case q) "
         f"{loss_p:.3f} ms, kernel/plain {loss_k / loss_p:.5f}")
-    parent_t = None
+    parent_t = parent_frames = this_frames = None
     if args.parent:
-        proc = subprocess.run(
-            [sys.executable, os.path.join(os.path.dirname(
-                os.path.abspath(__file__)), "spira_tpu_torch", "bench",
-                "grad_step.py"), "--root", args.parent],
-            capture_output=True, text=True, timeout=600, check=True)
-        parent_t = json.loads(proc.stdout.strip().splitlines()[-1])
+        here = os.path.dirname(os.path.abspath(__file__))
+
+        def bench(script, root):
+            proc = subprocess.run(
+                [sys.executable, os.path.join(here, "spira_tpu_torch",
+                                              "bench", script),
+                 "--root", root],
+                capture_output=True, text=True, timeout=600, check=True)
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        parent_t = bench("grad_step.py", args.parent)
         log(f"[time] {card}: the parent's ({args.parent}) adjoint kernel: "
             f"VJP grad_spp 16 {parent_t['vjp_ms']['16']:.3f} ms (zero "
             f"cotangent {parent_t['vjp_zero_cotangent_ms']:.3f}), grad_spp 4 "
             f"{parent_t['vjp_ms']['4']:.3f} ms, loss mode "
             f"{parent_t['loss_ms']:.3f} ms; step {parent_t['step_ms']}; "
             f"ptxas {parent_t['ptxas']['grad_megakernel']}")
+        # the mesh frames (#2, #5, #2b, #3) of both commits, each run in
+        # its own process: parent, this, this, parent
+        frames = [bench("mesh_frame.py", root)
+                  for root in (args.parent, here, here, args.parent)]
+        parent_frames, this_frames = frames[::3], frames[1:3]
+        for f in frames:
+            log(f"[time] {card}: mesh frames 640x360 spp16 d4 of {f['root']}"
+                f" (bench/mesh_frame.py): wrappers "
+                f"{({k: round(v, 4) for k, v in f['ms'].items()})} ms; on "
+                f"the card {f['kernels_ms']}; image digests {f['digest']}")
+        same = all(f["digest"] == frames[0]["digest"] for f in frames)
+        log(f"[compare] mesh frames: every image of this tree equal to the "
+            f"parent's to the bit (SHA-256): {same}")
     step_prof = device_breakdown(lambda: step(albedo0, 0, MAIN["spp"]))
     log_breakdown(card, "differentiable step 640x360 spp16 d4 exact "
                   "replay", step_prof)
@@ -1452,12 +1476,26 @@ def main() -> int:
     sbvh_work = count_work(sb, "make_packed_intersect_spectral",
                            run(sb.render_flat_spectral_bvh_fused, bunny,
                                bunny_cam, BVH_TIMED))
+    # the ranking's shape, MAIN: #2's work from its counting build at spp
+    # 16, the other path tracers' from their plain versions at MAIN
+    ctr16 = counted_checks["counters_640x360_spp16_d4"]
+    bvh16_work = dict(segments=ctr16["traversals"], hits=ctr16["hits"],
+                      pops=ctr16["pops"], leaf_tris=ctr16["leaf_tris"],
+                      blocks=0)
+    sbvh16_work = count_work(sb, "make_packed_intersect_spectral",
+                             run(sb.render_flat_spectral_bvh_fused, bunny,
+                                 bunny_cam, MAIN))
     isect_work = count_work(None, None, lambda: bk.intersect_packed_plain(
         bunny.packed, *rays["primary"]))
     bvh_mxu_work = count_work(bk, "make_packed_intersect", run(
         mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, BVH_TIMED))
     mxu_work = count_work(xk, "make_mxu_stream_intersect", run(
         mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, BVH_TIMED),
+        stream_blocks=xk.n_blocks(mesh_mxu.wide))
+    bvh_mxu16_work = count_work(bk, "make_packed_intersect", run(
+        mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, MAIN))
+    mxu16_work = count_work(xk, "make_mxu_stream_intersect", run(
+        mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, MAIN),
         stream_blocks=xk.n_blocks(mesh_mxu.wide))
     # the stream tests every block for every ray: no walk to count
     mxu_isect_work = dict(segments=w * h, hits=0, pops=0, leaf_tris=0,
@@ -1466,7 +1504,9 @@ def main() -> int:
         f"{bvh_work}, bunny primary rays {isect_work}, spectral cornell "
         f"{spec_work}, spectral bunny spp4 {sbvh_work}, #2b bunny spp4 "
         f"{bvh_mxu_work}, #7 mesh spp4 {mxu_work}, #8 bunny primary rays "
-        f"{mxu_isect_work}")
+        f"{mxu_isect_work}; at 640x360 spp16 d4: bunny (counting build) "
+        f"{bvh16_work}, spectral bunny {sbvh16_work}, #2b bunny "
+        f"{bvh_mxu16_work}, #7 mesh {mxu16_work}")
     out_bytes = 12 * n_px
     bvh_tables = table_bytes(bunny.packed.pairs, bunny.packed.tri_rows)
 
@@ -1494,6 +1534,24 @@ def main() -> int:
                            0, spectral=True, bvh=True,
                            form=bunny.packed.form),
             bvh_tables + out_bytes, rates),
+        # the four path tracers at MAIN, the ranking's shape
+        bvh_megakernel_16=sol_bound(
+            sol.path_units(bvh16_work, n_px * MAIN["spp"], n_bunny_sph, 0,
+                           bvh=True, form=bunny.packed.form),
+            bvh_tables + out_bytes, rates),
+        spectral_bvh_megakernel_16=sol_bound(
+            sol.path_units(sbvh16_work, n_px * MAIN["spp"], n_bunny_sph, 0,
+                           spectral=True, bvh=True, form=bunny.packed.form),
+            bvh_tables + out_bytes, rates),
+        bvh_mxu_megakernel_16=sol_bound(
+            sol.path_units(bvh_mxu16_work, n_px * MAIN["spp"], n_bunny_sph,
+                           0, bvh=True),
+            table_bytes(bunny_sl.wide.pairs) + coeff_bytes(bunny_sl.wide)
+            + out_bytes, rates),
+        mxu_megakernel_16=sol_bound(
+            sol.path_units(mxu16_work, n_px * MAIN["spp"],
+                           mesh_mxu.spheres.count, 0),
+            coeff_bytes(mesh_mxu.wide) + out_bytes, rates),
         # loss mode at exact replay: the forward, the replay's forward,
         # and the reverse sweep of every replayed hit; bytes: tables,
         # target, gradient tables
@@ -1548,6 +1606,28 @@ def main() -> int:
             f"{({k: round(v, 5) for k, v in b['bound_terms_ms'].items()})}"
             f"); data-sheet bound {b['datasheet_bound_ms']:.4f} ms")
 
+    # the walks' bytes a frame at MAIN, from the counted work: a popped
+    # pair record 64 bytes, a leaf triangle 48 (three float4), a segment's
+    # winner 16 (its material row; counted per hit segment, spheres too),
+    # and the rate they imply over the kernel's time on the card: a
+    # diagnostic beside the bound, not a term of it
+    walk_bytes = {}
+    for name, work, prof in (("bvh_megakernel", bvh16_work, bvh_prof),
+                             ("spectral_bvh_megakernel", sbvh16_work,
+                              sbvh_prof)):
+        nbytes = (64 * work["pops"] + 48 * work["leaf_tris"]
+                  + 16 * work["hits"])
+        on_card = prof["kernels_ms_per_call"].get(f"spira::{name}")
+        walk_bytes[name] = dict(bytes=nbytes, card_ms=on_card,
+                                tb_per_s=(nbytes / (on_card * 1e-3) / 1e12
+                                          if on_card else None))
+        log(f"[work] {card}: {name} {MAIN_SHAPE}: the walk touches "
+            f"{nbytes} bytes a frame ({work['pops']} pops x 64 + "
+            f"{work['leaf_tris']} leaf triangles x 48 + {work['hits']} "
+            f"winners x 16), {walk_bytes[name]['tb_per_s']} TB/s over "
+            f"{on_card} ms on the card; bound "
+            f"{bounds[name + '_16']['bound_ms']:.4f} ms")
+
     def bound_keys(name):
         b = bounds[name]
         # no single PyTorch call computes a path tracer, a BVH walk, its
@@ -1587,6 +1667,14 @@ def main() -> int:
             "ms_640x360_spp16_d4": bvh_full,
             "mrays_640x360_spp16_d4": mrays(MAIN, bvh_full),
             "profile_640x360_spp16_d4": bvh_prof,
+            "bound_ms_640x360_spp16_d4": bounds["bvh_megakernel_16"][
+                "bound_ms"],
+            "rank_ms_bound_ms": (bvh_full,
+                                 bounds["bvh_megakernel_16"]["bound_ms"],
+                                 MAIN_SHAPE),
+            "walk_bytes_640x360_spp16_d4": walk_bytes["bvh_megakernel"],
+            "parent_frames": parent_frames,
+            "this_frames": this_frames,
             "checks": bvh_checks,
             "ptxas": ptxas.get("bvh_megakernel", []),
             "counted_entry": "spira_bvh_megakernel_render_counted",
@@ -1638,7 +1726,15 @@ def main() -> int:
             "ms_640x360_spp16_d4": sbvh_full,
             "mrays_640x360_spp16_d4": mrays(MAIN, sbvh_full),
             "profile_640x360_spp16_d4": sbvh_prof,
+            "bound_ms_640x360_spp16_d4": bounds[
+                "spectral_bvh_megakernel_16"]["bound_ms"],
+            "rank_ms_bound_ms": (
+                sbvh_full, bounds["spectral_bvh_megakernel_16"]["bound_ms"],
+                MAIN_SHAPE),
+            "walk_bytes_640x360_spp16_d4": walk_bytes[
+                "spectral_bvh_megakernel"],
             "checks": spectral_bvh_checks,
+            "ptxas": ptxas.get("spectral_bvh_megakernel", []),
         },
         {
             "name": "grad_megakernel",
@@ -1664,7 +1760,8 @@ def main() -> int:
                 bounds["grad_vjp_16"]["bound_terms_ms"]),
             # the step takes VJP mode at grad_spp 16: the ranking's time
             "rank_ms_bound_ms": (vjp_ms[16],
-                                 bounds["grad_vjp_16"]["bound_ms"]),
+                                 bounds["grad_vjp_16"]["bound_ms"],
+                                 f"VJP grad_spp 16, {MAIN_SHAPE}"),
             "parent": parent_t,
             "step_ms_grad_spp16": step_ms[16],
             "step_ms_grad_spp4": step_ms[4],
@@ -1707,6 +1804,9 @@ def main() -> int:
             "plain_ms": mxu_t["mxu_megakernel"]["plain_ms"],
             "shape": "mesh (1,600 triangles) 640x360 spp4 d4",
             "ms_640x360_spp16_d4": mxu_t["mxu_megakernel"]["full_ms"],
+            "rank_ms_bound_ms": (mxu_t["mxu_megakernel"]["full_ms"],
+                                 bounds["mxu_megakernel_16"]["bound_ms"],
+                                 MAIN_SHAPE),
             "cuda_bvh_ms_same_call": mxu_t["mxu_megakernel"]["cuda_bvh_ms"],
             "cuda_bvh_ms_640x360_spp16_d4": (
                 mxu_t["mxu_megakernel"]["cuda_bvh_full_ms"]),
@@ -1740,6 +1840,9 @@ def main() -> int:
             "plain_ms": mxu_t["bvh_mxu_megakernel"]["plain_ms"],
             "shape": "bunny 640x360 spp4 d4",
             "ms_640x360_spp16_d4": mxu_t["bvh_mxu_megakernel"]["full_ms"],
+            "rank_ms_bound_ms": (mxu_t["bvh_mxu_megakernel"]["full_ms"],
+                                 bounds["bvh_mxu_megakernel_16"]["bound_ms"],
+                                 MAIN_SHAPE),
             "cuda_bvh_ms_same_call": (
                 mxu_t["bvh_mxu_megakernel"]["cuda_bvh_ms"]),
             "cuda_bvh_ms_640x360_spp16_d4": (
@@ -1786,22 +1889,26 @@ def main() -> int:
     ]
     # share of the bound at the timed shape, and the redesign ranking:
     # launches in one call of a main path (the most over the paths counted
-    # above) x (time - bound), largest first (the script's own counts stay
-    # in "launches")
+    # above) x (time - bound) at the main paths' shape, MAIN (the
+    # nearest-hit queries at a MAIN frame's primary rays, the probes at
+    # their fill grid), largest first (the script's own counts stay in
+    # "launches")
     for k in kernels:
         k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])
         paths = {path: got[k["name"]] for path, got in main_runs.items()
                  if got[k["name"]]}
         k["main_path_launches"] = max(paths.values(), default=0)
         k["main_paths"] = paths
-        ms, bound = k.pop("rank_ms_bound_ms", (k["ms"], k["bound_ms"]))
+        ms, bound, shape = k.pop("rank_ms_bound_ms",
+                                 (k["ms"], k["bound_ms"], k["shape"]))
         k["rank_ms"] = k["main_path_launches"] * (ms - bound)
-        k["rank_basis_ms"] = dict(ms=ms, bound_ms=bound)
+        k["rank_basis_ms"] = dict(ms=ms, bound_ms=bound, shape=shape)
     for k in sorted(kernels, key=lambda k: -k["rank_ms"]):
         b = k["rank_basis_ms"]
         log(f"[rank] {card}: {k['name']}: {k['main_path_launches']} "
-            f"main-path launches x ({b['ms']:.4f} - {b['bound_ms']:.4f} ms) "
-            f"= {k['rank_ms']:.3f} ms; {k['share_of_bound_pct']:.3f}% of its "
+            f"main-path launches x ({b['ms']:.4f} - {b['bound_ms']:.4f} ms "
+            f"at {b['shape']}) = {k['rank_ms']:.3f} ms; "
+            f"{k['share_of_bound_pct']:.3f}% of its "
             f"bound at {k['shape']}, by {k['bound_term']}; counted on "
             f"{k['main_paths'] or 'no main path'}; this script launched it "
             f"{k['launches']} times on its main-path runs")

@@ -193,22 +193,31 @@ struct WalkCounts {
   }
 };
 
+// The walk's stack of records to visit, in the thread's local memory:
+// entry i at s[i].  walk_packed takes its stack as a template parameter
+// (put(i, v), get(i)), so a test can hand it any storage.
+struct LocalStack {
+  int s[kStackSize];
+
+  __device__ __forceinline__ void put(int i, int v) { s[i] = v; }
+  __device__ __forceinline__ int get(int i) const { return s[i]; }
+};
+
 // The nearest triangle hit below h.t over the whole tree;
 // `leaves(ptr, cnt, o, d, h)` tests a leaf child; `count` counts the walk
-// (NoCount or WalkCounts).
-template <class Leaves, class Count>
+// (NoCount or WalkCounts); `stack` holds the records still to visit.
+template <class Leaves, class Count, class Stack>
 __device__ void walk_packed(const float4* __restrict__ pairs,
                             const Leaves& leaves, int root, Vec3 o, Vec3 d,
-                            TriHit& h, Count& count) {
+                            TriHit& h, Count& count, Stack& stack) {
   const Vec3 inv = {fabsf(d.x) > 1e-12f ? 1.0f / d.x : 1e12f,
                     fabsf(d.y) > 1e-12f ? 1.0f / d.y : 1e12f,
                     fabsf(d.z) > 1e-12f ? 1.0f / d.z : 1e12f};
-  int stack[kStackSize];
   int sp = 0;
-  stack[sp++] = root;
+  stack.put(sp++, root);
   count.walk();
   while (sp > 0) {
-    const float4* r = pairs + static_cast<int64_t>(stack[--sp]) * 4;
+    const float4* r = pairs + static_cast<int64_t>(stack.get(--sp)) * 4;
     count.pop();
     const float best = h.t;
     const Child c0 = slab_child(__ldg(r), __ldg(r + 1), o, inv, best);
@@ -226,13 +235,22 @@ __device__ void walk_packed(const float4* __restrict__ pairs,
     }
     if (cf.hit && cf.cnt == 0) {
       count.push();
-      stack[sp++] = cf.ptr;
+      stack.put(sp++, cf.ptr);
     }
     if (cn.hit && cn.cnt == 0) {
       count.push();
-      stack[sp++] = cn.ptr;
+      stack.put(sp++, cn.ptr);
     }
   }
+}
+
+template <class Leaves, class Count>
+__device__ __forceinline__ void walk_packed(const float4* __restrict__ pairs,
+                                            const Leaves& leaves, int root,
+                                            Vec3 o, Vec3 d, TriHit& h,
+                                            Count& count) {
+  LocalStack stack;
+  walk_packed(pairs, leaves, root, o, d, h, count, stack);
 }
 
 template <class Leaves>

@@ -15,20 +15,26 @@
 // each thread counting its walks (bvh.cuh:WalkCounts), the block summing
 // them once at the end.
 //
-// Work split: one thread per pixel (render) or per ray (intersect), 128
-// threads a block.  The render kernel copies the camera, sphere and
-// material tables (a few hundred bytes) into shared memory; the pair
-// records and leaf rows stay in device memory (bvh.cuh).  The output is the
-// flat (H*W, 3) float32 buffer, bottom-up, with kernel #1's PCG counters,
-// so a scene renders the same on either kernel.
+// Work split: the render kernels run one thread per (pixel, sample) path
+// (mesh_render.cuh: a pixel's samples on consecutive threads of one block,
+// summed in sample order by the first of them), the intersect kernel one
+// thread per ray; 128 threads a block.  The render kernel copies the
+// camera, sphere and material tables (a few hundred bytes) into shared
+// memory; the pair records and leaf rows stay in device memory (bvh.cuh).
+// The output is the flat (H*W, 3) float32 buffer, bottom-up, with kernel
+// #1's PCG counters, so a scene renders the same on either kernel.
 //
 // What bounds it: dependent loads of the walk (each pop waits for a
 // 64-byte record, each leaf for its triangles) and divergence between the
 // threads of a warp, whose rays take different paths through the tree;
 // then fp32 ALU work of the slab and triangle tests.  The tables fit in L2,
-// so device-memory bandwidth is not the limit.  The design does nothing
-// more about that yet: packet or wide-BVH layouts, warp-coherent traversal
-// and TMA staging are later work.
+// so device-memory bandwidth is not the limit.  The split answers both: at
+// spp 16 a warp holds the samples of 2 neighbouring pixels, whose camera
+// rays walk the same records, so a primary walk runs without divergence
+// and its loads serve the whole warp; the paths are short, 16 times as
+// many threads at spp 16, so no pixel's run of samples holds up the last
+// wave; and a budget of 64 registers keeps 8 blocks on an SM.  Packet or
+// wide-BVH layouts, sorting secondary rays and TMA staging are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see spira_tpu_torch/_build.py).
@@ -46,19 +52,19 @@ namespace spira {
 
 // Leaves: RowLeaves<kForm> (leaf rows) or BlockLeaves (superleaf blocks).
 template <class Leaves>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     bvh_megakernel(const float* __restrict__ cam_g,
                    const float* __restrict__ sph_g, int n_spheres,
                    const float* __restrict__ mat_g, int n_mats,
                    const float4* __restrict__ pairs, Leaves leaves, int root,
-                   float* __restrict__ out, int width, int height, int spp,
-                   int max_depth, uint32_t seed, float du, float dv,
-                   float inv_spp, int has_lens) {
+                   float* __restrict__ out, int width, int height,
+                   SampleSplit split, int max_depth, uint32_t seed, float du,
+                   float dv, float inv_spp, int has_lens) {
   const auto make = [&](const float* sph, const float* mat) {
     return TreeIntersect<Leaves>{sph, n_spheres, mat, pairs, leaves, root};
   };
-  render_mesh_pixel(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
-                    height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  render_mesh(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+              height, split, max_depth, seed, du, dv, inv_spp, has_lens);
 }
 
 // Add one thread's counts to totals[kNumCounts]: a warp sum of each count
@@ -100,8 +106,8 @@ __global__ void __launch_bounds__(128)
                            RowLeaves<kForm> leaves, int root,
                            unsigned long long* __restrict__ totals,
                            float* __restrict__ out, int width, int height,
-                           int spp, int max_depth, uint32_t seed, float du,
-                           float dv, float inv_spp, int has_lens) {
+                           SampleSplit split, int max_depth, uint32_t seed,
+                           float du, float dv, float inv_spp, int has_lens) {
   WalkCounts counts;
   const auto make = [&](const float* sph, const float* mat) {
     return CountingIntersect<RowLeaves<kForm>>{
@@ -109,8 +115,8 @@ __global__ void __launch_bounds__(128)
                                         root},
         &counts};
   };
-  render_mesh_pixel(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
-                    height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  render_mesh(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+              height, split, max_depth, seed, du, dv, inv_spp, has_lens);
   add_block_counts(counts, totals);
 }
 
@@ -157,19 +163,21 @@ extern "C" int spira_bvh_megakernel_render(
     uint32_t seed, float du, float dv, float inv_spp, int has_lens,
     void* stream) {
   using namespace spira;
-  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * height);
   const size_t smem = mesh_smem_bytes(n_spheres, n_mats);
   const auto* p = reinterpret_cast<const float4*>(pairs);
   const auto* s = reinterpret_cast<const float4*>(tri_rows);
   const auto st = static_cast<cudaStream_t>(stream);
   if (form_bw) {
-    bvh_megakernel<RowLeaves<kFormBW>><<<blocks, kThreads, smem, st>>>(
+    bvh_megakernel<RowLeaves<kFormBW>><<<blocks, kSplitThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormBW>{s}, root,
-        out, width, height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+        out, width, height, split, max_depth, seed, du, dv, inv_spp, has_lens);
   } else {
-    bvh_megakernel<RowLeaves<kFormMT>><<<blocks, kThreads, smem, st>>>(
+    bvh_megakernel<RowLeaves<kFormMT>><<<blocks, kSplitThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormMT>{s}, root,
-        out, width, height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+        out, width, height, split, max_depth, seed, du, dv, inv_spp, has_lens);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -184,21 +192,23 @@ extern "C" int spira_bvh_megakernel_render_counted(
     int spp, int max_depth, uint32_t seed, float du, float dv, float inv_spp,
     int has_lens, void* stream) {
   using namespace spira;
-  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * height);
   const size_t smem = mesh_smem_bytes(n_spheres, n_mats);
   const auto* p = reinterpret_cast<const float4*>(pairs);
   const auto* s = reinterpret_cast<const float4*>(tri_rows);
   auto* tot = reinterpret_cast<unsigned long long*>(totals);
   const auto st = static_cast<cudaStream_t>(stream);
   if (form_bw) {
-    bvh_megakernel_counted<kFormBW><<<blocks, kThreads, smem, st>>>(
+    bvh_megakernel_counted<kFormBW><<<blocks, kSplitThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormBW>{s}, root,
-        tot, out, width, height, spp, max_depth, seed, du, dv, inv_spp,
+        tot, out, width, height, split, max_depth, seed, du, dv, inv_spp,
         has_lens);
   } else {
-    bvh_megakernel_counted<kFormMT><<<blocks, kThreads, smem, st>>>(
+    bvh_megakernel_counted<kFormMT><<<blocks, kSplitThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormMT>{s}, root,
-        tot, out, width, height, spp, max_depth, seed, du, dv, inv_spp,
+        tot, out, width, height, split, max_depth, seed, du, dv, inv_spp,
         has_lens);
   }
   return static_cast<int>(cudaGetLastError());
@@ -214,14 +224,16 @@ extern "C" int spira_bvh_mxu_render(
     int width, int height, int spp, int max_depth, uint32_t seed, float du,
     float dv, float inv_spp, int has_lens, void* stream) {
   using namespace spira;
-  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
-  bvh_megakernel<BlockLeaves><<<blocks, kThreads,
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * height);
+  bvh_megakernel<BlockLeaves><<<blocks, kSplitThreads,
                                mesh_smem_bytes(n_spheres, n_mats),
                                static_cast<cudaStream_t>(stream)>>>(
       cam, spheres, n_spheres, mats, n_mats,
       reinterpret_cast<const float4*>(pairs),
-      BlockLeaves{coeff_uv, coeff_t, coeff_pay}, root, out, width, height, spp,
-      max_depth, seed, du, dv, inv_spp, has_lens);
+      BlockLeaves{coeff_uv, coeff_t, coeff_pay}, root, out, width, height,
+      split, max_depth, seed, du, dv, inv_spp, has_lens);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,12 +8,12 @@
 // launch.  spira_mxu_intersect replaces _raw_intersect_kernel (kernel #8):
 // the block stream alone from best = 1e20, giving t, normal and material id.
 //
-// Work split: one thread per pixel (render) or per ray (intersect), 128
-// threads a block.  The render kernel stages the camera, sphere and
-// material tables in shared memory (mesh_render.cuh:render_mesh_pixel) and
-// traces through the shared tracer trace.cuh:trace_pixel with
-// superleaf.cuh's StreamIntersect, so its output and PCG stream are kernel
-// #1's.  The
+// Work split: one thread per (pixel, sample) path (render) or per ray
+// (intersect), 128 threads a block.  The render kernel stages the camera,
+// sphere and material tables in shared memory (mesh_render.cuh:
+// render_mesh) and traces through the shared tracer trace.cuh:trace_sample
+// with superleaf.cuh's StreamIntersect, so its output and PCG stream are
+// kernel #1's.  The
 // coefficient tables stay in device memory and are read through __ldg; all
 // threads of a warp read the same block lane at the same time, so every
 // load is a broadcast.
@@ -46,14 +46,14 @@ __global__ void __launch_bounds__(128)
                    const float* __restrict__ cuv,
                    const float* __restrict__ ct,
                    const float* __restrict__ cpay, int n_blocks,
-                   float* __restrict__ out, int width, int height, int spp,
-                   int max_depth, uint32_t seed, float du, float dv,
-                   float inv_spp, int has_lens) {
+                   float* __restrict__ out, int width, int height,
+                   SampleSplit split, int max_depth, uint32_t seed, float du,
+                   float dv, float inv_spp, int has_lens) {
   const auto make = [&](const float* sph, const float* mat) {
     return StreamIntersect{sph, n_spheres, mat, cuv, ct, cpay, n_blocks};
   };
-  render_mesh_pixel(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
-                    height, spp, max_depth, seed, du, dv, inv_spp, has_lens);
+  render_mesh(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+              height, split, max_depth, seed, du, dv, inv_spp, has_lens);
 }
 
 __global__ void __launch_bounds__(128)
@@ -95,11 +95,14 @@ extern "C" int spira_mxu_megakernel_render(
     int spp, int max_depth, uint32_t seed, float du, float dv, float inv_spp,
     int has_lens, void* stream) {
   using namespace spira;
-  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
-  mxu_megakernel<<<blocks, kThreads, mesh_smem_bytes(n_spheres, n_mats),
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * height);
+  mxu_megakernel<<<blocks, kSplitThreads,
+                   mesh_smem_bytes(n_spheres, n_mats),
                    static_cast<cudaStream_t>(stream)>>>(
       cam, spheres, n_spheres, mats, n_mats, coeff_uv, coeff_t, coeff_pay,
-      n_blocks, out, width, height, spp, max_depth, seed, du, dv, inv_spp,
+      n_blocks, out, width, height, split, max_depth, seed, du, dv, inv_spp,
       has_lens);
   return static_cast<int>(cudaGetLastError());
 }

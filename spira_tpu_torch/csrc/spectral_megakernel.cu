@@ -11,22 +11,25 @@
 // (H*W, 3) float32 buffer, bottom-up; the wrappers convert to sRGB with a
 // 3x3 product outside the kernel, as the JAX package does outside Pallas.
 //
-// Work split: one thread per pixel, 128 threads a block.  A block copies
-// the camera record, the sky's Chebyshev coefficients and the spectral
-// sphere and triangle (or material) tables into shared memory; pair
-// records and leaf rows stay in device memory and are read through __ldg
-// (bvh.cuh), as in kernel #2.  Both kernels share one tracer,
-// spectral.cuh:trace_pixel_spectral, templated on its intersector.
+// Work split: 128 threads a block; the spectral megakernel runs one thread
+// per pixel, the BVH kernel one thread per (pixel, sample) path, a pixel's
+// samples summed in sample order by one thread (mesh_render.cuh:
+// render_samples, as kernel #2).  A block copies the camera record, the
+// sky's Chebyshev coefficients and the spectral sphere and triangle (or
+// material) tables into shared memory; pair records and leaf rows stay in
+// device memory and are read through __ldg (bvh.cuh), as in kernel #2.
+// Both kernels share one tracer, spectral.cuh:trace_sample_spectral,
+// templated on its intersector.
 //
 // What bounds it: fp32 ALU work, now dominated by the spectral shading: per
 // bounce and lane two 12-term Clenshaw recurrences (emission, albedo), and
 // per sample 12 for the sky and 8 expf per lane for the CMFs, on top of the
 // RGB tracer's transcendentals; for the BVH kernel, the walk's dependent
-// loads and warp divergence first.  Device-memory traffic is a few KB of
-// tables (plus the BVH tables, resident in L2) and 12 bytes per pixel.  The
-// design does nothing more about that yet: lane packing, Chebyshev
-// evaluation on the tensor cores and warp-coherent traversal are later
-// work.
+// loads and warp divergence first, which the per-sample split and its
+// 64-register budget answer as in kernel #2.  Device-memory traffic is a
+// few KB of tables (plus the BVH tables, resident in L2) and 12 bytes per
+// pixel.  Lane packing, Chebyshev evaluation on the tensor cores and
+// warp-coherent traversal are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see spira_tpu_torch/_build.py).
@@ -36,6 +39,7 @@
 #include <cstdint>
 
 #include "bvh.cuh"
+#include "mesh_render.cuh"
 #include "spectral.cuh"
 
 namespace spira {
@@ -81,7 +85,7 @@ __global__ void __launch_bounds__(128)
 }
 
 template <int kForm>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     spectral_bvh_megakernel(const float* __restrict__ cam_g,
                             const float* __restrict__ sky_g,
                             const float* __restrict__ sph_g, int n_spheres,
@@ -89,9 +93,9 @@ __global__ void __launch_bounds__(128)
                             const float4* __restrict__ pairs,
                             const float4* __restrict__ slots, int root,
                             float* __restrict__ out, int width, int height,
-                            int spp, int max_depth, uint32_t seed, float du,
-                            float dv, float inv_spp, float film_scale,
-                            int has_lens) {
+                            SampleSplit split, int max_depth, uint32_t seed,
+                            float du, float dv, float inv_spp,
+                            float film_scale, int has_lens) {
   extern __shared__ float smem[];
   float* cam = smem;
   float* sky = cam + kCamFields;
@@ -103,21 +107,18 @@ __global__ void __launch_bounds__(128)
   stage(mat, mat_g, n_mats * kMatSpec);
   __syncthreads();
 
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(width) * height) return;
-  const int row = static_cast<int>(idx / width);  // from the image bottom
-  const int col = static_cast<int>(idx % width);
-
   const SpectralPackedIntersect<kForm> intersect{
       sph, n_spheres, mat, pairs, RowLeaves<kForm>{slots}, root};
-  const Vec3 acc = trace_pixel_spectral(
-      intersect, cam, sky, has_lens != 0, static_cast<uint32_t>(idx),
-      static_cast<float>(row), static_cast<float>(col), seed, spp, max_depth,
-      du, dv, film_scale);
-  out[idx * 3 + 0] = acc.x * inv_spp;
-  out[idx * 3 + 1] = acc.y * inv_spp;
-  out[idx * 3 + 2] = acc.z * inv_spp;
+  const auto sample = [&](int64_t pixel, int s) {
+    const int row = static_cast<int>(pixel / width);  // from the bottom
+    const int col = static_cast<int>(pixel % width);
+    return trace_sample_spectral(
+        intersect, cam, sky, has_lens != 0, static_cast<uint32_t>(pixel),
+        static_cast<float>(row), static_cast<float>(col), seed, s, max_depth,
+        du, dv, film_scale);
+  };
+  render_samples(split, static_cast<int64_t>(width) * height, sample, out,
+                 inv_spp);
 }
 
 constexpr int kThreads = 128;
@@ -157,7 +158,9 @@ extern "C" int spira_spectral_bvh_render(
     int max_depth, uint32_t seed, float du, float dv, float inv_spp,
     float film_scale, int has_lens, void* stream) {
   using namespace spira;
-  const unsigned blocks = blocks_for(static_cast<int64_t>(width) * height);
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * height);
   const size_t smem =
       sizeof(float) * (kCamFields + kSkyFields + n_spheres * kSphSpec +
                        n_mats * kMatSpec);
@@ -165,13 +168,15 @@ extern "C" int spira_spectral_bvh_render(
   const auto* s = reinterpret_cast<const float4*>(tri_rows);
   const auto st = static_cast<cudaStream_t>(stream);
   if (form_bw) {
-    spectral_bvh_megakernel<kFormBW><<<blocks, kThreads, smem, st>>>(
+    spectral_bvh_megakernel<kFormBW><<<blocks, kSplitThreads, smem, st>>>(
         cam, sky, spheres, n_spheres, mats, n_mats, p, s, root, out, width,
-        height, spp, max_depth, seed, du, dv, inv_spp, film_scale, has_lens);
+        height, split, max_depth, seed, du, dv, inv_spp, film_scale,
+        has_lens);
   } else {
-    spectral_bvh_megakernel<kFormMT><<<blocks, kThreads, smem, st>>>(
+    spectral_bvh_megakernel<kFormMT><<<blocks, kSplitThreads, smem, st>>>(
         cam, sky, spheres, n_spheres, mats, n_mats, p, s, root, out, width,
-        height, spp, max_depth, seed, du, dv, inv_spp, film_scale, has_lens);
+        height, split, max_depth, seed, du, dv, inv_spp, film_scale,
+        has_lens);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,9 @@
-// The shared device path tracer: one thread traces one pixel.
+// The shared device path tracer: `trace_sample` traces one sample of a
+// pixel, `trace_pixel` a pixel's samples in order (one thread per pixel, as
+// kernel #1 runs; the mesh kernels split a pixel's samples over threads,
+// mesh_render.cuh).
 //
-// `trace_pixel` is templated on its intersector, the counterpart of
+// Both are templated on their intersector, the counterpart of
 // `trace_tile(intersect_fn=...)` in spira_tpu_torch/kernels/megakernel.py:
 // the sphere/triangle brute force below and the packed-BVH walk of bvh.cuh
 // share one copy of the raygen, shading, scatter and Russian-roulette code.
@@ -292,78 +295,94 @@ struct WantsBounce<T, decltype(void(&T::begin_bounce))> {
   static constexpr bool value = true;
 };
 
-// Trace `spp` samples of one pixel; returns the summed radiance.
-// pixel: the PCG counter row * width + col (row counted from the image
-// bottom, unpadded width); cam: the 20-float camera record.
+// Trace sample s of one pixel; returns its radiance.  pixel: the PCG
+// counter row * width + col (row counted from the image bottom, unpadded
+// width); cam: the 20-float camera record.  A sample's PCG counters are
+// functions of (pixel, s) alone, so any thread can trace any sample.
+template <class Intersect>
+__device__ __forceinline__ Vec3 trace_sample(const Intersect& intersect,
+                                             const float* cam, bool has_lens,
+                                             uint32_t pixel, float row_f,
+                                             float col_f, uint32_t seed,
+                                             int s, int max_depth, float du,
+                                             float dv) {
+  const uint32_t per_sample = static_cast<uint32_t>(max_depth) * kStreams + 1u;
+  const uint32_t s32 = static_cast<uint32_t>(s);
+  const uint32_t base = s32 * per_sample;
+  Vec3 o, d;
+  camera_ray(cam, has_lens, pixel, s32, base, seed, row_f, col_f, du, dv, o,
+             d);
+
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+  for (int b = 0; b < max_depth; ++b) {
+    if constexpr (WantsBounce<Intersect>::value) intersect.begin_bounce(b);
+    const SurfaceHit h = intersect(o, d);
+    if (!h.hit) {
+      // ---- miss: sky gradient
+      const float t_sky = 0.5f * (d.y + 1.0f);
+      lr += tr * (1.0f - t_sky + 0.5f * t_sky);
+      lg += tg * (1.0f - t_sky + 0.7f * t_sky);
+      lb += tb * (1.0f - t_sky + 1.0f * t_sky);
+      break;
+    }
+    const float* m = h.mat;
+    // ---- emission
+    lr += tr * m[3];
+    lg += tg * m[4];
+    lb += tb * m[5];
+
+    Vec3 n = h.n;
+    const bool entering = dot3(d, n) < 0.0f;
+    if (!entering) n = {-n.x, -n.y, -n.z};
+
+    const uint32_t bounce = base + static_cast<uint32_t>(b) * kStreams;
+    const Uniform4 lobe = uniform4(pixel, s32, bounce + kSLobe, seed);
+    const Vec3 nd = scatter_dir(d, n, entering, m, lobe, pixel, s32, bounce,
+                                seed);
+
+    // ---- throughput *= albedo, then Russian roulette
+    float ntr = tr * m[0];
+    float ntg = tg * m[1];
+    float ntb = tb * m[2];
+    if (b > kRRStart) {
+      const float p_cont =
+          fminf(fmaxf(fmaxf(ntr, fmaxf(ntg, ntb)), 1e-6f), kRRCap);
+      if (lobe.y > p_cont) break;
+      const float inv_p = 1.0f / p_cont;
+      ntr = ntr * inv_p;
+      ntg = ntg * inv_p;
+      ntb = ntb * inv_p;
+      if (!(fmaxf(ntr, fmaxf(ntg, ntb)) >= kCutoff)) break;
+    }
+
+    // offset along the hemisphere the new direction leaves through
+    const float osgn = dot3(nd, n) >= 0.0f ? 1.0f : -1.0f;
+    o = {h.p.x + kScatterEps * osgn * n.x, h.p.y + kScatterEps * osgn * n.y,
+         h.p.z + kScatterEps * osgn * n.z};
+    d = nd;
+    tr = ntr;
+    tg = ntg;
+    tb = ntb;
+  }
+  return {lr, lg, lb};
+}
+
+// Trace `spp` samples of one pixel; returns the summed radiance, added in
+// sample order (the order every kernel that splits a pixel's samples
+// over threads keeps, so the sum is the same to the bit).
 template <class Intersect>
 __device__ Vec3 trace_pixel(const Intersect& intersect, const float* cam,
                             bool has_lens, uint32_t pixel, float row_f,
                             float col_f, uint32_t seed, int spp, int max_depth,
                             float du, float dv) {
-  const uint32_t per_sample = static_cast<uint32_t>(max_depth) * kStreams + 1u;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < spp; ++s) {
-    const uint32_t s32 = static_cast<uint32_t>(s);
-    const uint32_t base = s32 * per_sample;
-    Vec3 o, d;
-    camera_ray(cam, has_lens, pixel, s32, base, seed, row_f, col_f, du, dv, o,
-               d);
-
-    float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-    float lr = 0.0f, lg = 0.0f, lb = 0.0f;
-    for (int b = 0; b < max_depth; ++b) {
-      if constexpr (WantsBounce<Intersect>::value) intersect.begin_bounce(b);
-      const SurfaceHit h = intersect(o, d);
-      if (!h.hit) {
-        // ---- miss: sky gradient
-        const float t_sky = 0.5f * (d.y + 1.0f);
-        lr += tr * (1.0f - t_sky + 0.5f * t_sky);
-        lg += tg * (1.0f - t_sky + 0.7f * t_sky);
-        lb += tb * (1.0f - t_sky + 1.0f * t_sky);
-        break;
-      }
-      const float* m = h.mat;
-      // ---- emission
-      lr += tr * m[3];
-      lg += tg * m[4];
-      lb += tb * m[5];
-
-      Vec3 n = h.n;
-      const bool entering = dot3(d, n) < 0.0f;
-      if (!entering) n = {-n.x, -n.y, -n.z};
-
-      const uint32_t bounce = base + static_cast<uint32_t>(b) * kStreams;
-      const Uniform4 lobe = uniform4(pixel, s32, bounce + kSLobe, seed);
-      const Vec3 nd = scatter_dir(d, n, entering, m, lobe, pixel, s32, bounce,
-                                  seed);
-
-      // ---- throughput *= albedo, then Russian roulette
-      float ntr = tr * m[0];
-      float ntg = tg * m[1];
-      float ntb = tb * m[2];
-      if (b > kRRStart) {
-        const float p_cont =
-            fminf(fmaxf(fmaxf(ntr, fmaxf(ntg, ntb)), 1e-6f), kRRCap);
-        if (lobe.y > p_cont) break;
-        const float inv_p = 1.0f / p_cont;
-        ntr = ntr * inv_p;
-        ntg = ntg * inv_p;
-        ntb = ntb * inv_p;
-        if (!(fmaxf(ntr, fmaxf(ntg, ntb)) >= kCutoff)) break;
-      }
-
-      // offset along the hemisphere the new direction leaves through
-      const float osgn = dot3(nd, n) >= 0.0f ? 1.0f : -1.0f;
-      o = {h.p.x + kScatterEps * osgn * n.x, h.p.y + kScatterEps * osgn * n.y,
-           h.p.z + kScatterEps * osgn * n.z};
-      d = nd;
-      tr = ntr;
-      tg = ntg;
-      tb = ntb;
-    }
-    acc_r = acc_r + lr;
-    acc_g = acc_g + lg;
-    acc_b = acc_b + lb;
+    const Vec3 l = trace_sample(intersect, cam, has_lens, pixel, row_f, col_f,
+                                seed, s, max_depth, du, dv);
+    acc_r = acc_r + l.x;
+    acc_g = acc_g + l.y;
+    acc_b = acc_b + l.z;
   }
   return {acc_r, acc_g, acc_b};
 }

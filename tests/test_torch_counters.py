@@ -133,6 +133,7 @@ def test_counters_refusals(mesh):
 
 TRACE_MAIN = r"""
 #include <math.h>
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <vector>
@@ -145,12 +146,25 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
-#include "bvh.cuh"
+// mesh_render.cuh's device-only body names these; the host never runs it
+#define __shared__
+struct Dim3 {
+  unsigned x, y, z;
+};
+Dim3 threadIdx, blockIdx, blockDim;
+inline void __syncthreads() {}
+using std::min;
+#include "mesh_render.cuh"
 using namespace spira;
 
 // in: int32 form_bw n_sph n_mat n_pairs n_rows root width height spp
-// max_depth seed; float32 du dv inv_spp; camera (20), spheres (S, 16),
-// materials (M, 16), pairs (P, 16), tri_rows (R, 128).
+// max_depth seed split; float32 du dv inv_spp; camera (20), spheres
+// (S, 16), materials (M, 16), pairs (P, 16), tri_rows (R, 128).
+// split 0: trace_pixel over each pixel; 1: the kernels' split of
+// mesh_render.cuh, block by block and round by round, each (pixel,
+// sample) through trace_sample on its own thread slot, each pixel's
+// values summed by its group's first slot (fold_samples), its counts
+// summed over its samples.
 // out: float32 rgb (n, 3); int32 counts (7, n) in WalkCounts order.
 template <int kForm>
 void run(const std::vector<float>& t, const int* h, const float* f,
@@ -164,12 +178,60 @@ void run(const std::vector<float>& t, const int* h, const float* f,
   const auto* s4 = reinterpret_cast<const float4*>(
       mat + 16 * n_mat + 16 * n_pairs);
   const int n = width * height;
+  const auto add_counts = [&](const WalkCounts& c, int idx) {
+    const uint32_t v[kNumCounts] = {c.pops, c.pushes, c.traversals,
+                                    c.leaf_visits, c.leaf_tris,
+                                    c.leaf_visits_primary, c.hits};
+    for (int k = 0; k < kNumCounts; ++k) counts[k * n + idx] += v[k];
+  };
+  const TreeIntersect<RowLeaves<kForm>> tree{sph, n_sph, mat, p4,
+                                             RowLeaves<kForm>{s4}, root};
+  if (h[11]) {
+    const SampleSplit split = sample_split(spp);
+    std::vector<float> buf(3 * kSplitThreads);
+    for (int64_t b = 0; b < split_blocks(split, n); ++b) {
+      std::vector<Vec3> acc(kSplitThreads, Vec3{0.0f, 0.0f, 0.0f});
+      for (int r = 0; r < split.rounds; ++r) {
+        for (int th = 0; th < kSplitThreads; ++th) {
+          const SampleUnit u = sample_unit(split, b, th, n);
+          const int s = r * split.chunk + u.j;
+          if (!u.live || s >= spp) continue;
+          const int idx = static_cast<int>(u.pixel);
+          WalkCounts c;
+          const CountingIntersect<RowLeaves<kForm>> it{tree, &c};
+          const Vec3 l = trace_sample(
+              it, cam, false, static_cast<uint32_t>(idx),
+              static_cast<float>(idx / width),
+              static_cast<float>(idx % width), static_cast<uint32_t>(h[10]),
+              s, depth, f[0], f[1]);
+          buf[th] = l.x;
+          buf[kSplitThreads + th] = l.y;
+          buf[2 * kSplitThreads + th] = l.z;
+          add_counts(c, idx);
+        }
+        for (int th = 0; th < kSplitThreads; ++th) {
+          const SampleUnit u = sample_unit(split, b, th, n);
+          if (!u.live || u.j != 0) continue;
+          acc[th] = fold_samples(&buf[th], &buf[kSplitThreads + th],
+                                 &buf[2 * kSplitThreads + th],
+                                 std::min(split.chunk,
+                                          spp - r * split.chunk),
+                                 acc[th]);
+        }
+      }
+      for (int th = 0; th < kSplitThreads; ++th) {
+        const SampleUnit u = sample_unit(split, b, th, n);
+        if (!u.live || u.j != 0) continue;
+        rgb[3 * u.pixel] = acc[th].x * f[2];
+        rgb[3 * u.pixel + 1] = acc[th].y * f[2];
+        rgb[3 * u.pixel + 2] = acc[th].z * f[2];
+      }
+    }
+    return;
+  }
   for (int idx = 0; idx < n; ++idx) {
     WalkCounts c;
-    const CountingIntersect<RowLeaves<kForm>> it{
-        TreeIntersect<RowLeaves<kForm>>{sph, n_sph, mat, p4,
-                                        RowLeaves<kForm>{s4}, root},
-        &c};
+    const CountingIntersect<RowLeaves<kForm>> it{tree, &c};
     static_assert(WantsBounce<CountingIntersect<RowLeaves<kForm>>>::value,
                   "the counting intersector takes the bounce");
     static_assert(!WantsBounce<TreeIntersect<RowLeaves<kForm>>>::value,
@@ -182,18 +244,15 @@ void run(const std::vector<float>& t, const int* h, const float* f,
     rgb[3 * idx] = acc.x * f[2];
     rgb[3 * idx + 1] = acc.y * f[2];
     rgb[3 * idx + 2] = acc.z * f[2];
-    const uint32_t v[kNumCounts] = {c.pops, c.pushes, c.traversals,
-                                    c.leaf_visits, c.leaf_tris,
-                                    c.leaf_visits_primary, c.hits};
-    for (int k = 0; k < kNumCounts; ++k) counts[k * n + idx] = v[k];
+    add_counts(c, idx);
   }
 }
 
 int main(int argc, char** argv) {
   FILE* in = fopen(argv[1], "rb");
-  int h[11];
+  int h[12];
   float f[3];
-  if (fread(h, 4, 11, in) != 11 || fread(f, 4, 3, in) != 3) return 1;
+  if (fread(h, 4, 12, in) != 12 || fread(f, 4, 3, in) != 3) return 1;
   const size_t n_tab = 20 + 16 * static_cast<size_t>(h[1] + h[2] + h[3]) +
                        128 * static_cast<size_t>(h[4]);
   std::vector<float> t(n_tab);
@@ -218,8 +277,9 @@ int main(int argc, char** argv) {
 
 @pytest.fixture(scope="module")
 def host_trace(tmp_path_factory):
-    """The counting kernel's per-pixel body as a host program: (flat rgb,
-    {counter: (H*W,) int64}) for a packed scene and pinhole camera."""
+    """The counting kernel's body as a host program: (flat rgb, {counter:
+    (H*W,) int64}) for a packed scene and pinhole camera, per pixel
+    (``trace_pixel``) or through the kernels' split (``split=True``)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler (g++ or c++) on the PATH")
@@ -230,7 +290,7 @@ def host_trace(tmp_path_factory):
                     f"-I{_build.CSRC}", str(work / "main.cpp"), "-o",
                     str(exe)], check=True, capture_output=True, text=True)
 
-    def run(scene, cam, width, height, spp, max_depth, seed):
+    def run(scene, cam, width, height, spp, max_depth, seed, split=False):
         packed = scene.packed
         tables = [tmk.pack_camera(cam), tmk.pack_scene(scene),
                   tbk.pack_materials(scene.materials), packed.pairs,
@@ -240,7 +300,8 @@ def host_trace(tmp_path_factory):
             np.array([int(packed.form == "bw"), tables[1].shape[0],
                       tables[2].shape[0], packed.pairs.shape[0],
                       packed.tri_rows.shape[0], packed.root, width, height,
-                      spp, max_depth, seed], np.int32).tofile(f)
+                      spp, max_depth, seed, int(split)],
+                     np.int32).tofile(f)
             np.array([du, dv, tmk._inv_spp(spp)], np.float32).tofile(f)
             for t in tables:
                 t.detach().numpy().astype(np.float32).tofile(f)
@@ -282,3 +343,22 @@ def test_host_counting_kernel_body_matches_plain(host_trace, mesh, form):
         assert abs(got - ref) <= 0.01 * ref, k
     assert int(counts["leaf_visits_primary"].sum()) < int(
         counts["leaf_visits"].sum())
+
+
+@pytest.mark.parametrize("spp", [1, 3, 16, 17, 130])
+def test_host_split_matches_trace_pixel(host_trace, mesh, spp):
+    """The kernels' work split (``mesh_render.cuh``: one slot a (pixel,
+    sample), a pixel's values summed in sample order by its group's first
+    slot, in one round or, past 128 samples, several) against
+    ``trace_pixel``'s loop over the samples of each pixel, at 37x5
+    (ragged against every block), depth 3: the image bit for bit, and each
+    pixel's counts, summed over its samples, equal."""
+    _, (scene, cam) = mesh
+    scene = sp.attach_packed(scene, form="bw")
+    kw = dict(width=37, height=5, spp=spp, max_depth=3, seed=6)
+    rgb, counts = host_trace(scene, cam, **kw)
+    got, got_counts = host_trace(scene, cam, split=True, **kw)
+    assert torch.equal(got, rgb)
+    for k in tbk.COUNTERS:
+        assert torch.equal(got_counts[k], counts[k]), k
+    assert counts["leaf_visits"].sum() > 0

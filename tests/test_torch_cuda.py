@@ -32,6 +32,7 @@ from spira_tpu_torch.kernels import spectral_bvh as sb
 from spira_tpu_torch.kernels import spectral_fused as sf
 from spira_tpu_torch.scene.geometry import empty_spheres
 from spira_tpu_torch.scene.obj import icosphere
+from tests.test_torch_superleaf_host import deep_tree_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -312,6 +313,65 @@ def test_spectral_bvh_kernel_matches_plain(cuda, form):
         assert sb.render_flat_spectral_bvh_megakernel.launches == before + 1
         plain = sb.render_flat_spectral_bvh_fused(scene, cam, seed=3, **kw)
         _assert_close_images(kernel, plain, 1e-4, 0.99)
+
+
+# the mesh path tracers' split at spp that do not divide a warp or a block,
+# on a frame whose rows do not divide a block: (kernel, plain version)
+MESH_TRACERS = {
+    "bvh": (bk.render_flat_bvh_megakernel, bk.render_flat_bvh_fused),
+    "spectral_bvh": (sb.render_flat_spectral_bvh_megakernel,
+                     sb.render_flat_spectral_bvh_fused),
+}
+
+
+@pytest.mark.parametrize("spp", [1, 3, 17])
+@pytest.mark.parametrize("form", ["bw", "mt"])
+@pytest.mark.parametrize("tracer", sorted(MESH_TRACERS))
+def test_mesh_tracer_bit_equal_to_plain_ragged(cuda, tracer, form, spp):
+    """#2 and #5 on the mesh scene at 37x23, depth 4: equal to the plain
+    version to the bit (each pixel's samples traced on their own threads
+    and summed in sample order), one launch."""
+    kernel_fn, plain_fn = MESH_TRACERS[tracer]
+    scene = _mesh(cuda, form)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=spp, max_depth=4, seed=9)
+    before = kernel_fn.launches
+    kernel = kernel_fn(scene, cam, **kw)
+    assert kernel_fn.launches == before + 1
+    plain = plain_fn(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert kernel.shape == (37 * 23, 3) and kernel.std() > 1e-3
+    assert torch.equal(kernel, plain)
+
+
+@pytest.mark.parametrize("tracer", sorted(MESH_TRACERS))
+def test_mesh_tracer_deep_tree_bit_equal_to_plain(cuda, tracer):
+    """A pair tree 128 records deep (the stack's limit), on which a ray
+    down its middle stacks a far child at every level: #2 and #5 at 32x24,
+    spp 2, depth 3, and #3 on the primary rays, equal to the plain
+    versions to the bit."""
+    kernel_fn, plain_fn = MESH_TRACERS[tracer]
+    scene = deep_tree_scene(pairs.TRAVERSAL_STACK, cuda)
+    assert scene.packed.depth == pairs.TRAVERSAL_STACK
+    cam = sp.make_camera((0.0, 0.0, 2.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=32 / 24, vfov=20.0, device=cuda)
+    kw = dict(width=32, height=24, spp=2, max_depth=3, seed=4)
+    kernel = kernel_fn(scene, cam, **kw)
+    plain = plain_fn(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert kernel.std() > 1e-3
+    assert torch.equal(kernel, plain)
+    o = cam.origin.expand(256, 3).contiguous()
+    d = torch.nn.functional.normalize(
+        torch.rand(256, 3, generator=torch.Generator().manual_seed(2))
+        .to(cuda) * torch.tensor([0.02, 0.02, 0.0], device=cuda)
+        - torch.tensor([0.01, 0.01, 1.0], device=cuda), dim=1)
+    got = bk.intersect_tile(scene.packed, o, d, with_slot=True)
+    want = bk.intersect_packed_plain(scene.packed, o, d, with_slot=True)
+    assert (want[3] == 0).all()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_spectral_bvh_kernel_without_spheres(cuda):

@@ -274,11 +274,8 @@ def test_fused_spectral_matches_jax_dispersive_depth6():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_spectral_bvh_matches_jax_kernel():
-    """The plain spectral BVH render against JAX
-    ``render_flat_spectral_bvh_megakernel`` (interpret mode) on the
-    icosphere scene at 128x8, spp 1, depth 2, seed 7."""
-    w, h = 128, 8
+def _jax_icosphere_scene(w, h):
+    """The icosphere scene, packed, and its camera, in JAX."""
     materials, spheres = _icosphere_records()
     mesh = jobj.icosphere(center=(0.0, 0.3, 0.0), radius=0.6,
                           subdivisions=0, material=0)
@@ -287,12 +284,51 @@ def test_spectral_bvh_matches_jax_kernel():
         materials=jmat.make_materials(materials), bvh=j_build_bvh(mesh)))
     jcam = st.make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
                           aspect_ratio=w / h)
+    return jscene, jcam
+
+
+def test_spectral_bvh_matches_jax_kernel():
+    """The plain spectral BVH render against JAX
+    ``render_flat_spectral_bvh_megakernel`` (interpret mode) on the
+    icosphere scene at 128x8, spp 1, depth 2, seed 7."""
+    w, h = 128, 8
+    jscene, jcam = _jax_icosphere_scene(w, h)
     scene, cam = _to_port(jscene, jcam)
     kw = dict(width=w, height=h, spp=1, max_depth=2, seed=7)
     want = np.asarray(jsb.render_flat_spectral_bvh_megakernel(
         jscene, jcam, interpret=True, tile_h=8, **kw))
     got = tsb.render_flat_spectral_bvh_fused(scene, cam, **kw).numpy()
     _assert_images_agree(got, want)
+
+
+@pytest.mark.parametrize("tracer", ["spheres", "bvh"])
+def test_spectral_exclusive_uv_matches_jax(tracer):
+    """``inclusive_uv=False`` (u = col / W, v = row / H, not col / (W - 1),
+    row / (H - 1)) at spp 1, depth 2, seed 5, limits as above: the sphere
+    tracer on ``create_scene()`` at 16x8 against JAX
+    ``render_flat_fused_spectral``, and the BVH tracer on the icosphere
+    scene at 128x8 (the JAX kernel's tile is 128 pixels wide) against JAX
+    ``render_flat_spectral_bvh_megakernel`` in interpret mode."""
+    kw = dict(spp=1, max_depth=2, seed=5, inclusive_uv=False)
+    if tracer == "spheres":
+        w, h = 16, 8
+        jscene, jcam = st.create_scene(), st.default_camera(w / h)
+        want = jsf.render_flat_fused_spectral(jscene, jcam, width=w,
+                                              height=h, **kw)
+        plain = tsf.render_flat_fused_spectral
+    else:
+        w, h = 128, 8
+        jscene, jcam = _jax_icosphere_scene(w, h)
+        want = jsb.render_flat_spectral_bvh_megakernel(
+            jscene, jcam, width=w, height=h, interpret=True, tile_h=8, **kw)
+        plain = tsb.render_flat_spectral_bvh_fused
+    scene, cam = _to_port(jscene, jcam)
+    got = plain(scene, cam, width=w, height=h, **kw).numpy()
+    _assert_images_agree(got, np.asarray(want))
+    # the flag reaches the tracer: the inclusive image differs
+    kw["inclusive_uv"] = True
+    assert not np.array_equal(got, plain(scene, cam, width=w, height=h,
+                                         **kw).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 ``bvh.cuh`` and ``trace.cuh``) built as plain host C++ and run ray by ray
 on the CPU, against the plain versions: the block stream of kernels #7
 and #8 against ``intersect_mxu_plain``, and the pair walk with superleaf
-blocks (#2b) or leaf rows (#2, #3) against ``intersect_packed_plain``.
+blocks (#2b) or leaf rows (#2, #3) against ``intersect_packed_plain``, on
+the mesh scene and on a tree as deep as the walk's stack allows, through
+a stack accessor that records how deep the walk stacks.
 
 The headers use no intrinsics but ``__ldg``, so with ``__device__`` and
 ``__forceinline__`` defined away and ``float4``/``__ldg`` stubbed a host
@@ -21,7 +23,7 @@ import torch
 
 import spira_tpu_torch as sp
 from spira_tpu_torch import _build
-from spira_tpu_torch.accel import mxu, pairs
+from spira_tpu_torch.accel import bvh, mxu, pairs
 from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import mxu_megakernel as mk
 
@@ -48,10 +50,23 @@ using namespace spira;
 // dirs (n, 3), pairs (P, 16), then mode 0-1: coeff_uv (B*8, 384), coeff_t
 // and coeff_pay (B*8, 128); mode 2-5: tri_rows (B, 128).  Modes: 0 the
 // block stream, 1 the pair walk over blocks, 2 and 3 over BW and MT rows,
-// 4 and 5 the same walks counting (WalkCounts, bounce 0).
+// 4 and 5 the same walks counting (WalkCounts, bounce 0), 6 the BW walk
+// over HostStack.
 // out: float32 t, normal (n, 3), mat id; int32 slot; modes 4-5: int32
 // pops, pushes, traversals, leaf_visits, leaf_tris, leaf_visits_primary
-// (6, n).
+// (6, n); mode 6: int32 the deepest stack (n).
+
+// The walk's stack as a bounds-checked vector that records the most
+// entries it held.
+struct HostStack {
+  std::vector<int> s = std::vector<int>(kStackSize);
+  int deepest = 0;
+  void put(int i, int v) {
+    s.at(i) = v;
+    deepest = i + 1 > deepest ? i + 1 : deepest;
+  }
+  int get(int i) const { return s.at(i); }
+};
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   int h[5];
@@ -86,6 +101,12 @@ int main(int argc, char** argv) {
     const uint32_t v[6] = {c.pops, c.pushes, c.traversals, c.leaf_visits,
                            c.leaf_tris, c.leaf_visits_primary};
     for (int k = 0; k < 6; ++k) counts[k * n + i] = static_cast<int>(v[k]);
+    if (mode == 6) {
+      NoCount none;
+      HostStack stack;
+      walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th, none, stack);
+      counts[i] = stack.deepest;
+    }
     out[i] = th.t;
     out[n + 3 * i] = th.n.x;
     out[n + 3 * i + 1] = th.n.y;
@@ -96,7 +117,8 @@ int main(int argc, char** argv) {
   FILE* g = fopen(argv[2], "wb");
   fwrite(out.data(), 4, out.size(), g);
   fwrite(slot.data(), 4, slot.size(), g);
-  if (mode >= 4) fwrite(counts.data(), 4, counts.size(), g);
+  if (mode == 6) fwrite(counts.data(), 4, n, g);
+  if (mode == 4 || mode == 5) fwrite(counts.data(), 4, counts.size(), g);
   fclose(g);
   return 0;
 }
@@ -140,9 +162,67 @@ def host_walk(tmp_path_factory):
         if mode < 4:
             return out
         counts = np.fromfile(work / "out.bin", np.int32, offset=24 * n)
-        return out, torch.from_numpy(counts.reshape(6, n).copy())
+        return out, torch.from_numpy(counts.reshape(-1, n).copy())
 
     return run
+
+
+def deep_tree_scene(levels, device="cpu", form="bw"):
+    """A packed scene whose pair tree is ``levels`` records deep, and on
+    which a ray down -z through the middle keeps one far child on the
+    walk's stack a level: spine node k holds spine node k + 1 (the nearer
+    child) and a side node of two one-triangle leaves (the farther); the
+    last spine node holds two leaves at z = -1 and -1.25, and the side
+    nodes' triangles lie behind them, the deepest side node nearest.  Each
+    triangle spans x, y in [-2, 2]."""
+    zs = [-1.0, -1.25]
+    for k in range(levels - 1):
+        z = -2.0 - 0.5 * (levels - 2 - k)
+        zs += [z, z - 0.25]
+    verts = [(x, y, z) for z in zs
+             for x, y in ((-2.0, -2.0), (2.0, -2.0), (0.0, 2.0))]
+    faces = np.arange(3 * len(zs)).reshape(-1, 3)
+    tris = sp.make_triangles(verts, faces, np.arange(len(zs)) % 2,
+                             device="cpu")
+    lo = np.array([[-2.0, -2.0, z] for z in zs], np.float32)
+    hi = np.array([[2.0, 2.0, z] for z in zs], np.float32)
+    node_min, node_max, left, right, is_leaf = [], [], [], [], []
+
+    def alloc():  # preorder: the root is node 0
+        for col in (node_min, node_max, left, right, is_leaf):
+            col.append(0)
+        return len(left) - 1
+
+    def leaf(t):
+        i = alloc()
+        node_min[i], node_max[i], left[i], right[i], is_leaf[i] = (
+            lo[t], hi[t], t, 1, 1)
+        return i
+
+    def internal(i, a, b):
+        left[i], right[i] = a, b
+        node_min[i] = np.minimum(node_min[a], node_min[b])
+        node_max[i] = np.maximum(node_max[a], node_max[b])
+
+    def side(k):
+        i = alloc()
+        internal(i, leaf(2 + 2 * k), leaf(3 + 2 * k))
+        return i
+
+    spine = [alloc() for _ in range(levels)]
+    for k in reversed(range(levels)):
+        if k == levels - 1:
+            internal(spine[k], leaf(0), leaf(1))
+        else:
+            internal(spine[k], spine[k + 1], side(k))
+    tree = bvh._flat(np.array(node_min), np.array(node_max), left, right,
+                     is_leaf, np.arange(len(zs)))
+    materials = sp.make_materials([
+        dict(albedo=(0.7, 0.3, 0.3), metallic=0.0, roughness=0.5),
+        dict(albedo=(0.8, 0.8, 0.8), metallic=1.0, roughness=0.1),
+    ], device="cpu")
+    scene = sp.make_scene(triangles=tris, materials=materials, bvh=tree)
+    return sp.attach_packed(scene, form=form).to(device)
 
 
 @pytest.fixture(scope="module")
@@ -213,3 +293,24 @@ def test_host_counting_walk_matches_plain(host_walk, scene, form):
         assert torch.equal(got_counts[k].long(), counts[name]), name
     assert (counts["traversals"] == 1).all()
     assert counts["leaf_tris"].sum() > counts["leaf_visits"].sum() > 0
+
+
+def test_host_walk_deep_tree_matches_plain(host_walk):
+    """A tree as deep as the walk's stack (128 pair records): rays down -z
+    through its middle hit the nearest triangle, as the plain walk finds
+    it, and the walk, through the ``HostStack`` accessor, holds one far
+    child a level: all 128 entries of the stack at the deepest level."""
+    packed = deep_tree_scene(pairs.TRAVERSAL_STACK).packed
+    assert packed.depth == pairs.TRAVERSAL_STACK
+    rng = np.random.default_rng(11)
+    n = 256
+    o = np.concatenate([rng.uniform(-0.3, 0.3, (n, 2)), np.ones((n, 1))], 1)
+    d = np.concatenate([rng.uniform(-0.01, 0.01, (n, 2)),
+                        -np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.from_numpy(x.astype(np.float32)) for x in (o, d))
+    want = bk.intersect_packed_plain(packed, o, d, with_slot=True)
+    got, deepest = host_walk(6, packed, o, d)
+    _assert_same(got, want)
+    assert (want[3] == 0).all()  # the nearest triangle, at z = -1
+    assert (deepest[0] == pairs.TRAVERSAL_STACK).all()
