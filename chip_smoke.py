@@ -18,10 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``vpu_peak.sol_rates``) that price every bound below;
 2. each kernel against its plain PyTorch version on the card, same tables
    and seed, with the tolerances stated beside each case: the sphere
-   megakernel (``SPHERE_CASES``), the packed-BVH nearest-hit query on
+   megakernel (``SPHERE_CASES``, also to the bit), the packed-BVH
+   nearest-hit query on
    random and primary rays of the 72,960-triangle bunny, the packed-BVH
    path tracer (``BVH_CASES``), the spectral megakernel
-   (``SPECTRAL_CASES``), the spectral packed-BVH path tracer
+   (``SPECTRAL_CASES``, also to the bit), the spectral packed-BVH path tracer
    (``SPECTRAL_BVH_CASES``), the adjoint kernels against autograd
    through the plain tracer (``GRAD_CASES``: VJP mode and loss mode, a
    ragged grid, the full 16-bounce tape, ``inclusive_uv=False``, a camera
@@ -55,7 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    primary rays, held against the packed-BVH query;
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
-   torch.profiler breakdown of the main-path wrappers' time on the card;
+   torch.profiler breakdown of the main-path wrappers' time on the card
+   and the host's share of each (the wrapper's time less the device's);
    each kernel's bound from the work this run's inputs need (counted
    with the plain versions, #2's by its counting build and held against
    the plain count), priced by ``utils/sol.py``: the largest of the ALU
@@ -85,10 +87,12 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
 paths' PNGs there; ``--parent DIR`` also times another commit's adjoint
 kernel and step (a ``git archive`` of it unpacked into ``DIR``) with
-``spira_tpu_torch/bench/grad_step.py``, and its mesh frames (#2, #5,
-#2b, #3 at 640x360 spp16 d4) beside this tree's with
-``spira_tpu_torch/bench/mesh_frame.py`` (parent, this, this, parent),
-each run in a process of its own.
+``spira_tpu_torch/bench/grad_step.py``, and its frames (#2, #5, #2b, #3
+on the bunny, #1 and #4 at 640x360 spp16 d4 and 1920x1080 spp256, with
+their host share, ``ptxas -v`` and #1's and #4's occupancy) beside this
+tree's with ``spira_tpu_torch/bench/mesh_frame.py`` (parent, this, this,
+parent), each run in a process of its own; every image of both commits
+must agree to the bit.
 """
 
 from __future__ import annotations
@@ -124,9 +128,11 @@ PEAK_FMA_ULP, PEAK_SPECIAL_RTOL = 4, 1e-6
 #: plain version at
 BVH_TIMED = dict(width=640, height=360, spp=4, max_depth=4)
 #: sphere megakernel cases: (name, scene function, camera function, shape,
-#: tolerances).  Depth 1 sees only primary hits and raygen jitter; deeper
-#: paths may take another branch where a transcendental differs in its
-#: last bit, which moves a whole path.
+#: tolerances).  Each is held equal to the plain version to the bit (the
+#: same operations in the same order) and within its tolerances, the limit
+#: of the engines that are not held to the bit: depth 1 sees only primary
+#: hits and raygen jitter; deeper paths may take another branch where a
+#: transcendental differs in its last bit, which moves a whole path.
 SPHERE_CASES = (
     ("a: demo 640x360 spp1 d1", "create_scene", "default_camera",
      dict(width=640, height=360, spp=1, max_depth=1),
@@ -156,9 +162,10 @@ BVH_CASES = (
 MISS_SHARE, T_RTOL, MID_SHARE = 1e-4, 1e-5, 0.9999
 NORMAL_ATOL, NORMAL_SHARE = 1e-5, 0.999
 N_RANDOM_RAYS = 1 << 16
-#: spectral megakernel cases: (name, scene key, shape, tolerances), limits
-#: as for the sphere megakernel.  The Cornell box's flint glass disperses
-#: (the hero collapse), and depth 6 runs Russian roulette.
+#: spectral megakernel cases: (name, scene key, shape, tolerances), held
+#: to the bit and to limits as for the sphere megakernel.  The Cornell
+#: box's flint glass disperses (the hero collapse), and depth 6 runs
+#: Russian roulette.
 SPECTRAL_CASES = (
     ("g: demo 640x360 spp1 d1", "demo",
      dict(width=640, height=360, spp=1, max_depth=1),
@@ -238,32 +245,16 @@ def log(*args):
 def device_breakdown(fn, runs=5):
     """Kernel time on the card by name over ``runs`` calls of ``fn``
     (torch.profiler), and the card's idle share of the host's window."""
-    from torch.profiler import ProfilerActivity, profile
+    from spira_tpu_torch.bench.mesh_frame import profile_call
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            # "void at::native::foo_kernel<...>(...)" -> "at::native::foo_kernel"
-            name = re.split(r"[<(]", e.name.replace(
-                "(anonymous namespace)::", "").removeprefix("void "))[0]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
-    busy_us = sum(by_name.values())
+    p = profile_call(fn, runs)
     return dict(
         runs=runs,
-        wall_ms_per_call=wall_us / runs / 1e3,
-        device_ms_per_call=busy_us / runs / 1e3,
-        idle_share=1.0 - busy_us / wall_us if by_name else None,
-        kernels_ms_per_call={k: v / runs / 1e3 for k, v in sorted(
-            by_name.items(), key=lambda kv: -kv[1])},
+        wall_ms_per_call=p["wall_ms"],
+        device_ms_per_call=p["device_ms"],
+        idle_share=(1.0 - p["device_ms"] / p["wall_ms"]
+                    if p["kernels_ms"] else None),
+        kernels_ms_per_call=p["kernels_ms"],
     )
 
 
@@ -310,7 +301,7 @@ def compare_sphere(sp, mk, name, scene_fn, cam_fn, shape, tol, device):
     kernel = mk.render_flat_megakernel(scene, cam, seed=7, **shape)
     plain = mk.render_flat_fused(scene, cam, seed=7, **shape)
     torch.cuda.synchronize()
-    return check_images(name, kernel, plain, tol)
+    return check_images(name, kernel, plain, tol, exact=True)
 
 
 def random_rays(n, device, seed=0):
@@ -777,7 +768,7 @@ def main() -> int:
     parser.add_argument("--parent", help="a checkout of another commit "
                         "(unpacked into an ignored directory): also time "
                         "its adjoint kernel and step with "
-                        "spira_tpu_torch/bench/grad_step.py and its mesh "
+                        "spira_tpu_torch/bench/grad_step.py and its "
                         "frames with spira_tpu_torch/bench/mesh_frame.py, "
                         "each in a process of its own")
     args = parser.parse_args()
@@ -989,7 +980,8 @@ def main() -> int:
                                                     **shape)
         plain = sf.render_flat_fused_spectral(scene, cam, seed=7, **shape)
         torch.cuda.synchronize()
-        spectral_checks.append(check_images(name, kernel, plain, tol))
+        spectral_checks.append(check_images(name, kernel, plain, tol,
+                                            exact=True))
     spectral_bvh_checks = []
     for name, key, shape in SPECTRAL_BVH_CASES:
         scene, cam = scenes[key]
@@ -1383,6 +1375,18 @@ def main() -> int:
     sbvh_prof = device_breakdown(run(sb.render_flat_spectral_bvh_megakernel,
                                      bunny, bunny_cam, MAIN))
     log_breakdown(card, "spectral bunny 640x360 spp16 d4", sbvh_prof)
+    # the host's share of each main-path frame: the wrapper's time (CUDA
+    # events) less the device's (torch.profiler), at MAIN
+    host_ms = {}
+    for name, ms, prof in (("megakernel", sph_k, sph_prof),
+                           ("bvh_megakernel", bvh_full, bvh_prof),
+                           ("spectral_megakernel", spec_k, spec_prof),
+                           ("spectral_bvh_megakernel", sbvh_full,
+                            sbvh_prof)):
+        host_ms[name] = ms - prof["device_ms_per_call"]
+        log(f"[host] {card}: {name} {MAIN_SHAPE}: wrapper {ms:.4f} ms, the "
+            f"device {prof['device_ms_per_call']:.4f} ms, the host "
+            f"{host_ms[name]:.4f} ms ({host_ms[name] / ms:.3f} of the call)")
     mxu_prof = dict(
         bvh_mxu_megakernel=device_breakdown(run(
             bk.render_flat_bvh_mxu_megakernel, bunny_sl, bunny_cam, MAIN)),
@@ -1428,19 +1432,33 @@ def main() -> int:
             f"{parent_t['vjp_ms']['4']:.3f} ms, loss mode "
             f"{parent_t['loss_ms']:.3f} ms; step {parent_t['step_ms']}; "
             f"ptxas {parent_t['ptxas']['grad_megakernel']}")
-        # the mesh frames (#2, #5, #2b, #3) of both commits, each run in
-        # its own process: parent, this, this, parent
+        # the frames (#1, #2, #2b, #3, #4, #5) of both commits, each run
+        # in its own process: parent, this, this, parent
         frames = [bench("mesh_frame.py", root)
                   for root in (args.parent, here, here, args.parent)]
         parent_frames, this_frames = frames[::3], frames[1:3]
         for f in frames:
-            log(f"[time] {card}: mesh frames 640x360 spp16 d4 of {f['root']}"
-                f" (bench/mesh_frame.py): wrappers "
-                f"{({k: round(v, 4) for k, v in f['ms'].items()})} ms; on "
-                f"the card {f['kernels_ms']}; image digests {f['digest']}")
-        same = all(f["digest"] == frames[0]["digest"] for f in frames)
-        log(f"[compare] mesh frames: every image of this tree equal to the "
-            f"parent's to the bit (SHA-256): {same}")
+            log(f"[time] {card}: frames of {f['root']} (bench/mesh_frame.py): "
+                + "; ".join(
+                    f"{k} wrapper {r['wrapper_ms']:.4f} ms, on the card "
+                    f"{r['device_ms']:.4f} {r['kernels_ms']}, host "
+                    f"{r['host_ms']:.4f} ({r['host_share']:.3f} of the call), "
+                    f"device ops {r['device_ops']}"
+                    + (f", {r['blocks_per_sm']} blocks an SM, "
+                       f"{r['waves']:.3f} waves" if "waves" in r else "")
+                    for k, r in f["frames"].items())
+                + f"; ptxas {f['ptxas']}")
+
+        def digests(f):
+            return f["case_digests"], {k: r["digest"]
+                                       for k, r in f["frames"].items()}
+
+        same = all(digests(f) == digests(frames[0]) for f in frames)
+        log(f"[compare] frames and cases a-c, g-i: every image of this tree "
+            f"equal to the parent's to the bit (SHA-256): {same}")
+        if not same:
+            raise AssertionError("a frame or case renders differently from "
+                                 "the parent's")
     step_prof = device_breakdown(lambda: step(albedo0, 0, MAIN["spp"]))
     log_breakdown(card, "differentiable step 640x360 spp16 d4 exact "
                   "replay", step_prof)
@@ -1637,6 +1655,17 @@ def main() -> int:
                     bound_terms_ms=b["bound_terms_ms"],
                     datasheet_bound_ms=b["datasheet_bound_ms"])
 
+    def frame_rows(runs, *names):
+        """Frames ``names`` of each bench/mesh_frame.py run in ``runs``."""
+        return None if runs is None else [
+            dict(root=f["root"], ptxas=f["ptxas"],
+                 **{n: f["frames"][n] for n in names}) for f in runs]
+
+    brute_rgb = ("megakernel", "megakernel_1920x1080_spp256")
+    brute_spectral = ("spectral_megakernel",
+                      "spectral_megakernel_1920x1080_spp256")
+    mesh = ("bvh_megakernel", "spectral_bvh_megakernel",
+            "bvh_mxu_megakernel", "bvh_intersect")
     kernels = [
         {
             "name": "megakernel",
@@ -1651,7 +1680,11 @@ def main() -> int:
             "shape": "demo 640x360 spp16 d4",
             "ms_1920x1080_spp256": sph_big,
             "profile_640x360_spp16_d4": sph_prof,
+            "host_ms": host_ms["megakernel"],
+            "parent_frames": frame_rows(parent_frames, *brute_rgb),
+            "this_frames": frame_rows(this_frames, *brute_rgb),
             "checks": sphere_checks,
+            "ptxas": ptxas.get("megakernel", []),
         },
         {
             "name": "bvh_megakernel",
@@ -1667,14 +1700,15 @@ def main() -> int:
             "ms_640x360_spp16_d4": bvh_full,
             "mrays_640x360_spp16_d4": mrays(MAIN, bvh_full),
             "profile_640x360_spp16_d4": bvh_prof,
+            "host_ms": host_ms["bvh_megakernel"],
             "bound_ms_640x360_spp16_d4": bounds["bvh_megakernel_16"][
                 "bound_ms"],
             "rank_ms_bound_ms": (bvh_full,
                                  bounds["bvh_megakernel_16"]["bound_ms"],
                                  MAIN_SHAPE),
             "walk_bytes_640x360_spp16_d4": walk_bytes["bvh_megakernel"],
-            "parent_frames": parent_frames,
-            "this_frames": this_frames,
+            "parent_frames": frame_rows(parent_frames, *mesh),
+            "this_frames": frame_rows(this_frames, *mesh),
             "checks": bvh_checks,
             "ptxas": ptxas.get("bvh_megakernel", []),
             "counted_entry": "spira_bvh_megakernel_render_counted",
@@ -1710,7 +1744,11 @@ def main() -> int:
             "shape": "spectral cornell 640x360 spp16 d4",
             "rgb_kernel_ms_same_scene": rgb_cornell,
             "profile_640x360_spp16_d4": spec_prof,
+            "host_ms": host_ms["spectral_megakernel"],
+            "parent_frames": frame_rows(parent_frames, *brute_spectral),
+            "this_frames": frame_rows(this_frames, *brute_spectral),
             "checks": spectral_checks,
+            "ptxas": ptxas.get("spectral_megakernel", []),
         },
         {
             "name": "spectral_bvh_megakernel",
@@ -1726,6 +1764,7 @@ def main() -> int:
             "ms_640x360_spp16_d4": sbvh_full,
             "mrays_640x360_spp16_d4": mrays(MAIN, sbvh_full),
             "profile_640x360_spp16_d4": sbvh_prof,
+            "host_ms": host_ms["spectral_bvh_megakernel"],
             "bound_ms_640x360_spp16_d4": bounds[
                 "spectral_bvh_megakernel_16"]["bound_ms"],
             "rank_ms_bound_ms": (
@@ -1902,12 +1941,16 @@ def main() -> int:
         ms, bound, shape = k.pop("rank_ms_bound_ms",
                                  (k["ms"], k["bound_ms"], k["shape"]))
         k["rank_ms"] = k["main_path_launches"] * (ms - bound)
-        k["rank_basis_ms"] = dict(ms=ms, bound_ms=bound, shape=shape)
+        k["rank_basis_ms"] = dict(ms=ms, bound_ms=bound, shape=shape,
+                                  host_ms=k.get("host_ms"))
     for k in sorted(kernels, key=lambda k: -k["rank_ms"]):
         b = k["rank_basis_ms"]
+        host = ("" if b["host_ms"] is None else
+                f" (of which the host {b['host_ms']:.4f} ms)")
         log(f"[rank] {card}: {k['name']}: {k['main_path_launches']} "
-            f"main-path launches x ({b['ms']:.4f} - {b['bound_ms']:.4f} ms "
-            f"at {b['shape']}) = {k['rank_ms']:.3f} ms; "
+            f"main-path launches x ({b['ms']:.4f}{host} - "
+            f"{b['bound_ms']:.4f} ms at {b['shape']}) = {k['rank_ms']:.3f} "
+            f"ms; "
             f"{k['share_of_bound_pct']:.3f}% of its "
             f"bound at {k['shape']}, by {k['bound_term']}; counted on "
             f"{k['main_paths'] or 'no main path'}; this script launched it "

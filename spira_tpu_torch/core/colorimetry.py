@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import device_constant
+
 # Visible range integrated by the spectral renderer (nm).
 LAMBDA_MIN = 380.0
 LAMBDA_MAX = 730.0
@@ -97,8 +99,8 @@ def xyz_to_rgb(xyz):
     """(..., 3) XYZ → linear sRGB with E→D65 adaptation.  Written as a
     product and a sum over the last axis, so no TF32 matmul setting can
     change it."""
-    adapted = xyz * torch.from_numpy(D65_WHITE).to(xyz.device)
-    m = torch.from_numpy(XYZ_TO_SRGB).to(xyz.device)
+    adapted = xyz * device_constant("D65_WHITE", D65_WHITE, xyz.device)
+    m = device_constant("XYZ_TO_SRGB", XYZ_TO_SRGB, xyz.device)
     return (adapted[..., None, :] * m).sum(-1)
 
 

@@ -10,6 +10,7 @@ keep their tables on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,23 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to build on the CPU"
         )
     return torch.device("cuda")
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(name: str, values, device) -> torch.Tensor:
+    """The constant table ``name`` (``values``, a NumPy array that never
+    changes under that name) as a tensor on ``device``, copied there once
+    and returned from then on: a frame that reads it makes no copy from
+    host memory (on the card, a copy from pageable memory waits for the
+    stream).  The tensor is shared; callers never write to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (name, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(values)).to(device)
+        _CONSTANTS[key] = t
+    return t

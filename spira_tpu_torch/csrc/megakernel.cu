@@ -6,18 +6,28 @@
 // spp x bounce loop, intersection, scatter, Russian roulette and the mean
 // over samples run in one launch; only the final HDR buffer is written.
 //
-// Work split: one thread per pixel, 128 threads a block.  A block copies
-// the camera record and the scene tables (at most (S,16) + (32,24) floats,
-// a few KB) into shared memory once; every thread then reads the same
-// addresses, which shared memory broadcasts.  The Pallas kernel's (8,128)
-// tiles and padding are not carried over: the output is the flat
-// (H*W, 3) float32 buffer, bottom-up, written directly.
+// Work split: one thread per pixel, 128 threads a block, blocks from the
+// image's bottom row up.  A block copies the camera record and the scene
+// tables (at most (S,16) + (32,24) floats, a few KB) into shared memory
+// once; every thread then reads the same addresses, which shared memory
+// broadcasts.  The Pallas kernel's (8,128) tiles and padding are not
+// carried over: the output is the flat (H*W, 3) float32 buffer, bottom-up,
+// written directly.  The sphere demo's warps rarely mix sky and hit pixels
+// (0.7% of row-warps), so the mesh kernels' (pixel, sample) split
+// (mesh_render.cuh) gains nothing here, and pixels drawn from a work
+// counter lost too (PERF.md §6).
+//
+// Tables: a forward frame is two launches from one call.  gather_tables
+// writes the records pack_tables builds, value for value, straight from
+// the scene's and camera's arrays (scene_tables.cuh) into a scratch buffer;
+// then megakernel renders from it.  The differentiable step passes the
+// packed tables it differentiates and skips the gather.  The gather is a
+// kernel of its own so that it adds nothing to the render body's registers
+// (staged inside the render kernel it cost 8 registers and a block an SM).
 //
 // What bounds it: fp32 ALU and transcendental work (sqrt, sin, cos, log
 // per bounce), with almost no device-memory traffic: a few KB read, 12
-// bytes per pixel written.  The design does nothing more about that yet:
-// wgmma and TMA have nothing to feed here, and occupancy, register and
-// divergence tuning are later work.
+// bytes per pixel written.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see spira_tpu_torch/_build.py).
@@ -27,11 +37,23 @@
 
 #include <cstdint>
 
+#include "scene_tables.cuh"
 #include "trace.cuh"
 
 namespace spira {
 
-__global__ void __launch_bounds__(128)
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+    gather_tables(RgbTables tables, float* __restrict__ dst) {
+  const int n = tables.size();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    dst[i] = tables.value(i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
     megakernel(const float* __restrict__ cam_g,
                const float* __restrict__ sph_g, int n_spheres,
                const float* __restrict__ tri_g, int n_tris,
@@ -73,23 +95,42 @@ __global__ void __launch_bounds__(128)
   out[idx * 3 + 2] = acc.z * inv_spp;
 }
 
+unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
 }  // namespace spira
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// sizeof(spira::RgbTables), for the wrapper's check of its ctypes layout.
+extern "C" int spira_megakernel_tables_bytes() {
+  return static_cast<int>(sizeof(spira::RgbTables));
+}
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success).  With
+// `gather` non-null, the tables are first gathered from the scene's arrays
+// into `scratch` (gather->size() floats) and cam, spheres, n_spheres, tris
+// and n_tris are ignored; else the packed tables are rendered as they are.
 extern "C" int spira_megakernel_render(
-    const float* cam, const float* spheres, int n_spheres, const float* tris,
-    int n_tris, float* out, int width, int height, int spp, int max_depth,
-    uint32_t seed, float du, float dv, float inv_spp, int has_lens,
-    void* stream) {
-  constexpr int kThreads = 128;
-  const int64_t n = static_cast<int64_t>(width) * height;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  const size_t smem =
-      sizeof(float) * (spira::kCamFields + n_spheres * spira::kSphereFields +
-                       n_tris * spira::kTriFields);
-  spira::megakernel<<<blocks, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      cam, spheres, n_spheres, tris, n_tris, out, width, height, spp,
-      max_depth, seed, du, dv, inv_spp, has_lens);
+    const spira::RgbTables* gather, float* scratch, const float* cam,
+    const float* spheres, int n_spheres, const float* tris, int n_tris,
+    float* out, int width, int height, int spp, int max_depth, uint32_t seed,
+    float du, float dv, float inv_spp, int has_lens, void* stream) {
+  using namespace spira;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (gather != nullptr) {
+    gather_tables<<<blocks_for(gather->size()), kThreads, 0, s>>>(*gather,
+                                                                 scratch);
+    n_spheres = gather->geo.n_spheres;
+    n_tris = gather->geo.n_tris;
+    cam = scratch;
+    spheres = cam + kCamFields;
+    tris = spheres + n_spheres * kSphereFields;
+  }
+  const size_t smem = sizeof(float) * (kCamFields + n_spheres * kSphereFields +
+                                       n_tris * kTriFields);
+  megakernel<<<blocks_for(static_cast<int64_t>(width) * height), kThreads,
+               smem, s>>>(cam, spheres, n_spheres, tris, n_tris, out, width,
+                          height, spp, max_depth, seed, du, dv, inv_spp,
+                          has_lens);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // The body of the mesh render kernels (the packed-BVH kernels over row
 // leaves or superleaf blocks, RGB and spectral, and the streaming superleaf
-// kernel): one thread per (pixel, sample) path, each pixel's samples summed
-// in sample order by one thread of its group.  The RGB body stages the
+// kernel) and of the spectral megakernel: one thread per (pixel, sample)
+// path, each pixel's samples summed in sample order by one thread of its
+// group.  The RGB body stages the
 // camera, sphere and material tables in shared memory and traces through
 // the shared tracer trace.cuh:trace_sample.
 //
@@ -32,10 +33,11 @@
 namespace spira {
 
 constexpr int kSplitThreads = 128;  // threads a block of the split kernels
-// The mesh path tracers' register budget: __launch_bounds__(kSplitThreads,
+// The split kernels' register budget: __launch_bounds__(kSplitThreads,
 // kSplitMinBlocks) keeps 8 blocks resident on an SM (at most 64 registers
 // a thread), which measured faster than the compiler's own choice (#2 72
-// registers and 7 blocks, #5 96 and 5) though a few words spill.
+// registers and 7 blocks, #5 96 and 5, #4 96 and 5) though a few words
+// spill.
 constexpr int kSplitMinBlocks = 8;
 
 struct SampleSplit {

@@ -11,15 +11,24 @@
 // (H*W, 3) float32 buffer, bottom-up; the wrappers convert to sRGB with a
 // 3x3 product outside the kernel, as the JAX package does outside Pallas.
 //
-// Work split: 128 threads a block; the spectral megakernel runs one thread
-// per pixel, the BVH kernel one thread per (pixel, sample) path, a pixel's
-// samples summed in sample order by one thread (mesh_render.cuh:
-// render_samples, as kernel #2).  A block copies the camera record, the
-// sky's Chebyshev coefficients and the spectral sphere and triangle (or
-// material) tables into shared memory; pair records and leaf rows stay in
-// device memory and are read through __ldg (bvh.cuh), as in kernel #2.
-// Both kernels share one tracer, spectral.cuh:trace_sample_spectral,
-// templated on its intersector.
+// Work split: 128 threads a block; both kernels run one thread per
+// (pixel, sample) path, a pixel's samples summed in sample order by one
+// thread (mesh_render.cuh:render_samples, as kernel #2), under a budget of
+// 64 registers (8 blocks an SM).  The spectral megakernel gathers its
+// tables into shared memory straight from the scene's arrays
+// (scene_tables.cuh: the records pack_scene_spectral builds, value for
+// value) and the sky constant, so its frame packs nothing on the host; the
+// BVH kernel copies the camera record, the sky's Chebyshev coefficients
+// and its packed sphere and material tables, while pair records and leaf
+// rows stay in device memory and are read through __ldg (bvh.cuh), as in
+// kernel #2.  Both kernels share one tracer,
+// spectral.cuh:trace_sample_spectral, templated on its intersector.
+//
+// The split took 18% off the spectral megakernel's time on the Cornell box
+// against one thread per pixel at the compiler's 95 registers (5 blocks an
+// SM); pixels from a work counter, other register budgets, stepping the
+// lanes' Clenshaw recurrences together and evaluating the sky only at a
+// miss each did less or worse (PERF.md §6).
 //
 // What bounds it: fp32 ALU work, now dominated by the spectral shading: per
 // bounce and lane two 12-term Clenshaw recurrences (emission, albedo), and
@@ -40,6 +49,7 @@
 
 #include "bvh.cuh"
 #include "mesh_render.cuh"
+#include "scene_tables.cuh"
 #include "spectral.cuh"
 
 namespace spira {
@@ -48,40 +58,30 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-__global__ void __launch_bounds__(128)
-    spectral_megakernel(const float* __restrict__ cam_g,
-                        const float* __restrict__ sky_g,
-                        const float* __restrict__ sph_g, int n_spheres,
-                        const float* __restrict__ tri_g, int n_tris,
-                        float* __restrict__ out, int width, int height,
-                        int spp, int max_depth, uint32_t seed, float du,
-                        float dv, float inv_spp, float film_scale,
-                        int has_lens) {
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
+    spectral_megakernel(SpectralTables tables, float* __restrict__ out,
+                        int width, int height, SampleSplit split,
+                        int max_depth, uint32_t seed, float du, float dv,
+                        float inv_spp, float film_scale, int has_lens) {
   extern __shared__ float smem[];
-  float* cam = smem;
-  float* sky = cam + kCamFields;
-  float* sph = sky + kSkyFields;
-  float* tri = sph + n_spheres * kSphSpec;
-  stage(cam, cam_g, kCamFields);
-  stage(sky, sky_g, kSkyFields);
-  stage(sph, sph_g, n_spheres * kSphSpec);
-  stage(tri, tri_g, n_tris * kTriSpec);
+  stage_tables(smem, tables);
   __syncthreads();
-
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(width) * height) return;
-  const int row = static_cast<int>(idx / width);  // from the image bottom
-  const int col = static_cast<int>(idx % width);
-
-  const SpectralBruteIntersect intersect{sph, n_spheres, tri, n_tris};
-  const Vec3 acc = trace_pixel_spectral(
-      intersect, cam, sky, has_lens != 0, static_cast<uint32_t>(idx),
-      static_cast<float>(row), static_cast<float>(col), seed, spp, max_depth,
-      du, dv, film_scale);
-  out[idx * 3 + 0] = acc.x * inv_spp;
-  out[idx * 3 + 1] = acc.y * inv_spp;
-  out[idx * 3 + 2] = acc.z * inv_spp;
+  const float* cam = smem;
+  const float* sky = cam + kCamFields;
+  const float* sph = sky + kSkyFields;
+  const float* tri = sph + tables.geo.n_spheres * kSphSpec;
+  const SpectralBruteIntersect intersect{sph, tables.geo.n_spheres, tri,
+                                         tables.geo.n_tris};
+  const auto sample = [&](int64_t pixel, int s) {
+    const int row = static_cast<int>(pixel / width);  // from the bottom
+    const int col = static_cast<int>(pixel % width);
+    return trace_sample_spectral(
+        intersect, cam, sky, has_lens != 0, static_cast<uint32_t>(pixel),
+        static_cast<float>(row), static_cast<float>(col), seed, s, max_depth,
+        du, dv, film_scale);
+  };
+  render_samples(split, static_cast<int64_t>(width) * height, sample, out,
+                 inv_spp);
 }
 
 template <int kForm>
@@ -121,29 +121,28 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
                  inv_spp);
 }
 
-constexpr int kThreads = 128;
-
-unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
 }  // namespace spira
 
+// sizeof(spira::SpectralTables), for the wrapper's check of its ctypes
+// layout.
+extern "C" int spira_spectral_tables_bytes() {
+  return static_cast<int>(sizeof(spira::SpectralTables));
+}
+
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-// sky: (3, 12) float32; spheres: (S, 33); tris: (T, 41), T <= 32.
+// tables: the scene's arrays (scene_tables.cuh), at most 32 triangles.
 extern "C" int spira_spectral_render(
-    const float* cam, const float* sky, const float* spheres, int n_spheres,
-    const float* tris, int n_tris, float* out, int width, int height,
+    const spira::SpectralTables* tables, float* out, int width, int height,
     int spp, int max_depth, uint32_t seed, float du, float dv, float inv_spp,
     float film_scale, int has_lens, void* stream) {
   using namespace spira;
-  const size_t smem =
-      sizeof(float) * (kCamFields + kSkyFields + n_spheres * kSphSpec +
-                       n_tris * kTriSpec);
-  spectral_megakernel<<<blocks_for(static_cast<int64_t>(width) * height),
-                        kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, sky, spheres, n_spheres, tris, n_tris, out, width, height, spp,
-      max_depth, seed, du, dv, inv_spp, film_scale, has_lens);
+  const SampleSplit split = sample_split(spp);
+  spectral_megakernel<<<split_blocks(split,
+                                     static_cast<int64_t>(width) * height),
+                        kSplitThreads, sizeof(float) * tables->size(),
+                        static_cast<cudaStream_t>(stream)>>>(
+      *tables, out, width, height, split, max_depth, seed, du, dv, inv_spp,
+      film_scale, has_lens);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,7 @@ seed).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -647,13 +648,49 @@ render_flat_fused.calls = 0
 # The CUDA kernel
 # ----------------------------------------------------------------------------
 
+_VP = ctypes.c_void_p
+
+
+class CameraFields(ctypes.Structure):
+    """``csrc/scene_tables.cuh:CameraFields``: the camera's own tensors."""
+
+    _fields_ = [(name, _VP) for name in (
+        "origin", "llc", "horizontal", "vertical", "u", "v", "lens_radius")]
+
+
+class GeometryFields(ctypes.Structure):
+    """``csrc/scene_tables.cuh:GeometryFields``: the sphere and triangle
+    arrays."""
+
+    _fields_ = [("centers", _VP), ("radii", _VP), ("sph_mat", _VP),
+                ("n_spheres", ctypes.c_int), ("v0", _VP), ("e1", _VP),
+                ("e2", _VP), ("normal", _VP), ("tri_mat", _VP),
+                ("n_tris", ctypes.c_int)]
+
+
+class _RgbMaterialFields(ctypes.Structure):
+    _fields_ = [(name, _VP) for name in (
+        "albedo", "emission", "metallic", "roughness", "ior",
+        "transmission")] + [("n_mats", ctypes.c_int)]
+
+
+class _RgbTables(ctypes.Structure):
+    """``csrc/scene_tables.cuh:RgbTables``: the scene's and camera's
+    arrays."""
+
+    _fields_ = [("camera", CameraFields), ("geo", GeometryFields),
+                ("mats", _RgbMaterialFields)]
+
+
 _ARGTYPES = (
-    ctypes.c_void_p,  # cam
-    ctypes.c_void_p,  # spheres
+    ctypes.POINTER(_RgbTables),  # gather (null: render the packed tables)
+    _VP,  # scratch
+    _VP,  # cam
+    _VP,  # spheres
     ctypes.c_int,  # n_spheres
-    ctypes.c_void_p,  # tris
+    _VP,  # tris
     ctypes.c_int,  # n_tris
-    ctypes.c_void_p,  # out
+    _VP,  # out
     ctypes.c_int,  # width
     ctypes.c_int,  # height
     ctypes.c_int,  # spp
@@ -663,8 +700,86 @@ _ARGTYPES = (
     ctypes.c_float,  # dv
     ctypes.c_float,  # inv_spp
     ctypes.c_int,  # has_lens
-    ctypes.c_void_p,  # stream
+    _VP,  # stream
 )
+
+
+def _field(name, t, device, shape, keep, dtype=torch.float32):
+    """The data pointer of scene array ``t`` as a kernel reads it: on
+    ``device``, of ``dtype`` and ``shape``, row-major (a strided view is
+    copied).  The tensor read is appended to ``keep``, which the caller
+    holds until the launch is enqueued."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the scene on {device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    t = t.contiguous()
+    keep.append(t)
+    return t.data_ptr()
+
+
+def camera_fields(camera, device, keep):
+    """The camera's tensors for ``scene_tables.cuh:CameraFields``."""
+    c = camera
+    if c.origin.device != device:
+        # the packed route's wording: the camera is one table to a kernel
+        raise ValueError(f"camera table is on {c.origin.device}, the scene "
+                         f"on {device}")
+    return CameraFields(*(
+        _field(f"camera {name}", t, device, shape, keep)
+        for name, t, shape in (
+            ("origin", c.origin, (3,)),
+            ("lower_left_corner", c.lower_left_corner, (3,)),
+            ("horizontal", c.horizontal, (3,)),
+            ("vertical", c.vertical, (3,)), ("u", c.u, (3,)),
+            ("v", c.v, (3,)), ("lens_radius", c.lens_radius, ()))))
+
+
+def geometry_fields(scene, device, keep):
+    """The sphere and triangle arrays for
+    ``scene_tables.cuh:GeometryFields``."""
+    sph, tri = scene.spheres, scene.triangles
+    s, t = sph.count, tri.count
+    return GeometryFields(
+        _field("sphere centers", sph.centers, device, (s, 3), keep),
+        _field("sphere radii", sph.radii, device, (s,), keep),
+        _field("sphere material", sph.material, device, (s,), keep,
+               torch.int32),
+        s,
+        *(_field(f"triangle {name}", getattr(tri, name), device, (t, 3),
+                 keep)
+          for name in ("v0", "e1", "e2", "normal")),
+        _field("triangle material", tri.material, device, (t,), keep,
+               torch.int32),
+        t)
+
+
+def _rgb_tables(scene, camera, device, keep):
+    """The ``RgbTables`` that ``csrc/megakernel.cu:gather_tables`` reads:
+    the scene's and camera's arrays (held in ``keep``)."""
+    m = scene.materials
+    n = m.count
+    mats = _RgbMaterialFields(
+        _field("material albedo", m.albedo, device, (n, 3), keep),
+        _field("material emission", m.emission, device, (n, 3), keep),
+        *(_field(f"material {name}", getattr(m, name), device, (n,), keep)
+          for name in ("metallic", "roughness", "ior", "transmission")),
+        n)
+    return _RgbTables(camera=camera_fields(camera, device, keep),
+                      geo=geometry_fields(scene, device, keep), mats=mats)
+
+
+@functools.cache
+def _entry(library, symbol, argtypes, tables_type, size_symbol):
+    """A render entry of ``csrc/<library>.cu``, once its ctypes tables
+    struct is checked against the C struct's size."""
+    size = _build.entry(library, size_symbol, ())()
+    if size != ctypes.sizeof(tables_type):
+        raise RuntimeError(
+            f"{library}: the C tables struct takes {size} bytes, its ctypes "
+            f"mirror {ctypes.sizeof(tables_type)}")
+    return _build.entry(library, symbol, argtypes)
 
 
 def _check_table(name, t, device, cols):
@@ -689,9 +804,10 @@ def _check_launch_args(device, width, height, spp, max_depth, what):
         )
 
 
-def _check_smem(*tables):
-    """The tables a kernel stages in shared memory fit its budget."""
-    smem = 4 * sum(t.numel() for t in tables)
+def _check_smem(*tables, floats=0):
+    """The tables a kernel stages in shared memory (``tables``, and
+    ``floats`` more) fit its budget."""
+    smem = 4 * (sum(t.numel() for t in tables) + floats)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"scene tables take {smem} bytes, over the kernel's "
@@ -719,11 +835,15 @@ def render_flat_megakernel(
     """CUDA-kernel render → flat (H*W, 3) bottom-up HDR buffer.
 
     A scene on a CUDA device launches ``csrc/megakernel.cu`` (built on
-    first use) and adds one to ``render_flat_megakernel.launches``.  A scene
-    on the CPU runs the plain version, :func:`render_flat_fused`.  Any other
-    device, and any input the kernel does not take, raises.  ``tables``
-    (:func:`pack_tables`) are rendered in place of packing ``scene`` and
-    ``camera``.
+    first use) and adds one to ``render_flat_megakernel.launches``: the
+    frame is one call, which gathers the records :func:`pack_tables`
+    builds straight from the scene's and camera's arrays on the card
+    (``gather_tables``) and renders them (``megakernel``), and waits for
+    nothing.  A scene on the CPU runs the plain version,
+    :func:`render_flat_fused`.  Any other device, and any input the kernel
+    does not take, raises.  ``tables`` (:func:`pack_tables`) are rendered
+    in place of the scene's arrays, with no gather (the differentiable
+    step's forward).
     """
     _check_fused_supported(scene)
     device = scene.device
@@ -735,21 +855,34 @@ def render_flat_megakernel(
         )
     _check_launch_args(device, width, height, spp, max_depth,
                        "render_flat_megakernel")
-    with torch.no_grad():
-        cam, sph, tri = (t.contiguous() for t in (
-            tables if tables is not None else pack_tables(scene, camera)))
-    _check_table("camera table", cam, device, N_CAM_FIELDS)
-    _check_table("sphere table", sph, device, N_SPHERE_FIELDS)
-    _check_table("triangle table", tri, device, N_TRI_FIELDS)
-    _check_smem(cam, sph, tri)
+    keep = []  # every tensor read by pointer, held until the launch
+    if tables is not None:
+        with torch.no_grad():
+            cam, sph, tri = keep = [t.contiguous() for t in tables]
+        _check_table("camera table", cam, device, N_CAM_FIELDS)
+        _check_table("sphere table", sph, device, N_SPHERE_FIELDS)
+        _check_table("triangle table", tri, device, N_TRI_FIELDS)
+        gather, scratch, n_sph, n_tri = None, None, sph.shape[0], tri.shape[0]
+        packed = (cam.data_ptr(), sph.data_ptr(), n_sph, tri.data_ptr(),
+                  n_tri)
+    else:
+        gather = _rgb_tables(scene, camera, device, keep)
+        n_sph, n_tri = gather.geo.n_spheres, gather.geo.n_tris
+        packed = (None, None, 0, None, 0)
+    n_floats = N_CAM_FIELDS + n_sph * N_SPHERE_FIELDS + n_tri * N_TRI_FIELDS
+    _check_smem(floats=n_floats)
+    if gather is not None:
+        scratch = torch.empty(n_floats, dtype=torch.float32, device=device)
     du, dv = _uv_scale(width, height, inclusive_uv)
     out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
-    fn = _build.entry("megakernel", "spira_megakernel_render", _ARGTYPES)
+    fn = _entry("megakernel", "spira_megakernel_render", _ARGTYPES,
+                _RgbTables, "spira_megakernel_tables_bytes")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            cam.data_ptr(), sph.data_ptr(), sph.shape[0], tri.data_ptr(),
-            tri.shape[0], out.data_ptr(), width, height, spp, max_depth,
+            None if gather is None else ctypes.byref(gather),
+            None if scratch is None else scratch.data_ptr(), *packed,
+            out.data_ptr(), width, height, spp, max_depth,
             seed & 0xFFFFFFFF, du, dv, _inv_spp(spp), int(camera.has_lens),
             stream,
         )

@@ -39,6 +39,7 @@ import torch
 from .. import _build
 from ..core import colorimetry as cl
 from ..core import pcg
+from ..core.device import device_constant
 from . import megakernel as mk
 
 W = cl.N_WAVELENGTHS
@@ -97,12 +98,6 @@ def pack_materials_spectral(materials):
     """(M, 29) spectral material table: metal, rough, ior, trans, cauchy_b,
     then the Chebyshev fits of ``albedo_spd`` and ``emission_spd``
     (differentiable in every field)."""
-    if materials.albedo_spd is None or materials.emission_spd is None:
-        raise ValueError(
-            "materials carry no albedo_spd/emission_spd tables; build them "
-            "with make_materials (Smits upsampling)"
-        )
-    pinv = torch.from_numpy(_CHEB_PINV).to(materials.albedo.device)
     cauchy = (materials.cauchy_b if materials.cauchy_b is not None
               else materials.ior * 0.0)
     return torch.cat(
@@ -112,11 +107,24 @@ def pack_materials_spectral(materials):
             materials.ior[:, None],
             materials.transmission[:, None],
             cauchy[:, None],
-            torch.einsum("dk,mk->md", pinv, materials.albedo_spd),
-            torch.einsum("dk,mk->md", pinv, materials.emission_spd),
+            *cheb_fits(materials),
         ],
         dim=1,
     )
+
+
+def cheb_fits(materials):
+    """The (M, D) Chebyshev fits of ``albedo_spd`` and ``emission_spd``:
+    one einsum each against ``_CHEB_PINV`` (a device constant), the
+    columns of the material record that are arithmetic, not gathers."""
+    if materials.albedo_spd is None or materials.emission_spd is None:
+        raise ValueError(
+            "materials carry no albedo_spd/emission_spd tables; build them "
+            "with make_materials (Smits upsampling)"
+        )
+    pinv = device_constant("CHEB_PINV", _CHEB_PINV, materials.albedo.device)
+    return (torch.einsum("dk,mk->md", pinv, materials.albedo_spd),
+            torch.einsum("dk,mk->md", pinv, materials.emission_spd))
 
 
 def _sphere_records(scene, mat):
@@ -135,11 +143,13 @@ def pack_scene_spectral(scene):
         dim=1)
 
 
+_SKY_TABLE = np.asarray([_SKY_WHITE, _SKY_CYAN, _SKY_BLUE], np.float32)
+
+
 def sky_table(device):
     """(3, D) Chebyshev coefficients of the sky's white, cyan and blue
-    basis spectra, for the CUDA kernels."""
-    return torch.tensor([_SKY_WHITE, _SKY_CYAN, _SKY_BLUE],
-                        dtype=torch.float32, device=device)
+    basis spectra, for the CUDA kernels (a device constant)."""
+    return device_constant("SKY_TABLE", _SKY_TABLE, device)
 
 
 # ----------------------------------------------------------------------------
@@ -551,15 +561,62 @@ def render_flat_fused_spectral(
 # ----------------------------------------------------------------------------
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _SpectralMaterialFields(ctypes.Structure):
+    _fields_ = [(name, _VP) for name in (
+        "metallic", "roughness", "ior", "transmission", "cauchy",
+        "alb_cheb", "emi_cheb")] + [("cheb_rs", ctypes.c_int64),
+                                    ("cheb_cs", ctypes.c_int64),
+                                    ("n_mats", _I)]
+
+
+class _SpectralTables(ctypes.Structure):
+    """``csrc/scene_tables.cuh:SpectralTables``: the scene's arrays, the
+    sky constant and the Chebyshev fits."""
+
+    _fields_ = [("camera", mk.CameraFields), ("sky", _VP),
+                ("geo", mk.GeometryFields),
+                ("mats", _SpectralMaterialFields)]
+
+
 _ARGTYPES = (
-    _VP, _VP,  # cam, sky
-    _VP, _I,  # spheres, n_spheres
-    _VP, _I,  # tris, n_tris
+    ctypes.POINTER(_SpectralTables),  # tables
     _VP, _I, _I, _I, _I,  # out, width, height, spp, max_depth
     ctypes.c_uint32, _F, _F, _F, _F, _I,  # seed, du, dv, inv_spp,
                                           # film_scale, has_lens
     _VP,  # stream
 )
+
+
+def _spectral_tables(scene, camera, fits, device, keep):
+    """The kernel's ``SpectralTables`` over the scene's arrays (held in
+    ``keep``) and the Chebyshev fits ``fits`` (:func:`cheb_fits`, which the
+    caller holds)."""
+    m = scene.materials
+    n = m.count
+    alb, emi = fits
+    if alb.stride() != emi.stride():
+        raise ValueError("the albedo and emission fits differ in layout")
+    ptr = {name: mk._field(f"material {name}", getattr(m, name), device,
+                           (n,), keep)
+           for name in ("metallic", "roughness", "ior", "transmission")}
+    cauchy = (None if m.cauchy_b is None else
+              mk._field("material cauchy_b", m.cauchy_b, device, (n,), keep))
+    for name, t in (("albedo", alb), ("emission", emi)):
+        if t.device != device or t.dtype != torch.float32 \
+                or tuple(t.shape) != (n, D):
+            raise ValueError(f"the {name} fit must be float32 ({n}, {D}) on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    mats = _SpectralMaterialFields(
+        **ptr, cauchy=cauchy, alb_cheb=alb.data_ptr(),
+        emi_cheb=emi.data_ptr(), cheb_rs=alb.stride(0),
+        cheb_cs=alb.stride(1), n_mats=n)
+    return _SpectralTables(camera=mk.camera_fields(camera, device, keep),
+                           sky=sky_table(device).data_ptr(),
+                           geo=mk.geometry_fields(scene, device, keep),
+                           mats=mats)
 
 
 def render_flat_spectral_megakernel(
@@ -577,11 +634,14 @@ def render_flat_spectral_megakernel(
     buffer.
 
     A scene on a CUDA device launches ``spira_spectral_render`` of
-    ``csrc/spectral_megakernel.cu`` (built on first use), which writes XYZ,
-    and adds one to ``render_flat_spectral_megakernel.launches``; the 3×3
-    conversion to sRGB follows as a torch op.  A scene on the CPU runs the
-    plain version, :func:`render_flat_fused_spectral`.  Any other device,
-    and any input the kernel does not take, raises.
+    ``csrc/spectral_megakernel.cu`` (built on first use), which gathers the
+    records :func:`pack_scene_spectral` builds from the scene's arrays and
+    the Chebyshev fits (:func:`cheb_fits`, two torch ops ahead of it) and
+    writes XYZ, and adds one to
+    ``render_flat_spectral_megakernel.launches``; the 3×3 conversion to
+    sRGB follows as a torch op, and the frame waits for nothing.  A scene
+    on the CPU runs the plain version, :func:`render_flat_fused_spectral`.
+    Any other device, and any input the kernel does not take, raises.
     """
     _check_spectral_supported(scene)
     device = scene.device
@@ -592,25 +652,23 @@ def render_flat_spectral_megakernel(
         )
     mk._check_launch_args(device, width, height, spp, max_depth,
                           "render_flat_spectral_megakernel")
+    keep = []  # every tensor read by pointer, held until the launch
     with torch.no_grad():
-        cam = mk.pack_camera(camera).contiguous()
-        sph, tri = (t.contiguous() for t in pack_scene_spectral(scene))
-    sky = sky_table(device)
-    mk._check_table("camera table", cam, device, mk.N_CAM_FIELDS)
-    mk._check_table("sphere table", sph, device, N_SPH_SPEC)
-    mk._check_table("triangle table", tri, device, N_TRI_SPEC)
-    mk._check_smem(cam, sky, sph, tri)
+        fits = cheb_fits(scene.materials)
+    src = _spectral_tables(scene, camera, fits, device, keep)
+    mk._check_smem(floats=mk.N_CAM_FIELDS + 3 * D
+                   + src.geo.n_spheres * N_SPH_SPEC
+                   + src.geo.n_tris * N_TRI_SPEC)
     du, dv = mk._uv_scale(width, height, inclusive_uv)
     out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
-    fn = _build.entry("spectral_megakernel", "spira_spectral_render",
-                      _ARGTYPES)
+    fn = mk._entry("spectral_megakernel", "spira_spectral_render", _ARGTYPES,
+                   _SpectralTables, "spira_spectral_tables_bytes")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            cam.data_ptr(), sky.data_ptr(), sph.data_ptr(), sph.shape[0],
-            tri.data_ptr(), tri.shape[0], out.data_ptr(), width, height, spp,
-            max_depth, seed & 0xFFFFFFFF, du, dv, mk._inv_spp(spp),
-            film_scale(), int(camera.has_lens), stream,
+            ctypes.byref(src), out.data_ptr(), width, height, spp, max_depth,
+            seed & 0xFFFFFFFF, du, dv, mk._inv_spp(spp), film_scale(),
+            int(camera.has_lens), stream,
         )
     mk._launch_error("spectral_megakernel", err)
     render_flat_spectral_megakernel.launches += 1

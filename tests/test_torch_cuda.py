@@ -374,6 +374,104 @@ def test_mesh_tracer_deep_tree_bit_equal_to_plain(cuda, tracer):
         assert torch.equal(a, b)
 
 
+# the brute-force path tracers on ragged frames: (kernel, plain version)
+BRUTE_TRACERS = {
+    "megakernel": (mk.render_flat_megakernel, mk.render_flat_fused),
+    "spectral": (sf.render_flat_spectral_megakernel,
+                 sf.render_flat_fused_spectral),
+}
+BRUTE_SCENES = {"demo": ("create_scene", _default),
+                "cornell": ("create_cornell_box", _cornell)}
+
+
+@pytest.mark.parametrize("spp", [1, 3, 17])
+@pytest.mark.parametrize("scene_name", sorted(BRUTE_SCENES))
+@pytest.mark.parametrize("tracer", sorted(BRUTE_TRACERS))
+def test_brute_tracer_bit_equal_to_plain_ragged(cuda, tracer, scene_name,
+                                                spp):
+    """#1 and #4 on the demo and the Cornell box at 37x23, depth 4: equal
+    to the plain version to the bit (the records gathered in the kernel
+    equal pack_tables' and pack_scene_spectral's), one launch."""
+    kernel_fn, plain_fn = BRUTE_TRACERS[tracer]
+    scene_fn, cam_fn = BRUTE_SCENES[scene_name]
+    scene = getattr(sp, scene_fn)(device=cuda)
+    cam = cam_fn(37 / 23, cuda)
+    kw = dict(width=37, height=23, spp=spp, max_depth=4, seed=9)
+    before = kernel_fn.launches
+    kernel = kernel_fn(scene, cam, **kw)
+    assert kernel_fn.launches == before + 1
+    plain = plain_fn(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert kernel.shape == (37 * 23, 3) and kernel.std() > 1e-3
+    assert torch.equal(kernel, plain)
+
+
+def _device_ops(fn, runs=3):
+    """The device operations of one ``fn()`` call by kind (kernel, memcpy,
+    memset), from torch.profiler over ``runs`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ops = dict(kernel=0, memcpy=0, memset=0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kind = ("memcpy" if e.name.startswith("Memcpy") else "memset"
+                    if e.name.startswith("Memset") else "kernel")
+            ops[kind] += 1
+    return {k: v / runs for k, v in ops.items()}
+
+
+def test_brute_frames_launch_what_the_design_states(cuda):
+    """One forward frame of #1 is its gather and its render launch (given
+    the packed tables, as the differentiable step's forward is, the render
+    alone); one of #4 the two Chebyshev fits, the render launch and the
+    three ops of the XYZ to sRGB product.  Neither copies anything between
+    host and card."""
+    scene = sp.create_cornell_box(device=cuda)
+    cam = sp.cornell_camera(2.0, device=cuda)
+    kw = dict(width=64, height=32, spp=2, max_depth=3)
+    ops = _device_ops(lambda: mk.render_flat_megakernel(scene, cam, **kw))
+    assert ops == dict(kernel=2, memcpy=0, memset=0)
+    tables = [t.contiguous() for t in mk.pack_tables(scene, cam)]
+    ops = _device_ops(lambda: mk.render_flat_megakernel(
+        scene, cam, tables=tables, **kw))
+    assert ops == dict(kernel=1, memcpy=0, memset=0)
+    ops = _device_ops(lambda: sf.render_flat_spectral_megakernel(
+        scene, cam, **kw))
+    assert ops["kernel"] <= 6 and ops["memcpy"] == 0 and ops["memset"] == 0
+
+
+def test_frames_do_not_synchronise(cuda):
+    """A frame of #1, #2, #4 and #5 enqueues its work and returns: none
+    waits for the stream (the device constants are built by a first
+    call)."""
+    cornell = sp.create_cornell_box(device=cuda)
+    mesh = _dispersive_mesh(cuda)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), aspect_ratio=2.0,
+                         device=cuda)
+    kw = dict(width=64, height=32, spp=2, max_depth=3)
+    frames = (
+        lambda: mk.render_flat_megakernel(cornell, cam, **kw),
+        lambda: bk.render_flat_bvh_megakernel(mesh, cam, **kw),
+        lambda: sf.render_flat_spectral_megakernel(cornell, cam, **kw),
+        lambda: sb.render_flat_spectral_bvh_megakernel(mesh, cam, **kw),
+    )
+    want = [f() for f in frames]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [f() for f in frames]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_spectral_bvh_kernel_without_spheres(cuda):
     scene = dataclasses.replace(_dispersive_mesh(cuda),
                                 spheres=empty_spheres(cuda))
