@@ -32,7 +32,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the superleaf-leaf BVH path tracer (``MXU_CASES``); the counting build
    of the packed-BVH path tracer on the bunny: its image bit-equal to the
    uncounted kernel's, its totals equal to the plain counting walk's, and
-   pops == traversals + pushes;
+   pops == traversals + pushes; the wavefront estimator's frame on the
+   bunny (``render_flat``, ``WAVEFRONT_PLAIN``) with every bounce's
+   nearest hits from kernel #3, bit-equal to the same frame with the hook
+   on #3's plain version; and #3 at the main path's shape and mode: each
+   bounce of the main path's first sample at 640x360 (the slot asked for,
+   a partly dead ``active``), its outputs bit-equal to the plain walk's;
 3. the main paths, through the user's entry points, each with every launch
    count set to 0 just before and read just after: ``render`` of the bunny
    at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), the same through
@@ -53,7 +58,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 640x360, spp 16, depth 4, each one launch and no plain call, each
    image held against its plain version and against ``cuda_bvh``'s image
    of the same scene and seed, and ``intersect_tile_mxu`` on the bunny's
-   primary rays, held against the packed-BVH query;
+   primary rays, held against the packed-BVH query; the wavefront
+   estimator: ``render_flat`` of the bunny at 640x360, spp 16, depth 4,
+   64 launches of #3 (one a bounce) and nothing else; ``render_flat_engine
+   (engine="wavefront")`` against ``cuda_bvh`` and, spectrally, against
+   ``cuda_spectral_bvh`` on the bunny, each within NOISE_FLOOR_MULT x the
+   wavefront's two-seed noise floor; ``render_with_cpu`` of the sphere
+   demo at the same shape (no kernel, no plain tracer), and
+   ``render_flat`` in reference semantics on the card against the same
+   call on the CPU;
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card
@@ -75,13 +88,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    both grad_spp beside loss mode's; ``[rank]`` lines weigh each kernel
    by its launches in one call of a main path, counted in phase 3: one
    render() under engine="auto" (the bunny, the sphere demo, and both
-   spectrally), one step, one render_mse_loss_and_grads; the most over
+   spectrally), one step, one render_mse_loss_and_grads, one render_flat
+   of the bunny (the wavefront entry); the most over
    those paths, 0 for a kernel none of them launched; each kernel's time
    and bound at the main paths' shape, 640x360 spp16 d4 (#2's work from
    its counting build there, the other path tracers' from their plain
    versions there; the nearest-hit queries at that frame's primary rays);
    beside #2's and #5's bounds, the bytes their walks touch a frame and
-   the rate that implies.
+   the rate that implies; the wavefront frame
+   (``spira_tpu_torch/bench/wavefront_frame.py`` in a process of its own,
+   ``[wavefront]`` lines): its wrapper time, its time on the card, #3's
+   launches in the profiled frame and its share of the device time, the
+   device operations a frame, the idle share and the threefry draws'
+   share, and the spectral frame's and ``render_with_cpu``'s wrapper
+   times; #3 is ranked by its launches on ``render_flat`` and its time a
+   launch there (its profiled time over its profiled launches).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
@@ -235,6 +256,17 @@ MXU_CASES = (
 #: the differentiable step: albedo of the red sphere and the ground
 #: perturbed as in tests/test_grad.py, plain gradient descent
 STEP_ALBEDO = ((0.2, 0.7, 0.7), (0.9, 0.2, 0.9))
+#: the wavefront estimator's frame with the hook on #3's plain version,
+#: held to the bit against the same frame through the kernel: a small
+#: shape, since the plain walk syncs the host at every step
+WAVEFRONT_PLAIN = dict(width=160, height=90, spp=2, max_depth=4)
+#: a wavefront image against a kernel engine's of the same scene (another
+#: RNG): the mean absolute difference within this multiple of the
+#: wavefront's own two-seed noise floor (tests/test_megakernel.py:97-120)
+NOISE_FLOOR_MULT = 1.5
+#: render_flat on the card against the same call on the CPU (the same
+#: threefry draws): rows within these, on this share of the rays
+WAVEFRONT_DEVICE_TOL = dict(rtol=1e-4, atol=1e-5, frac=0.99)
 STEP_LR, STEP_SEEDS = 2.0, range(5)
 
 
@@ -657,6 +689,119 @@ def check_main(what, kernel, img, plain_img, got, png):
         raise AssertionError(f"{what}: uint8 means differ by {gap} > 1")
 
 
+def check_wavefront_hook(sp, bk, mk, scene, cam):
+    """render_flat's frame, every bounce's nearest hits from kernel #3,
+    against the same frame with the hook on #3's plain version on the
+    card, to the bit (the same threefry draws and tensor operations)."""
+    from spira_tpu_torch.render import accumulate_rows
+
+    shape = WAVEFRONT_PLAIN
+    kernel = sp.render_flat(scene, cam, seed=3, **shape)
+    acc = accumulate_rows(
+        scene, cam, sp.rng.base_key(3), width=shape["width"],
+        height=shape["height"], row_start=0, n_rows=shape["height"],
+        sample_offset=0, n_samples=shape["spp"],
+        max_depth=shape["max_depth"], semantics="physical",
+        intersect_fn=bk.make_sorted_tile_intersect(
+            grad=True, query=bk.intersect_packed_plain))
+    plain = mk.true_divide(acc, float(shape["spp"]))
+    torch.cuda.synchronize()
+    return check_images(
+        f"wavefront bunny {shape['width']}x{shape['height']} spp"
+        f"{shape['spp']} d{shape['max_depth']}: #3 hook against the plain "
+        "hook", kernel, plain, BVH_TOL, exact=True)
+
+
+def check_wavefront_rays(sp, bk, scene, cam):
+    """#3 in the mode and at the shape the main path gives it: every
+    bounce of the main path's first sample (``render_flat`` of ``MAIN``
+    at its default seed, whose hook asks for the slot and hands over a
+    partly dead ``active``), recorded from a spp-1 frame of the same key,
+    each launch's t, normal, mat id and slot against the plain walk's on
+    the same tensors, to the bit."""
+    from spira_tpu_torch.render import accumulate_rows
+
+    launches = []
+
+    def query(packed, o, d, active=None, with_slot=False):
+        out = bk.intersect_tile(packed, o, d, active=active,
+                                with_slot=with_slot)
+        launches.append((o, d, active, with_slot, out))
+        return out
+
+    shape = dict(MAIN, spp=1)
+    accumulate_rows(
+        scene, cam, sp.rng.base_key(0), width=shape["width"],
+        height=shape["height"], row_start=0, n_rows=shape["height"],
+        sample_offset=0, n_samples=1, max_depth=shape["max_depth"],
+        semantics="physical",
+        intersect_fn=bk.make_sorted_tile_intersect(grad=True, query=query))
+    if len(launches) != shape["max_depth"]:
+        raise AssertionError(f"a spp-1 frame launched #3 {len(launches)} "
+                             f"times, not {shape['max_depth']}")
+    checks = []
+    for bounce, (o, d, active, with_slot, got) in enumerate(launches):
+        want = bk.intersect_packed_plain(scene.packed, o, d, active,
+                                         with_slot)
+        torch.cuda.synchronize()
+        name = (f"#3 on render_flat's bounce {bounce} rays, bunny "
+                f"{MAIN_SHAPE} sample 0")
+        alive = float(active.float().mean())
+        hits = float((got[0] < 1e19).float().mean())
+        equal = [torch.equal(g, w) for g, w in zip(got, want)]
+        log(f"[compare] {name}: {o.shape[0]} rays, alive {alive:.6f}, hits "
+            f"{hits:.6f}, with_slot {with_slot}; t, normal, mat id, slot "
+            f"bit-equal to the plain walk: {equal} (required)")
+        if not with_slot or len(got) != 4 or not all(equal):
+            raise AssertionError(f"{name}: kernel disagrees with the plain "
+                                 "walk")
+        checks.append(dict(case=name, rays=o.shape[0], alive_share=alive,
+                           hit_share=hits, bit_equal=True))
+    if not 0.0 < checks[-1]["alive_share"] < 1.0:
+        raise AssertionError("the last bounce's rays are all alive or all "
+                             "dead: the check does not see the active mask")
+    return checks
+
+
+def check_noise_floor(name, wave, wave_other_seed, engine_img):
+    """A kernel engine's image against the wavefront's (another RNG): the
+    mean absolute difference within NOISE_FLOOR_MULT x the wavefront's
+    own two-seed noise floor."""
+    for img in (wave, wave_other_seed, engine_img):
+        if img.shape != wave.shape or not torch.isfinite(img).all():
+            raise AssertionError(f"{name}: bad shape or not finite")
+    floor = float((wave - wave_other_seed).abs().mean())
+    gap = float((engine_img - wave).abs().mean())
+    log(f"[compare] {name}: mean abs difference {gap:.6f}, wavefront "
+        f"two-seed noise floor {floor:.6f}, ratio {gap / floor:.4f} (limit "
+        f"{NOISE_FLOOR_MULT}); channel means wavefront "
+        f"{[round(x, 5) for x in wave.mean(0).tolist()]}, engine "
+        f"{[round(x, 5) for x in engine_img.mean(0).tolist()]}")
+    if not 0.0 < floor or gap > NOISE_FLOOR_MULT * floor:
+        raise AssertionError(f"{name}: the images disagree beyond the "
+                             "noise floor")
+    return dict(case=name, mean_abs_diff=gap, noise_floor=floor,
+                ratio=gap / floor)
+
+
+def check_wavefront_device(sp, scene, cam, name, **kw):
+    """render_flat on the card against the same call on the CPU."""
+    got = sp.render_flat(scene, cam, **kw)
+    want = sp.render_flat(scene.to("cpu"), cam.to("cpu"), **kw)
+    got = got.cpu()
+    tol = WAVEFRONT_DEVICE_TOL
+    close = float(torch.isclose(got, want, rtol=tol["rtol"],
+                                atol=tol["atol"]).all(-1).float().mean())
+    max_abs = float((got - want).abs().max())
+    log(f"[compare] {name}: card against CPU, rows within rtol "
+        f"{tol['rtol']:g} / atol {tol['atol']:g}: {close:.6f} (limit "
+        f"{tol['frac']}), max_abs {max_abs:.3e}")
+    if not torch.isfinite(got).all() or close < tol["frac"]:
+        raise AssertionError(f"{name}: the card's render disagrees with "
+                             "the CPU's")
+    return dict(case=name, share_close=close, max_abs_err=max_abs)
+
+
 def check_peak(vp, x, outs, where):
     """Kernel #9's outputs ``{mode: output}`` on ``x`` against its plain
     version on the same input: separate bit-equal, contracted within
@@ -971,6 +1116,8 @@ def main() -> int:
         torch.cuda.synchronize()
         bvh_checks.append(check_images(name, kernel, plain, BVH_TOL,
                                        exact=True))
+    wavefront_checks = [check_wavefront_hook(sp, bk, mk, bunny, bunny_cam),
+                        *check_wavefront_rays(sp, bk, bunny, bunny_cam)]
     counted_checks = check_counted(bk, bunny, bunny_cam)
     counted = counted_checks["counters_640x360_spp4_d4"]
     spectral_checks = []
@@ -1110,6 +1257,55 @@ def main() -> int:
         if any(got[k] for k in rgb_kernels):
             raise AssertionError("spectral bunny path launched an RGB "
                                  "kernel")
+
+        # the wavefront estimator: render_flat on the bunny, every bounce's
+        # nearest hits from #3, spp x depth launches and nothing else
+        png = os.path.join(out_dir, "chip_smoke_bunny_wavefront.png")
+        reset_counts()
+        wave = sp.render_flat(bunny, bunny_cam, **MAIN)
+        torch.cuda.synchronize()
+        got = counts()
+        main_runs["render_flat: bunny"] = got
+        want = dict.fromkeys(got, 0)
+        want["bvh_intersect"] = MAIN["spp"] * MAIN["max_depth"]
+        img = to_uint8(wave)
+        img_io.save_png(png, img)
+        log(f"[main] bunny render_flat {shape_name}: image {img.shape}, "
+            f"mean {img.mean():.4f}, std {img.std():.4f}, launches {got}")
+        if got != want:
+            raise AssertionError(f"render_flat launched {got}, not {want}")
+        launches["bvh_intersect"] = got["bvh_intersect"]
+        # the wavefront engine against the kernel engines of the same
+        # scenes, RGB and spectral, within the noise floor
+        for spectral, kernel_fn in ((False, bk.render_flat_bvh_megakernel),
+                                    (True,
+                                     sb.render_flat_spectral_bvh_megakernel)):
+            waves = [sp.render_flat_engine(bunny, bunny_cam,
+                                           engine="wavefront", seed=seed,
+                                           spectral=spectral, **MAIN)
+                     for seed in (0, 1)]
+            if not spectral:
+                torch.testing.assert_close(waves[0], wave, rtol=0, atol=0)
+            wavefront_checks.append(check_noise_floor(
+                f"bunny {'spectral ' * spectral}wavefront against "
+                f"{'cuda_spectral_bvh' if spectral else 'cuda_bvh'} "
+                f"{shape_name}", *waves,
+                kernel_fn(bunny, bunny_cam, **MAIN)))
+        # render_with_cpu on the sphere demo: the wavefront in reference
+        # semantics on the card, no kernel and no plain tracer
+        reset_counts()
+        img = sp.render_with_cpu(demo, demo_cam, w, h, **main_args)
+        got = counts()
+        log(f"[main] demo render_with_cpu {shape_name}: image {img.shape}, "
+            f"mean {img.mean():.4f}, std {img.std():.4f}, launches {got}")
+        if any(got.values()) or img.shape != (h, w, 3) or img.std() == 0:
+            raise AssertionError(f"render_with_cpu: launches {got}, image "
+                                 f"{img.shape}")
+        wavefront_checks.append(check_wavefront_device(
+            sp, demo, sp.default_camera(2.0, device=device),
+            "demo render_flat reference semantics 48x24 spp2 d4",
+            width=48, height=24, spp=2, max_depth=4, seed=5,
+            semantics="reference"))
 
         # the superleaf engines: one launch of their kernel, nothing else;
         # each image against its plain version at its own spp and against
@@ -1413,6 +1609,42 @@ def main() -> int:
         f"forward kernel alone {fwd_ms} ms (torch.profiler; by kernel "
         f"{grad_t['loss_kernels_ms']}), plain version (one call, case q) "
         f"{loss_p:.3f} ms, kernel/plain {loss_k / loss_p:.5f}")
+    # the wavefront frame: where its time goes (bench/wavefront_frame.py),
+    # in a process of its own (inside this one, after the other phases,
+    # the host's dispatch is slower, PERF.md §5)
+    proc = subprocess.run(
+        [sys.executable, "-m", "spira_tpu_torch.bench.wavefront_frame"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600, check=True)
+    wave_t = json.loads(proc.stdout.strip().splitlines()[-1])
+    n_isect = MAIN["spp"] * MAIN["max_depth"]
+    if wave_t["intersect_launches"] != n_isect:
+        raise AssertionError(f"the profiled wavefront frame launched #3 "
+                             f"{wave_t['intersect_launches']} times, not "
+                             f"{n_isect}")
+    wave_t["spectral_wrapper_ms"] = time_ms(
+        lambda: sp.render_flat(bunny, bunny_cam, spectral=True, **MAIN), 5)
+    wave_t["render_with_cpu_demo_ms"] = time_ms(
+        lambda: sp.render_with_cpu(demo, demo_cam, w, h, **main_args), 5)
+    log(f"[wavefront] {card}: bunny render_flat {MAIN_SHAPE} in a process "
+        f"of its own (bench/wavefront_frame.py): wrapper "
+        f"{wave_t['wrapper_ms']:.3f} ms (median of 5), on the card "
+        f"{wave_t['device_ms']:.3f} ms (one profiled call), idle share "
+        f"{wave_t['idle_share']} of the wrapper, "
+        f"{wave_t['idle_share_profiled']} of the profiled call's "
+        f"{wave_t['profiled_wall_ms']:.3f} ms")
+    log(f"[wavefront] {card}: #3 {wave_t['intersect_ms']} ms a frame on the "
+        f"card over {wave_t['intersect_launches']} launches (profiled), "
+        f"{wave_t['intersect_ms_per_launch']} ms a launch, "
+        f"{wave_t['intersect_share']} of the device time; device operations "
+        f"a frame {wave_t['device_ops']}; top kernels (ms) "
+        f"{wave_t['top_kernels_ms']}")
+    log(f"[wavefront] {card}: the threefry draws alone "
+        f"{wave_t['rng_ms']:.3f} ms, {wave_t['rng_share']:.4f} of the "
+        f"wrapper; in this process: spectral render_flat "
+        f"{wave_t['spectral_wrapper_ms']:.3f} ms, render_with_cpu demo "
+        f"{MAIN_SHAPE} (tone map and host copy included) "
+        f"{wave_t['render_with_cpu_demo_ms']:.3f} ms")
     parent_t = parent_frames = this_frames = None
     if args.parent:
         here = os.path.dirname(os.path.abspath(__file__))
@@ -1729,7 +1961,15 @@ def main() -> int:
             "ms": isect_k,
             "plain_ms": isect_p,
             "shape": "bunny primary rays 640x360",
-            "checks": isect_checks,
+            # the main path that launches it: render_flat, one launch a
+            # bounce; ranked by its time a launch there (torch.profiler)
+            # against the primary rays' bound (the same bytes a launch)
+            "rank_ms_bound_ms": (
+                wave_t["intersect_ms_per_launch"],
+                bounds["bvh_intersect"]["bound_ms"],
+                f"a launch in render_flat, bunny {MAIN_SHAPE}"),
+            "wavefront_frame": wave_t,
+            "checks": isect_checks + wavefront_checks,
         },
         {
             "name": "spectral_megakernel",

@@ -12,22 +12,33 @@ same ``render`` entry point; the superleaf engines of
 block leaves of ``csrc/superleaf.cuh``); and the differentiable step of
 sphere and small-triangle scenes (``render_flat_hybrid_grad``,
 ``render_mse_loss_and_grads``), whose gradients come from a hand-written
-adjoint kernel (``csrc/grad_megakernel.cu``).  Scenes and cameras are made
-on the card unless ``device="cpu"`` is asked for.  Nothing here imports
-JAX.
+adjoint kernel (``csrc/grad_megakernel.cu``); and the wavefront estimator
+(``render_flat``, engine ``wavefront``, ``render_with_cpu``), whose
+threefry draws are JAX's own bits and whose nearest hits on a packed
+scene on the card come from the packed-BVH query kernel.  Scenes and
+cameras are made on the card unless ``device="cpu"`` is asked for.
+Nothing here imports JAX.
 """
 
 from .accel.bvh import build_two_level
 from .accel.mxu import attach_mxu, attach_superleaf
 from .accel.pairs import attach_packed
 from .accel.wide import attach_wide
-from .core import colorimetry, pcg, vecmath
+from .core import colorimetry, pcg, rng, vecmath
 from .core.convert import camera_from_numpy, scene_from_numpy
 from .kernels.grad_megakernel import render_mse_loss_and_grads
 from .kernels.megakernel import render_flat_hybrid_grad
-from .render import render, render_flat_engine, render_hdr, select_engine
+from .render import (
+    render,
+    render_flat,
+    render_flat_engine,
+    render_hdr,
+    render_hybrid_gpu,
+    render_with_cpu,
+    select_engine,
+)
 from .scene.bunny import bunny_camera, create_bunny_scene
-from .scene.camera import Camera, default_camera, make_camera
+from .scene.camera import Camera, default_camera, generate_rays, make_camera
 from .scene.geometry import Spheres, Triangles, make_spheres, make_triangles
 from .scene.materials import Materials, make_materials
 from .scene.scene import (
@@ -61,6 +72,7 @@ __all__ = [
     "create_mesh_scene",
     "create_scene",
     "default_camera",
+    "generate_rays",
     "make_camera",
     "make_materials",
     "make_scene",
@@ -68,10 +80,14 @@ __all__ = [
     "make_triangles",
     "pcg",
     "render",
+    "render_flat",
     "render_flat_engine",
     "render_flat_hybrid_grad",
     "render_hdr",
+    "render_hybrid_gpu",
     "render_mse_loss_and_grads",
+    "render_with_cpu",
+    "rng",
     "scene_from_numpy",
     "select_engine",
     "vecmath",

@@ -47,7 +47,9 @@ class FlatBVH:
     sibling: torch.Tensor = None  # (M,) int32
     is_left: torch.Tensor = None  # (M,) int32 0/1
     max_leaf: int = LEAF_SIZE  # largest leaf count
-    n_sph: int = 0  # mixed sphere+triangle trees (not ported): sphere ids
+    # mixed sphere+triangle trees (build_mixed_bvh): prim ids < n_sph are
+    # spheres, ids >= n_sph triangle id - n_sph
+    n_sph: int = 0
 
     @property
     def node_count(self) -> int:
@@ -141,6 +143,26 @@ def _build_arrays(lo, hi, leaf_size):
         stack.append((l, start, start + mid, depth + 1))
         stack.append((r, start + mid, end, depth + 1))
     return (node_min, node_max, left, right, is_leaf), order
+
+
+def build_mixed_bvh(spheres, tris=None, leaf_size: int = LEAF_SIZE) -> FlatBVH:
+    """One tree over spheres and triangles (mixed-primitive leaves),
+    median split: sphere s is primitive s with the box center ± radius,
+    triangle t is primitive ``n_sph + t``.  Traverse it with
+    :func:`spira_tpu_torch.accel.traverse.intersect_bvh_mixed`
+    (:func:`spira_tpu_torch.integrator.intersect.intersect_scene` does for
+    a scene whose ``bvh.n_sph > 0``)."""
+    centers = spheres.centers.detach().cpu().numpy().astype(np.float64)
+    radii = spheres.radii.detach().cpu().numpy().astype(np.float64)[:, None]
+    lo, hi = [centers - radii], [centers + radii]
+    if tris is not None and tris.count > 0:
+        tlo, thi = triangle_bounds(tris)
+        lo.append(tlo)
+        hi.append(thi)
+    arrays, order = _build_arrays(np.concatenate(lo), np.concatenate(hi),
+                                  leaf_size)
+    return dataclasses.replace(_flat(*arrays, order),
+                               n_sph=int(spheres.count))
 
 
 def _build_one(lo, hi, leaf_size, use_native, row_size):

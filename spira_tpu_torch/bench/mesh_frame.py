@@ -108,10 +108,11 @@ def _kernel_name(name):
 
 def profile_call(fn, runs=5):
     """``torch.profiler`` over ``runs`` calls of ``fn`` after a warm-up:
-    ms a call on the card by kernel name and in all, ms a call on the
-    host's clock (the calls and a final synchronisation), the device
-    operations a call by kind, the host's CUDA runtime calls a call, and
-    the grid of each of the repo's kernels from the trace."""
+    ms and launches a call on the card by kernel name, ms a call on the
+    card in all and on the host's clock (the calls and a final
+    synchronisation), the device operations a call by kind, the host's
+    CUDA runtime calls a call, and the grid of each of the repo's kernels
+    from the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -123,12 +124,13 @@ def profile_call(fn, runs=5):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / runs
-    by_name, ops, runtime = {}, {}, {}
+    by_name, launches, ops, runtime = {}, {}, {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = _kernel_name(e.name)
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / runs / 1e3)
+            launches[name] = launches.get(name, 0) + 1 / runs
             kind = ("memcpy" if name.startswith("Memcpy") else "memset"
                     if name.startswith("Memset") else "kernel")
             ops[kind] = ops.get(kind, 0) + 1 / runs
@@ -144,6 +146,7 @@ def profile_call(fn, runs=5):
              if ev.get("cat") == "kernel" and "spira" in ev.get("name", "")}
     return dict(
         kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+        launches=launches,
         device_ms=sum(by_name.values()),
         wall_ms=wall_ms,
         device_ops={k: round(v, 3) for k, v in sorted(ops.items())},

@@ -14,7 +14,8 @@ at equal distance.
   :func:`render_flat_bvh_fused`.
 * :func:`intersect_tile` — the CUDA nearest-hit query
   (``spira_bvh_intersect``) for rays on a CUDA device; on the CPU,
-  :func:`intersect_packed_plain`.
+  :func:`intersect_packed_plain`.  :func:`make_sorted_tile_intersect`
+  makes it the wavefront estimator's nearest-hit hook.
 * :func:`render_bvh_with_counters` — the counting build of the CUDA path
   tracer (``spira_bvh_megakernel_render_counted``): the same image and the
   frame's work counters; on the CPU, :func:`render_bvh_counters_fused`.
@@ -50,6 +51,9 @@ import torch
 from .. import _build
 from ..accel.mxu import BLOCK_ROWS, SUPERLEAF, SuperleafBVH
 from ..accel.pairs import TRI_STRIDE, TRIS_PER_ROW, check_stack_depth
+from ..accel.traverse import _winner_triangle_hit
+from ..core.vecmath import INF
+from ..integrator.intersect import Hit, intersect_spheres, merge_hits
 from . import megakernel as mk
 
 #: width of the material table (:func:`pack_materials`).
@@ -771,3 +775,60 @@ def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 intersect_tile.launches = 0
+
+
+def make_sorted_tile_intersect(*, grad: bool = False, query=None):
+    """The wavefront estimator's nearest-hit hook over ``scene.packed``:
+    ``intersect(scene, o, d, alive) -> Hit``, for
+    :func:`spira_tpu_torch.integrator.path_trace.trace`'s
+    ``intersect_fn``.  The counterpart of the JAX
+    ``make_sorted_tile_intersect`` (``spira_tpu/kernels/
+    bvh_megakernel.py:1631``), which hands each bounce's rays to Pallas
+    kernel #3; this one hands them to :func:`intersect_tile`, CUDA kernel
+    #3 for rays on the card and its plain version for rays on the CPU.
+    ``query`` replaces :func:`intersect_tile` (for example with
+    :func:`intersect_packed_plain`, the plain version on any device).
+
+    ``alive`` goes in as the kernel's ``active``: dead rays cost it
+    nothing and miss.  The rays are not sorted.  JAX sorts them by (dead,
+    direction octant) so that a TPU packet's rays cull together; on the
+    card each ray walks the tree on its own, and a per-ray walk's nearest
+    hit does not depend on the rays' order.
+
+    ``grad=False``: the hit takes the kernel's own t, normal and
+    material.  ``grad=True``: the kernel also reports the winner's
+    triangle slot, which ``PackedBVH.prim_map`` maps to the scene's
+    triangle; its hit is recomputed by Möller–Trumbore from the scene's
+    tables (:func:`spira_tpu_torch.accel.traverse._winner_triangle_hit`),
+    so gradients can flow to the camera and the geometry while the walk
+    stays a discrete choice.  Both forms merge the triangle hit with the
+    spheres' (:func:`intersect_spheres`).
+    """
+    query = intersect_tile if query is None else query
+
+    def intersect(scene, o, d, alive):
+        packed = scene.packed
+        if packed is None:
+            raise ValueError("the packed-BVH hook needs scene.packed; call "
+                             "spira_tpu_torch.accel.pairs.attach_packed")
+        o_k = o.detach().contiguous()
+        d_k = d.detach().contiguous()
+        if grad:
+            if packed.prim_map is None:
+                raise ValueError("grad=True needs PackedBVH.prim_map (slot "
+                                 "-> scene triangle); re-pack the scene "
+                                 "with attach_packed")
+            t, _, _, slot = query(packed, o_k, d_k, active=alive,
+                                  with_slot=True)
+            found = (t < 1e19) & (slot >= 0)
+            prim = torch.clamp(packed.prim_map[torch.clamp(
+                slot.long(), 0, packed.prim_map.shape[0] - 1)].long(), min=0)
+            tri = _winner_triangle_hit(scene.triangles, prim, found, o, d)
+        else:
+            t, nrm, mid = query(packed, o_k, d_k, active=alive)
+            found = t < 1e19
+            tri = Hit(t=torch.where(found, t, INF), normal=nrm,
+                      material=torch.clamp(mid.long(), min=0), hit=found)
+        return merge_hits(intersect_spheres(scene.spheres, o, d), tri)
+
+    return intersect

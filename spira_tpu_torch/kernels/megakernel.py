@@ -36,13 +36,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import _build
 from ..core import pcg
-
-INF = 1e20
-T_MIN = 1e-3
-SCATTER_EPS = 1e-4
-RR_START = 3
-RR_CAP = 0.95
-CUTOFF = 0.01
+from ..core.vecmath import INF, SCATTER_EPS, T_MIN
+from ..integrator.path_trace import RR_CAP, RR_START
+from ..integrator.path_trace import THROUGHPUT_CUTOFF as CUTOFF
 
 # Per-bounce PCG stream ids (stream 0 = ray generation).
 _S_LOBE = 1  # lobe select / RR / diffuse disk (4 uniforms)
@@ -72,8 +68,9 @@ def true_divide(x, d: float):
     """x / d for a Python number d, rounded as one IEEE division on every
     device, as the kernels divide: on the card torch divides a tensor by a
     Python number as a product with the number's reciprocal, one rounding
-    more."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    more.  The divisor is filled on the device, so the call copies nothing
+    from the host and does not wait for the stream."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _dot3(ax, ay, az, bx, by, bz):

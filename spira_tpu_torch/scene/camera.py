@@ -2,17 +2,21 @@
 
 Counterpart of :mod:`spira_tpu.scene.camera`.  The derived frame is stored
 as tensors so that camera gradients can flow; v runs bottom-up and images
-are flipped at assembly.  ``generate_rays`` serves the wavefront estimator
-and comes with that slice.
+are flipped at assembly.  :func:`generate_rays` makes the wavefront
+estimator's threefry-jittered primary rays.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..core import rng as srng
 from ..core import vecmath as vm
 from ..core.device import resolve_device
 from ..core.types import tensor_dataclass
+from ..kernels.megakernel import true_divide
 
 
 @tensor_dataclass
@@ -85,3 +89,56 @@ def default_camera(aspect_ratio, device=None) -> Camera:
         aspect_ratio=aspect_ratio,
         device=device,
     )
+
+
+def generate_rays(camera: Camera, width: int, height: int, key, *,
+                  inclusive_uv: bool = True, row_start: int = 0,
+                  n_rows: int | None = None):
+    """Jittered primary rays for the rows ``row_start .. row_start +
+    n_rows`` (all rows by default), flattened to an (n_rows*W,) wavefront
+    on the camera's device: (origins (N, 3), directions (N, 3)).
+
+    Ray ``r = (row - row_start) * W + col``, ``row`` counting from the
+    bottom of the image.  ``key`` (:mod:`spira_tpu_torch.core.rng`) is the
+    sample's key; the jitter draws from its ``PIXEL_JITTER`` stream and
+    the thin-lens disk from ``LENS``.  ``inclusive_uv=True`` divides by
+    (dim - 1), ``False`` by dim.  The JAX package's row-set and block-set
+    forms (``rows=``, ``blocks=``) are not ported.
+    """
+    if n_rows is None:
+        n_rows = height
+    n = width * n_rows
+    device = camera.origin.device
+    jitter = srng.uniform(srng.bounce_key(key, 0, srng.Stream.PIXEL_JITTER),
+                          (n, 2), device)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    col = (idx % width).to(torch.float32)
+    row = (idx // width + row_start).to(torch.float32)
+    return _rays_from_uv(camera, width, height, key, jitter, col, row,
+                         inclusive_uv, n)
+
+
+def _rays_from_uv(camera, width, height, key, jitter, col, row,
+                  inclusive_uv, n):
+    du = float(width - 1 if inclusive_uv else width)
+    dv = float(height - 1 if inclusive_uv else height)
+    u = true_divide(col + jitter[:, 0], du)
+    v = true_divide(row + jitter[:, 1], dv)
+
+    target = (camera.lower_left_corner[None, :]
+              + u[:, None] * camera.horizontal[None, :]
+              + v[:, None] * camera.vertical[None, :])
+
+    origins = camera.origin[None, :].expand(n, 3)
+    if camera.has_lens:
+        # polar disk sample; a pinhole (lens_radius 0) adds exactly 0
+        disk = srng.uniform(srng.bounce_key(key, 0, srng.Stream.LENS),
+                            (n, 2), camera.origin.device)
+        r = torch.sqrt(disk[:, 0])
+        phi = 2.0 * math.pi * disk[:, 1]
+        lens_offset = (camera.lens_radius * r)[:, None] * (
+            torch.cos(phi)[:, None] * camera.u[None, :]
+            + torch.sin(phi)[:, None] * camera.v[None, :])
+        origins = origins + lens_offset
+    directions = vm.normalize(target - origins)
+    return origins, directions

@@ -128,7 +128,8 @@ def test_render_matches_jax_kernel(mesh):
 
 def test_render_engine_cuda_bvh_on_cpu(mesh):
     """engine='cuda_bvh' on a CPU scene runs the plain version; the
-    wrapper launches nothing; 'auto' refuses a mesh scene on the CPU."""
+    wrapper launches nothing; 'auto' sends a mesh scene on the CPU to the
+    wavefront estimator, as JAX's select_engine does off the TPU."""
     _, (scene, cam) = mesh
     kw = dict(spp=1, max_depth=2, seed=3)
     want = tbk.render_flat_bvh_fused(scene, cam, width=32, height=8, **kw)
@@ -140,16 +141,17 @@ def test_render_engine_cuda_bvh_on_cpu(mesh):
     img = sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=2,
                     seed=3, engine="cuda_bvh")
     assert img.shape == (8, 32, 3) and img.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="item 10") as err:
-        sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1)
-    assert "ROADMAP.md" in str(err.value)
+    assert sp.select_engine(scene, "physical", False) == "wavefront"
+    before = tbk.render_flat_bvh_megakernel.launches
+    img = sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1)
+    assert img.shape == (8, 32, 3) and img.dtype == np.uint8
+    assert tbk.render_flat_bvh_megakernel.launches == before
     bvh_only = dataclasses.replace(scene, packed=None)
-    with pytest.raises(NotImplementedError, match="'bvh' table"):
-        sp.select_engine(bvh_only, "physical", False)
+    assert sp.select_engine(bvh_only, "physical", False) == "wavefront"
     with pytest.raises(ValueError, match="RGB only"):
         sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1,
                   engine="cuda_bvh", spectral=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="physical semantics only"):
         sp.render(scene, cam, 32, 8, samples_per_pixel=1, max_depth=1,
                   engine="cuda_bvh", semantics="reference")
 

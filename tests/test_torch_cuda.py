@@ -4,7 +4,9 @@ query, the spectral megakernel and spectral packed-BVH path tracer, the
 adjoint kernel against autograd through the plain tracer, and the
 superleaf kernels (the streaming path tracer and query, the packed-BVH
 path tracer with superleaf leaves), the peak-rate probes (kernels #9 and
-#10), and the counting build of the packed-BVH path tracer.
+#10), the counting build of the packed-BVH path tracer, and the wavefront
+estimator (``render_flat`` through the packed-BVH query, one launch a
+bounce, with no synchronising call; ``render_with_cpu``).
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -893,3 +895,88 @@ def test_counted_kernel_matches_uncounted_and_plain(cuda, form):
     np.testing.assert_allclose(kernel.mean(0), plain_np.mean(0),
                                rtol=MEAN_REL)
     assert (np.abs(kernel - plain_np) <= 1e-4).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# The wavefront estimator: render_flat on a packed scene through kernel #3
+# ---------------------------------------------------------------------------
+
+def _packed_mesh(device):
+    scene = sp.attach_packed(sp.create_mesh_scene(subdivisions=2,
+                                                  device=device))
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), aspect_ratio=2.0,
+                         device=device)
+    return scene, cam
+
+
+def _plain_hook_frame(scene, cam, seed, grad, **shape):
+    """render_flat's frame with the hook on #3's plain version."""
+    from spira_tpu_torch.render import accumulate_rows
+
+    intersect = bk.make_sorted_tile_intersect(
+        grad=grad, query=bk.intersect_packed_plain)
+    acc = accumulate_rows(
+        scene, cam, sp.rng.base_key(seed), width=shape["width"],
+        height=shape["height"], row_start=0, n_rows=shape["height"],
+        sample_offset=0, n_samples=shape["spp"],
+        max_depth=shape["max_depth"], semantics="physical",
+        intersect_fn=intersect)
+    return mk.true_divide(acc, float(shape["spp"]))
+
+
+@pytest.mark.parametrize("grad_hook", [True, False])
+def test_render_flat_launches_intersect_per_bounce(cuda, grad_hook):
+    """render_flat on a packed mesh on the card: spp x depth launches of
+    #3 and no other kernel; the image equals the same frame with the hook
+    on #3's plain version, to the bit."""
+    scene, cam = _packed_mesh(cuda)
+    shape = dict(width=48, height=24, spp=3, max_depth=4)
+    counted = (bk.intersect_tile, bk.render_flat_bvh_megakernel,
+               mk.render_flat_megakernel)
+    for fn in counted:
+        fn.launches = 0
+    got = sp.render_flat(scene, cam, seed=2, grad_hook=grad_hook, **shape)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [3 * 4, 0, 0]
+    want = _plain_hook_frame(scene, cam, 2, grad_hook, **shape)
+    assert torch.equal(got, want)
+    assert got.std() > 1e-3
+    # against the scene's own traversal (no packed tables): the same
+    # paths up to a branch flip, JAX's tolerance for its hook
+    walk = sp.render_flat(dataclasses.replace(scene, packed=None), cam,
+                          seed=2, **shape)
+    close = torch.isclose(got, walk, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.float().mean() >= 0.99
+
+
+def test_wavefront_frame_does_not_sync(cuda):
+    scene, cam = _packed_mesh(cuda)
+    shape = dict(width=32, height=16, spp=2, max_depth=4)
+    for spectral in (False, True):  # builds #3, fills the constants
+        sp.render_flat(scene, cam, spectral=spectral, **shape)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for spectral in (False, True):
+            sp.render_flat(scene, cam, spectral=spectral, **shape)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_render_with_cpu_runs_on_the_card(cuda):
+    """render_with_cpu on the sphere demo: the wavefront in reference
+    semantics on the card, the same image as on the CPU up to a rare
+    branch flip."""
+    scene = sp.create_scene(device=cuda)
+    cam = sp.default_camera(2.0, device=cuda)
+    kw = dict(spp=2, max_depth=3, seed=7, semantics="reference")
+    got = sp.render_flat(scene, cam, width=32, height=16, **kw)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    want = sp.render_flat(scene.to("cpu"), cam.to("cpu"), width=32,
+                          height=16, **kw)
+    close = torch.isclose(got.cpu(), want, rtol=1e-4, atol=1e-5).all(-1)
+    assert close.float().mean() >= 0.99
+    img = sp.render_with_cpu(scene, cam, 32, 16, samples_per_pixel=2,
+                             max_depth=3, seed=7)
+    assert img.shape == (16, 32, 3) and img.std() > 0

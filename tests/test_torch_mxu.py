@@ -322,8 +322,8 @@ def test_engines_on_cpu(mesh):
     img = sp.render(scenes["mxu"], cam, 32, 8, samples_per_pixel=1,
                     max_depth=2, engine="cuda_mxu")
     assert img.shape == (8, 32, 3) and img.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sp.select_engine(scenes["mxu"], "physical", False)
+    # never under auto: a mesh scene on the CPU takes the wavefront
+    assert sp.select_engine(scenes["mxu"], "physical", False) == "wavefront"
 
 
 def test_engine_and_wrapper_refusals(mesh):
@@ -333,7 +333,7 @@ def test_engine_and_wrapper_refusals(mesh):
         with pytest.raises(ValueError, match="RGB only"):
             sp.render(scenes["mxu"], cam, 8, 8, samples_per_pixel=1,
                       max_depth=1, engine=engine, spectral=True)
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(ValueError, match="physical semantics only"):
             sp.render(scenes["mxu"], cam, 8, 8, samples_per_pixel=1,
                       max_depth=1, engine=engine, semantics="reference")
         bare = dataclasses.replace(scenes["mxu"], bvh=None, wide=None)

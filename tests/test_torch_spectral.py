@@ -401,10 +401,11 @@ def test_render_spectral_mesh_scene_on_cpu():
     scene = _port_mesh_scene(_tetra(0))
     cam = _mesh_camera(16, 8)
     kw = dict(spp=1, max_depth=2, seed=2)
-    with pytest.raises(NotImplementedError, match="item 10") as err:
-        sp.render(scene, cam, 16, 8, samples_per_pixel=1, max_depth=2,
-                  spectral=True)
-    assert "cuda_spectral_bvh" in str(err.value)
+    # under auto a mesh scene on the CPU takes the spectral wavefront
+    assert sp.select_engine(scene, "physical", True) == "wavefront"
+    img = sp.render(scene, cam, 16, 8, samples_per_pixel=1, max_depth=2,
+                    spectral=True)
+    assert img.shape == (8, 16, 3) and img.dtype == np.uint8
     before = tsb.render_flat_spectral_bvh_megakernel.launches
     flat = sp.render_flat_engine(scene, cam, width=16, height=8,
                                  spectral=True, engine="cuda_spectral_bvh",
@@ -417,9 +418,15 @@ def test_render_spectral_mesh_scene_on_cpu():
     with pytest.raises(ValueError, match="RGB only"):
         sp.render(scene, cam, 16, 8, samples_per_pixel=1, max_depth=1,
                   spectral=True, engine="cuda_bvh")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sp.render(scene, cam, 16, 8, samples_per_pixel=1, max_depth=1,
-                  spectral=True, semantics="reference")
+    # the spectral wavefront renders physical transport whatever the
+    # semantics, as JAX's trace_spectral does
+    torch.testing.assert_close(
+        sp.render_flat_engine(scene, cam, width=16, height=8, spp=1,
+                              max_depth=1, spectral=True,
+                              semantics="reference"),
+        sp.render_flat_engine(scene, cam, width=16, height=8, spp=1,
+                              max_depth=1, spectral=True,
+                              engine="wavefront"), rtol=0, atol=0)
 
 
 def test_spectral_wrapper_refusals():
