@@ -93,7 +93,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    those paths, 0 for a kernel none of them launched; each kernel's time
    and bound at the main paths' shape, 640x360 spp16 d4 (#2's work from
    its counting build there, the other path tracers' from their plain
-   versions there; the nearest-hit queries at that frame's primary rays);
+   versions there; #8 at that frame's primary rays; #3 on the four calls
+   of ``render_flat``'s first sample recorded in phase 2, ``[bounce]``
+   lines: each call's live share, time (CUDA events) and time by kernel
+   (``torch.profiler``), plain time, and bound from the plain walk's work
+   on that call's live rays, the four bounds summed);
    beside #2's and #5's bounds, the bytes their walks touch a frame and
    the rate that implies; the wavefront frame
    (``spira_tpu_torch/bench/wavefront_frame.py`` in a process of its own,
@@ -102,18 +106,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    device operations a frame, the idle share and the threefry draws'
    share, and the spectral frame's and ``render_with_cpu``'s wrapper
    times; #3 is ranked by its launches on ``render_flat`` and its time a
-   launch there (its profiled time over its profiled launches).
+   launch there (its profiled time over its profiled launches) against
+   the mean of its four calls' bounds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
 paths' PNGs there; ``--parent DIR`` also times another commit's adjoint
 kernel and step (a ``git archive`` of it unpacked into ``DIR``) with
-``spira_tpu_torch/bench/grad_step.py``, and its frames (#2, #5, #2b, #3
+``spira_tpu_torch/bench/grad_step.py``, its frames (#2, #5, #2b, #3
 on the bunny, #1 and #4 at 640x360 spp16 d4 and 1920x1080 spp256, with
 their host share, ``ptxas -v`` and #1's and #4's occupancy) beside this
-tree's with ``spira_tpu_torch/bench/mesh_frame.py`` (parent, this, this,
-parent), each run in a process of its own; every image of both commits
-must agree to the bit.
+tree's with ``spira_tpu_torch/bench/mesh_frame.py``, and its #3 on the
+wavefront's four calls of a sample with
+``spira_tpu_torch/bench/intersect_bounces.py`` (each parent, this, this,
+parent), each run in a process of its own; every image and every output
+of #3 of both commits must agree to the bit.
 """
 
 from __future__ import annotations
@@ -511,6 +518,20 @@ def sol_bound(units, nbytes, rates):
     return price(dict(sol.ops_of(units), bytes=nbytes), rates)
 
 
+def sum_bounds(parts):
+    """The bound of calls that run one after another: the sum of their
+    bounds; ``bound_term`` and ``bound_by`` name the largest of the summed
+    terms."""
+    terms = {k: sum(p["bound_terms_ms"][k] for p in parts)
+             for k in parts[0]["bound_terms_ms"]}
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=sum(p["bound_ms"] for p in parts),
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bound_terms_ms=terms,
+                datasheet_bound_ms=sum(p["datasheet_bound_ms"]
+                                       for p in parts))
+
+
 def table_bytes(*tensors):
     return sum(4 * t.numel() for t in tensors)
 
@@ -712,55 +733,38 @@ def check_wavefront_hook(sp, bk, mk, scene, cam):
         "hook", kernel, plain, BVH_TOL, exact=True)
 
 
-def check_wavefront_rays(sp, bk, scene, cam):
+def check_wavefront_rays(bk, ib, scene, cam):
     """#3 in the mode and at the shape the main path gives it: every
     bounce of the main path's first sample (``render_flat`` of ``MAIN``
     at its default seed, whose hook asks for the slot and hands over a
-    partly dead ``active``), recorded from a spp-1 frame of the same key,
-    each launch's t, normal, mat id and slot against the plain walk's on
-    the same tensors, to the bit."""
-    from spira_tpu_torch.render import accumulate_rows
-
-    launches = []
-
-    def query(packed, o, d, active=None, with_slot=False):
-        out = bk.intersect_tile(packed, o, d, active=active,
-                                with_slot=with_slot)
-        launches.append((o, d, active, with_slot, out))
-        return out
-
-    shape = dict(MAIN, spp=1)
-    accumulate_rows(
-        scene, cam, sp.rng.base_key(0), width=shape["width"],
-        height=shape["height"], row_start=0, n_rows=shape["height"],
-        sample_offset=0, n_samples=1, max_depth=shape["max_depth"],
-        semantics="physical",
-        intersect_fn=bk.make_sorted_tile_intersect(grad=True, query=query))
-    if len(launches) != shape["max_depth"]:
-        raise AssertionError(f"a spp-1 frame launched #3 {len(launches)} "
-                             f"times, not {shape['max_depth']}")
+    partly dead ``active``), recorded by ``bench/intersect_bounces.py``
+    from a spp-1 frame of the same key, each launch's t, normal, mat id
+    and slot against the plain walk's on the same tensors, to the bit.
+    Returns the checks and the recorded calls."""
+    calls = ib.record_bounces(scene, cam, MAIN)
     checks = []
-    for bounce, (o, d, active, with_slot, got) in enumerate(launches):
-        want = bk.intersect_packed_plain(scene.packed, o, d, active,
-                                         with_slot)
+    for bounce, (o, d, active, got) in enumerate(calls):
+        want = bk.intersect_packed_plain(scene.packed, o, d, active, True)
         torch.cuda.synchronize()
         name = (f"#3 on render_flat's bounce {bounce} rays, bunny "
                 f"{MAIN_SHAPE} sample 0")
         alive = float(active.float().mean())
         hits = float((got[0] < 1e19).float().mean())
         equal = [torch.equal(g, w) for g, w in zip(got, want)]
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
         log(f"[compare] {name}: {o.shape[0]} rays, alive {alive:.6f}, hits "
-            f"{hits:.6f}, with_slot {with_slot}; t, normal, mat id, slot "
+            f"{hits:.6f}, with_slot True; t, normal, mat id, slot "
             f"bit-equal to the plain walk: {equal} (required)")
-        if not with_slot or len(got) != 4 or not all(equal):
+        if len(got) != 4 or not all(equal):
             raise AssertionError(f"{name}: kernel disagrees with the plain "
                                  "walk")
         checks.append(dict(case=name, rays=o.shape[0], alive_share=alive,
-                           hit_share=hits, bit_equal=True))
+                           hit_share=hits, bit_equal=True, max_abs_err=err))
     if not 0.0 < checks[-1]["alive_share"] < 1.0:
         raise AssertionError("the last bounce's rays are all alive or all "
                              "dead: the check does not see the active mask")
-    return checks
+    return checks, calls
 
 
 def check_noise_floor(name, wave, wave_other_seed, engine_img):
@@ -926,6 +930,7 @@ def main() -> int:
     import spira_tpu_torch as sp
     from spira_tpu_torch import _build
     from spira_tpu_torch.bench import grad_step as gs
+    from spira_tpu_torch.bench import intersect_bounces as ib
     from spira_tpu_torch.bench.mesh_frame import primary_rays
     from spira_tpu_torch.bench import packet_profile as pp
     from spira_tpu_torch.bench import timing
@@ -1116,8 +1121,10 @@ def main() -> int:
         torch.cuda.synchronize()
         bvh_checks.append(check_images(name, kernel, plain, BVH_TOL,
                                        exact=True))
+    bounce_checks, bounce_calls = check_wavefront_rays(bk, ib, bunny,
+                                                       bunny_cam)
     wavefront_checks = [check_wavefront_hook(sp, bk, mk, bunny, bunny_cam),
-                        *check_wavefront_rays(sp, bk, bunny, bunny_cam)]
+                        *bounce_checks]
     counted_checks = check_counted(bk, bunny, bunny_cam)
     counted = counted_checks["counters_640x360_spp4_d4"]
     spectral_checks = []
@@ -1472,6 +1479,13 @@ def main() -> int:
     log(f"[time] {card}: bunny primary rays 640x360 intersect kernel "
         f"{isect_k:.4f} ms ({w * h / (isect_k * 1e-3) / 1e6:.1f} Mrays/s), "
         f"plain {isect_p:.3f} ms, kernel/plain {isect_k / isect_p:.5f}")
+    # #3 on the main path's four calls of a sample (phase 2's recorded
+    # bounces): each one's time on the card and its plain walk's
+    bounce_rows = ib.time_bounces(bunny.packed, bounce_calls)
+    for row, (o, d, a, _) in zip(bounce_rows, bounce_calls):
+        row["plain_ms"] = time_ms(lambda o=o, d=d, a=a: (
+            bk.intersect_packed_plain(bunny.packed, o, d, a, True)),
+            PLAIN_REPEATS)
     sph_k = time_ms(run(mk.render_flat_megakernel, demo, demo_cam, MAIN))
     sph_p = time_ms(run(mk.render_flat_fused, demo, demo_cam, MAIN),
                     PLAIN_REPEATS)
@@ -1645,7 +1659,7 @@ def main() -> int:
         f"{wave_t['spectral_wrapper_ms']:.3f} ms, render_with_cpu demo "
         f"{MAIN_SHAPE} (tone map and host copy included) "
         f"{wave_t['render_with_cpu_demo_ms']:.3f} ms")
-    parent_t = parent_frames = this_frames = None
+    parent_t = parent_frames = this_frames = bounce_runs = None
     if args.parent:
         here = os.path.dirname(os.path.abspath(__file__))
 
@@ -1691,6 +1705,27 @@ def main() -> int:
         if not same:
             raise AssertionError("a frame or case renders differently from "
                                  "the parent's")
+        # #3 on the main path's four calls of a sample, both commits, each
+        # run in its own process: parent, this, this, parent
+        bounce_runs = [bench("intersect_bounces.py", root)
+                       for root in (args.parent, here, here, args.parent)]
+        for f in bounce_runs:
+            log(f"[bounce] {card}: #3 of {f['root']} "
+                f"(bench/intersect_bounces.py): "
+                + "; ".join(f"bounce {r['bounce']} alive {r['alive']:.6f} "
+                            f"{r['ms']:.4f} ms, on the card "
+                            f"{r['kernels_ms']}" for r in f["bounces"])
+                + f"; a sample {f['sample_ms']:.4f} ms; ptxas "
+                f"{f['ptxas']}")
+        same = all([(r["inputs"], r["outputs"]) for r in f["bounces"]]
+                   == [(r["inputs"], r["outputs"])
+                       for r in bounce_runs[0]["bounces"]]
+                   for f in bounce_runs)
+        log(f"[compare] #3 on a sample's four calls: the inputs and every "
+            f"output of this tree equal to the parent's (SHA-256): {same}")
+        if not same:
+            raise AssertionError("#3 differs from the parent's on the main "
+                                 "path's bounces")
     step_prof = device_breakdown(lambda: step(albedo0, 0, MAIN["spp"]))
     log_breakdown(card, "differentiable step 640x360 spp16 d4 exact "
                   "replay", step_prof)
@@ -1735,8 +1770,9 @@ def main() -> int:
     sbvh16_work = count_work(sb, "make_packed_intersect_spectral",
                              run(sb.render_flat_spectral_bvh_fused, bunny,
                                  bunny_cam, MAIN))
-    isect_work = count_work(None, None, lambda: bk.intersect_packed_plain(
-        bunny.packed, *rays["primary"]))
+    bounce_work = [count_work(None, None, lambda o=o, d=d, a=a: (
+        bk.intersect_packed_plain(bunny.packed, o, d, a, True)))
+        for o, d, a, _ in bounce_calls]
     bvh_mxu_work = count_work(bk, "make_packed_intersect", run(
         mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, BVH_TIMED))
     mxu_work = count_work(xk, "make_mxu_stream_intersect", run(
@@ -1751,9 +1787,9 @@ def main() -> int:
     mxu_isect_work = dict(segments=w * h, hits=0, pops=0, leaf_tris=0,
                           blocks=w * h * xk.n_blocks(bunny_mxu))
     log(f"[work] on the timed inputs: demo {sph_work}, bunny spp4 "
-        f"{bvh_work}, bunny primary rays {isect_work}, spectral cornell "
-        f"{spec_work}, spectral bunny spp4 {sbvh_work}, #2b bunny spp4 "
-        f"{bvh_mxu_work}, #7 mesh spp4 {mxu_work}, #8 bunny primary rays "
+        f"{bvh_work}, #3 on a sample's bounces {bounce_work}, spectral "
+        f"cornell {spec_work}, spectral bunny spp4 {sbvh_work}, #2b bunny "
+        f"spp4 {bvh_mxu_work}, #7 mesh spp4 {mxu_work}, #8 bunny primary rays "
         f"{mxu_isect_work}; at 640x360 spp16 d4: bunny (counting build) "
         f"{bvh16_work}, spectral bunny {sbvh16_work}, #2b bunny "
         f"{bvh_mxu16_work}, #7 mesh {mxu16_work}")
@@ -1771,10 +1807,6 @@ def main() -> int:
             sol.path_units(bvh_work, n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
                            bvh=True, form=bunny.packed.form),
             bvh_tables + out_bytes, rates),
-        # bytes: the rays in, t, normal and material id out, the tables
-        bvh_intersect=sol_bound(
-            dict(ray=n_px, **sol.walk_units(isect_work, bunny.packed.form)),
-            bvh_tables + n_px * (24 + 20), rates),
         spectral_megakernel=sol_bound(
             sol.path_units(spec_work, n_px * MAIN["spp"],
                            cornell.spheres.count, cornell.triangles.count,
@@ -1842,6 +1874,18 @@ def main() -> int:
         vpu_dtype=price(dict(alu=pp.flops_per_launch(probe["n_dtype"]),
                              bytes=8 * probe["n_dtype"]), rates),
     )
+    # #3 on each of a sample's four calls: the plain walk's work on that
+    # call's live rays; bytes: the tables, the mask, the live rays in, and
+    # t, normal, material id and slot out for every ray.  The four calls
+    # run one after another, so their bound is the sum of theirs.
+    for b, (work, row, call) in enumerate(zip(bounce_work, bounce_rows,
+                                              bounce_calls)):
+        live = int(call[2].sum())
+        bounds[f"bvh_intersect_bounce{b}"] = sol_bound(
+            dict(ray=live, **sol.walk_units(work, bunny.packed.form)),
+            bvh_tables + row["rays"] * (1 + 24) + live * 24, rates)
+    bounds["bvh_intersect"] = sum_bounds(
+        [bounds[f"bvh_intersect_bounce{b}"] for b in range(len(bounce_rows))])
     log(f"[bound] {card}: priced by utils/sol.py ({rates.source}): ALU "
         f"at the issue rate {rates.alu_per_s:.4g} instructions/s, special "
         f"functions at weights "
@@ -1855,6 +1899,18 @@ def main() -> int:
             f"{b['bound_term']} (terms ms "
             f"{({k: round(v, 5) for k, v in b['bound_terms_ms'].items()})}"
             f"); data-sheet bound {b['datasheet_bound_ms']:.4f} ms")
+    for b, row in enumerate(bounce_rows):
+        bd = bounds[f"bvh_intersect_bounce{b}"]
+        log(f"[bounce] {card}: #3 on render_flat's bounce {b} rays, bunny "
+            f"{MAIN_SHAPE} sample 0: {row['rays']} rays, alive "
+            f"{row['alive']:.6f}, {row['ms']:.4f} ms (CUDA events around "
+            f"{ib.RUN} calls, median of {timing.REPEATS}), on the card by "
+            f"kernel {row['kernels_ms']} (torch.profiler), bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_term']}, plain "
+            f"{row['plain_ms']:.3f} ms")
+    log(f"[bounce] {card}: #3 on a sample's four calls: "
+        f"{sum(r['ms'] for r in bounce_rows):.4f} ms, bound "
+        f"{bounds['bvh_intersect']['bound_ms']:.4f} ms")
 
     # the walks' bytes a frame at MAIN, from the counted work: a popped
     # pair record 64 bytes, a leaf triangle 48 (three float4), a segment's
@@ -1957,16 +2013,26 @@ def main() -> int:
             "source": "spira_tpu_torch/csrc/bvh_megakernel.cu",
             "replaces": "spira_tpu/kernels/bvh_megakernel.py:1134",
             "launches": launches["bvh_intersect"],
-            "max_abs_err": isect_checks[1]["max_abs_err"],
-            "ms": isect_k,
-            "plain_ms": isect_p,
-            "shape": "bunny primary rays 640x360",
+            "max_abs_err": max(c["max_abs_err"] for c in bounce_checks),
+            # the main path's four calls of a sample, one a bounce
+            "ms": sum(r["ms"] for r in bounce_rows),
+            "plain_ms": sum(r["plain_ms"] for r in bounce_rows),
+            "shape": (f"render_flat's four calls of sample 0, bunny "
+                      f"{MAIN_SHAPE}"),
+            "bounces": [dict(r, bound=bounds[f"bvh_intersect_bounce{b}"])
+                        for b, r in enumerate(bounce_rows)],
+            # with --parent: bench/intersect_bounces.py on the parent,
+            # this tree, this tree, the parent
+            "parent_this_bounces": bounce_runs,
+            "primary_rays_ms": isect_k,
+            "primary_rays_plain_ms": isect_p,
+            "primary_rays_max_abs_err": isect_checks[1]["max_abs_err"],
             # the main path that launches it: render_flat, one launch a
             # bounce; ranked by its time a launch there (torch.profiler)
-            # against the primary rays' bound (the same bytes a launch)
+            # against the mean of a sample's four calls' bounds
             "rank_ms_bound_ms": (
                 wave_t["intersect_ms_per_launch"],
-                bounds["bvh_intersect"]["bound_ms"],
+                bounds["bvh_intersect"]["bound_ms"] / len(bounce_rows),
                 f"a launch in render_flat, bunny {MAIN_SHAPE}"),
             "wavefront_frame": wave_t,
             "checks": isect_checks + wavefront_checks,

@@ -17,9 +17,9 @@ reports:
   device / wrapper), and of the profiled call's window, which the
   profiler's own cost a launch widens;
 * the threefry draws' time: :func:`frame_draws` makes the frame's draws
-  alone (each sample's raygen jitter, each bounce's lobe, fuzz and
-  diffuse draws, the roulette's past ``RR_START``) and is timed the same
-  way; its share is that time over the wrapper's.
+  alone (each sample's raygen jitter and lens disk, each bounce's lobe,
+  fuzz and diffuse draws, the roulette's past ``RR_START``) and is timed
+  the same way; its share is that time over the wrapper's.
 
 Prints one JSON line (and appends it to ``--out``).  ``--count`` runs
 :func:`count_operations` instead, on the CPU: no card needed.
@@ -51,6 +51,8 @@ def frame_draws(n, spp, max_depth, device, seed=0):
         skey = srng.fold_in(srng.sample_key(base, k), 0)
         srng.uniform(srng.bounce_key(skey, 0, srng.Stream.PIXEL_JITTER),
                      (n, 2), device)
+        srng.uniform(srng.bounce_key(skey, 0, srng.Stream.LENS), (n, 2),
+                     device)
         for b in range(max_depth):
             srng.uniform(srng.bounce_key(skey, b, srng.Stream.LOBE_SELECT),
                          (n, 3), device)
@@ -77,8 +79,9 @@ def count_operations(spp=SHAPE["spp"], max_depth=SHAPE["max_depth"]):
     """The tensor operations of one RGB ``render_flat`` frame on a packed
     scene, counted on the CPU (the count does not depend on the frame's
     size): ``frame`` those of the estimator with #3 replaced by the card
-    wrapper's own tensor operations (its ``active`` conversion and its
-    four outputs filled as a miss), ``draws`` those of
+    wrapper's own tensor operations (none: it allocates its four outputs,
+    which the stub hands back as misses made outside the count, and the
+    kernel's own launches are not counted), ``draws`` those of
     :func:`frame_draws`, each leaving out the operations that launch no
     kernel on the card."""
     import collections
@@ -103,26 +106,26 @@ def count_operations(spp=SHAPE["spp"], max_depth=SHAPE["max_depth"]):
     def kernels(counter):
         return sum(v for k, v in counter.ops.items() if k not in _NO_KERNEL)
 
+    width, height = 8, 4
+    n = width * height
+    miss = (torch.full((n,), 1e20), torch.zeros((n, 3)),
+            torch.full((n,), -1, dtype=torch.int32),
+            torch.full((n,), -1, dtype=torch.int32))
+
     def query(packed, o, d, active=None, with_slot=False):
-        active.to(torch.float32).contiguous()
-        n = o.shape[0]
-        out = (torch.full((n,), 1e20), torch.zeros((n, 3)),
-               torch.full((n,), -1, dtype=torch.int32))
-        if with_slot:
-            out += (torch.full((n,), -1, dtype=torch.int32),)
-        return out
+        return miss if with_slot else miss[:3]
 
     scene = attach_packed(create_mesh_scene(subdivisions=1, device="cpu"))
     cam = make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0), aspect_ratio=2.0,
                       device="cpu")
     with Count() as frame:
         accumulate_rows(
-            scene, cam, srng.base_key(0), width=8, height=4, row_start=0,
-            n_rows=4, sample_offset=0, n_samples=spp, max_depth=max_depth,
-            semantics="physical",
+            scene, cam, srng.base_key(0), width=width, height=height,
+            row_start=0, n_rows=height, sample_offset=0, n_samples=spp,
+            max_depth=max_depth, semantics="physical",
             intersect_fn=make_sorted_tile_intersect(grad=True, query=query))
     with Count() as draws:
-        frame_draws(32, spp, max_depth, "cpu")
+        frame_draws(n, spp, max_depth, "cpu")
     return dict(spp=spp, max_depth=max_depth, frame=kernels(frame),
                 draws=kernels(draws))
 

@@ -77,77 +77,104 @@ __device__ __forceinline__ Child slab_child(float4 a, float4 b, Vec3 o,
   return c;
 }
 
-// Test the `cnt` triangles of the leaf at row `ptr` (rows of 8 slots; a
-// leaf of more than 8 spans consecutive rows).
+// Test leaf triangle `slot` (its rows f0-f2; its record at f) against
+// h, a strict `t < h.t`.
 template <int kForm>
+__device__ __forceinline__ void test_tri(float4 f0, float4 f1, float4 f2,
+                                         const float4* __restrict__ f,
+                                         int slot, Vec3 o, Vec3 d,
+                                         TriHit& h) {
+  float tt, uu, vv;
+  bool ok;
+  Vec3 n;
+  if (kForm == kFormBW) {
+    // Baldwin–Weber: plane hit, then two affine barycentric maps.  The
+    // JAX kernel refines an approximate reciprocal with one Newton step;
+    // here r0 is the IEEE 1/den and the same expression follows, so the
+    // kernel and the plain version agree to the bit.  den == 0 gives
+    // NaN, which fails every comparison below.
+    const float den = f0.x * d.x + f0.y * d.y + f0.z * d.z;
+    const float num = f0.w - (f0.x * o.x + f0.y * o.y + f0.z * o.z);
+    const float r0 = 1.0f / den;
+    tt = num * (r0 * (2.0f - den * r0));
+    const float px = o.x + tt * d.x;
+    const float py = o.y + tt * d.y;
+    const float pz = o.z + tt * d.z;
+    uu = f1.x * px + f1.y * py + f1.z * pz + f1.w;
+    vv = f2.x * px + f2.y * py + f2.z * pz + f2.w;
+    ok = true;
+    n = {f0.x, f0.y, f0.z};
+  } else {
+    // Möller–Trumbore; f0 = v0.xyz e1.x, f1 = e1.yz e2.xy, f2 = e2.z n
+    const float e1x = f0.w, e1y = f1.x, e1z = f1.y;
+    const float e2x = f1.z, e2y = f1.w, e2z = f2.x;
+    const float pvx = d.y * e2z - d.z * e2y;
+    const float pvy = d.z * e2x - d.x * e2z;
+    const float pvz = d.x * e2y - d.y * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    const float inv_det = 1.0f / det;
+    const float tvx = o.x - f0.x;
+    const float tvy = o.y - f0.y;
+    const float tvz = o.z - f0.z;
+    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    vv = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+    ok = fabsf(det) > 1e-9f;
+    n = {f2.y, f2.z, f2.w};
+  }
+  if (ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin &&
+      tt < h.t) {
+    h.t = tt;
+    h.n = n;
+    h.mid = __ldg(f + 3).x;
+    h.slot = slot;
+  }
+}
+
+// Test the `cnt` triangles of the leaf at row `ptr` (rows of 8 slots; a
+// leaf of more than 8 spans consecutive rows), in slot order.  The rows of
+// kBatch triangles are loaded before any of them is tested, so with
+// kBatch > 1 a walk waits for one round of loads a batch instead of one a
+// triangle; the tests and their order are the same.
+template <int kForm, int kBatch = 1>
 __device__ __forceinline__ void visit_leaf(const float4* __restrict__ slots,
                                            int ptr, int cnt, Vec3 o, Vec3 d,
                                            TriHit& h) {
   const int base = ptr * kTrisPerRow;
-  for (int j = 0; j < cnt; ++j) {
-    const float4* f = slots + static_cast<int64_t>(base + j) * 4;
-    const float4 f0 = __ldg(f);
-    const float4 f1 = __ldg(f + 1);
-    const float4 f2 = __ldg(f + 2);
-    float tt, uu, vv;
-    bool ok;
-    Vec3 n;
-    if (kForm == kFormBW) {
-      // Baldwin–Weber: plane hit, then two affine barycentric maps.  The
-      // JAX kernel refines an approximate reciprocal with one Newton step;
-      // here r0 is the IEEE 1/den and the same expression follows, so the
-      // kernel and the plain version agree to the bit.  den == 0 gives
-      // NaN, which fails every comparison below.
-      const float den = f0.x * d.x + f0.y * d.y + f0.z * d.z;
-      const float num = f0.w - (f0.x * o.x + f0.y * o.y + f0.z * o.z);
-      const float r0 = 1.0f / den;
-      tt = num * (r0 * (2.0f - den * r0));
-      const float px = o.x + tt * d.x;
-      const float py = o.y + tt * d.y;
-      const float pz = o.z + tt * d.z;
-      uu = f1.x * px + f1.y * py + f1.z * pz + f1.w;
-      vv = f2.x * px + f2.y * py + f2.z * pz + f2.w;
-      ok = true;
-      n = {f0.x, f0.y, f0.z};
-    } else {
-      // Möller–Trumbore; f0 = v0.xyz e1.x, f1 = e1.yz e2.xy, f2 = e2.z n
-      const float e1x = f0.w, e1y = f1.x, e1z = f1.y;
-      const float e2x = f1.z, e2y = f1.w, e2z = f2.x;
-      const float pvx = d.y * e2z - d.z * e2y;
-      const float pvy = d.z * e2x - d.x * e2z;
-      const float pvz = d.x * e2y - d.y * e2x;
-      const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-      const float inv_det = 1.0f / det;
-      const float tvx = o.x - f0.x;
-      const float tvy = o.y - f0.y;
-      const float tvz = o.z - f0.z;
-      uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-      const float qvx = tvy * e1z - tvz * e1y;
-      const float qvy = tvz * e1x - tvx * e1z;
-      const float qvz = tvx * e1y - tvy * e1x;
-      vv = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
-      tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-      ok = fabsf(det) > 1e-9f;
-      n = {f2.y, f2.z, f2.w};
+  for (int j0 = 0; j0 < cnt; j0 += kBatch) {
+    float4 r[kBatch][3];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (j0 + k < cnt) {
+        const float4* f = slots + static_cast<int64_t>(base + j0 + k) * 4;
+        r[k][0] = __ldg(f);
+        r[k][1] = __ldg(f + 1);
+        r[k][2] = __ldg(f + 2);
+      }
     }
-    if (ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin &&
-        tt < h.t) {
-      h.t = tt;
-      h.n = n;
-      h.mid = __ldg(f + 3).x;
-      h.slot = base + j;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (j0 + k < cnt) {
+        test_tri<kForm>(r[k][0], r[k][1], r[k][2],
+                        slots + static_cast<int64_t>(base + j0 + k) * 4,
+                        base + j0 + k, o, d, h);
+      }
     }
   }
 }
 
-// Leaves of the pair tables: rows of 8 triangles in form kForm.
-template <int kForm>
+// Leaves of the pair tables: rows of 8 triangles in form kForm, loaded
+// kBatch triangles at a time.
+template <int kForm, int kBatch = 1>
 struct RowLeaves {
   const float4* slots;
 
   __device__ void operator()(int ptr, int cnt, Vec3 o, Vec3 d,
                              TriHit& h) const {
-    visit_leaf<kForm>(slots, ptr, cnt, o, d, h);
+    visit_leaf<kForm, kBatch>(slots, ptr, cnt, o, d, h);
   }
 };
 

@@ -36,6 +36,17 @@
 // wave; and a budget of 64 registers keeps 8 blocks on an SM.  Packet or
 // wide-BVH layouts, sorting secondary rays and TMA staging are later work.
 //
+// The intersect kernel is bound by the latency of one ray's walk: at the
+// wavefront's shape (230,400 rays, 3-100% of them live) a launch lasts
+// about two of the slowest warps' walks, whatever the number of live rays.
+// So it loads a leaf's triangles 4 at a time (kIntersectBatch), one round
+// of loads a batch instead of one a triangle, at 90 registers.  Measured
+// and left out, on the H100 at that shape: compacting the live rays into a
+// list (fewer warps, but each with 32 rays whose walks diverge, and too few
+// warps to hide the latency), grouping them by direction octant, persistent
+// warps fed by an atomic cursor, the stack in shared memory (no change),
+// and fewer registers for more resident blocks (spills).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see spira_tpu_torch/_build.py).
 
@@ -120,11 +131,16 @@ __global__ void __launch_bounds__(128)
   add_block_counts(counts, totals);
 }
 
+constexpr int kThreads = 128;
+// Leaf triangles kernel #3 loads at a time (bvh.cuh:visit_leaf).
+constexpr int kIntersectBatch = 4;
+
+// Kernel #3: one thread per ray; a dead ray (active[i] == 0) misses.
 template <int kForm>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
     bvh_intersect(const float* __restrict__ origins,
                   const float* __restrict__ dirs,
-                  const float* __restrict__ active, int n,
+                  const unsigned char* __restrict__ active, int n,
                   const float4* __restrict__ pairs,
                   const float4* __restrict__ slots, int root,
                   float* __restrict__ t_out, float* __restrict__ n_out,
@@ -133,10 +149,11 @@ __global__ void __launch_bounds__(128)
                     threadIdx.x;
   if (i >= n) return;
   TriHit h{kInf, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
-  if (active == nullptr || active[i] > 0.5f) {
+  if (active == nullptr || active[i]) {
     const Vec3 o = {origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
     const Vec3 d = {dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2]};
-    walk_packed(pairs, RowLeaves<kForm>{slots}, root, o, d, h);
+    walk_packed(pairs, RowLeaves<kForm, kIntersectBatch>{slots}, root, o, d,
+                h);
   }
   t_out[i] = h.t;
   n_out[3 * i] = h.n.x;
@@ -145,8 +162,6 @@ __global__ void __launch_bounds__(128)
   mid_out[i] = static_cast<int>(h.mid);
   if (slot_out != nullptr) slot_out[i] = h.slot;
 }
-
-constexpr int kThreads = 128;
 
 unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
@@ -237,11 +252,12 @@ extern "C" int spira_bvh_mxu_render(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Nearest hit of n rays (origins, dirs: (n, 3) float32; active: (n,)
-// float32 or null).  Outputs t (1e20 on a miss), normal (n, 3), material id
-// (-1 on a miss) and, when slot is not null, the winner's tri-row slot.
+// Nearest hit of n rays (origins, dirs: (n, 3) float32; active: (n,) bool,
+// or null for every ray live).  Outputs t (1e20 on a miss), normal (n, 3),
+// material id (-1 on a miss) and, when slot is not null, the winner's
+// tri-row slot.
 extern "C" int spira_bvh_intersect(const float* origins, const float* dirs,
-                                   const float* active, int n,
+                                   const unsigned char* active, int n,
                                    const float* pairs, const float* tri_rows,
                                    int root, int form_bw, float* t,
                                    float* normal, int* mid, int* slot,

@@ -728,7 +728,8 @@ def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
     """Nearest hit of (N, 3) rays over the packed tables: (t (N,),
     normal (N, 3), mat id (N,) int32[, slot (N,) int32]), with t = 1e20,
     normal 0, mat id -1 and slot -1 on a miss.  ``active``: optional (N,)
-    mask; inactive rays miss.
+    mask, nonzero for a live ray (bool, as the wavefront hands it, goes
+    to the kernel as it is); inactive rays miss.
 
     Rays on a CUDA device launch the CUDA kernel and add one to
     ``intersect_tile.launches``; rays on the CPU run
@@ -749,7 +750,7 @@ def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
             raise ValueError(f"{name} has {t.shape[0]} rays, origins {n}")
     act = None
     if active is not None:
-        act = active.to(torch.float32).contiguous()
+        act = active.to(torch.bool).contiguous()
         if act.device != device or act.shape != (n,):
             raise ValueError(f"active must be ({n},) on {device}")
     t = torch.empty(n, dtype=torch.float32, device=device)
@@ -792,8 +793,9 @@ def make_sorted_tile_intersect(*, grad: bool = False, query=None):
     ``alive`` goes in as the kernel's ``active``: dead rays cost it
     nothing and miss.  The rays are not sorted.  JAX sorts them by (dead,
     direction octant) so that a TPU packet's rays cull together; on the
-    card each ray walks the tree on its own, and a per-ray walk's nearest
-    hit does not depend on the rays' order.
+    card each ray walks the tree on its own, a per-ray walk's nearest hit
+    does not depend on the rays' order, and compacting the live rays or
+    grouping them by octant made the kernel slower (``PERF.md``).
 
     ``grad=False``: the hit takes the kernel's own t, normal and
     material.  ``grad=True``: the kernel also reports the winner's

@@ -129,16 +129,17 @@ def _rays_from_uv(camera, width, height, key, jitter, col, row,
               + u[:, None] * camera.horizontal[None, :]
               + v[:, None] * camera.vertical[None, :])
 
-    origins = camera.origin[None, :].expand(n, 3)
-    if camera.has_lens:
-        # polar disk sample; a pinhole (lens_radius 0) adds exactly 0
-        disk = srng.uniform(srng.bounce_key(key, 0, srng.Stream.LENS),
-                            (n, 2), camera.origin.device)
-        r = torch.sqrt(disk[:, 0])
-        phi = 2.0 * math.pi * disk[:, 1]
-        lens_offset = (camera.lens_radius * r)[:, None] * (
-            torch.cos(phi)[:, None] * camera.u[None, :]
-            + torch.sin(phi)[:, None] * camera.v[None, :])
-        origins = origins + lens_offset
+    # The lens disk is drawn whatever ``has_lens`` says, as JAX draws it:
+    # ``lens_radius`` may have changed since construction (an optimizer's
+    # step), and at a pinhole it still takes a gradient.  The offset of a
+    # pinhole is exactly 0.
+    disk = srng.uniform(srng.bounce_key(key, 0, srng.Stream.LENS), (n, 2),
+                        camera.origin.device)
+    r = torch.sqrt(disk[:, 0])
+    phi = 2.0 * math.pi * disk[:, 1]
+    lens_offset = (camera.lens_radius * r)[:, None] * (
+        torch.cos(phi)[:, None] * camera.u[None, :]
+        + torch.sin(phi)[:, None] * camera.v[None, :])
+    origins = camera.origin[None, :] + lens_offset
     directions = vm.normalize(target - origins)
     return origins, directions

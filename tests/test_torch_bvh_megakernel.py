@@ -111,6 +111,39 @@ def test_intersect_forms_slots_and_active(form):
     torch.testing.assert_close(scene.triangles.normal[tri], n[hit])
 
 
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_plain_walk_over_compacted_octant_list_scatters_back(form):
+    """What compacting kernel #3's live rays and grouping them by
+    direction octant rely on: a ray's hit does not depend on which rays
+    are walked beside it or in what order.  The plain walk over the live rays alone, grouped by direction
+    octant and shuffled within each group, scattered back to their
+    indices over a miss, equals the call over all rays with ``active``,
+    to the bit (t, normal, material id, slot)."""
+    scene = sp.create_mesh_scene(subdivisions=1, device="cpu")
+    packed = tpairs.pack_bvh(scene.bvh, scene.triangles, form=form)
+    origins, dirs = _random_rays(512, seed=8, spread=1.5)
+    aim = np.array([0.0, 0.1, 0.0], np.float32) - origins[::2]
+    dirs[::2] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    o, d = torch.from_numpy(origins), torch.from_numpy(dirs)
+    rng = np.random.default_rng(9)
+    active = torch.from_numpy(rng.uniform(size=512) < 0.4)
+    want = tbk.intersect_packed_plain(packed, o, d, active, True)
+    live = np.flatnonzero(active.numpy())
+    octant = ((dirs[live] < 0) * np.array([1, 2, 4])).sum(1)
+    assert len(np.unique(octant)) == 8
+    order = live[np.lexsort((rng.permutation(live.size), octant))]
+    idx = torch.from_numpy(order)
+    part = tbk.intersect_packed_plain(packed, o[idx], d[idx], None, True)
+    got = (torch.full((512,), 1e20), torch.zeros((512, 3)),
+           torch.full((512,), -1, dtype=torch.int32),
+           torch.full((512,), -1, dtype=torch.int32))
+    for full, some in zip(got, part):
+        full[idx] = some
+    assert int((want[0] < 1e19).sum()) > 50
+    for name, a, b in zip(("t", "normal", "mat id", "slot"), got, want):
+        assert torch.equal(a, b), name
+
+
 def test_render_matches_jax_kernel(mesh):
     """The plain render against JAX ``render_flat_bvh_megakernel``
     (interpret mode), same scene values and seed, at 128x16, spp 1,

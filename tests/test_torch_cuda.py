@@ -34,7 +34,7 @@ from spira_tpu_torch.kernels import spectral_bvh as sb
 from spira_tpu_torch.kernels import spectral_fused as sf
 from spira_tpu_torch.scene.geometry import empty_spheres
 from spira_tpu_torch.scene.obj import icosphere
-from tests.test_torch_superleaf_host import deep_tree_scene
+from tests.test_torch_superleaf_host import deep_tree_scene, twin_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -178,6 +178,61 @@ def test_bvh_intersect_matches_plain(cuda, form):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
+
+
+def _active(n, live, device, seed=1):
+    """An (n,) bool mask with about ``live`` of the rays alive, exactly one
+    ("one"), none ("none"), or None (every ray, "all")."""
+    if live == "all":
+        return None
+    mask = torch.zeros(n, dtype=torch.bool)
+    if live == "one":
+        mask[n // 2] = True
+    elif live != "none":
+        rng = np.random.default_rng(seed)
+        mask = torch.from_numpy(rng.uniform(size=n) < live)
+    return mask.to(device)
+
+
+@pytest.mark.parametrize("live", [1.0, 0.5, 0.05, "one", "none", "all"])
+@pytest.mark.parametrize("n", [1, 31, 129, 230400])
+def test_bvh_intersect_bit_equal_to_plain(cuda, n, live):
+    """#3 at any number of rays and live share, with and without the
+    slot, twice in a row on the same workspace: each call one launch and
+    equal to the plain walk to the bit."""
+    scene = _mesh(cuda)
+    o, d = _rays(n, cuda, seed=n)
+    active = _active(n, live, cuda)
+    want = bk.intersect_packed_plain(scene.packed, o, d, active, True)
+    before = bk.intersect_tile.launches
+    got = [bk.intersect_tile(scene.packed, o, d, active=active,
+                             with_slot=True),
+           bk.intersect_tile(scene.packed, o, d, active=active),
+           bk.intersect_tile(scene.packed, o, d, active=active,
+                             with_slot=True)]
+    torch.cuda.synchronize()
+    assert bk.intersect_tile.launches == before + 3
+    assert len(got[1]) == 3
+    for out in got:
+        for name, a, b in zip(("t", "normal", "mat id", "slot"), out, want):
+            assert torch.equal(a, b), name
+    if live in (1.0, "all") and n > 100:
+        assert int((want[0] < 1e19).sum()) > n // 10
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_bvh_intersect_ties_bit_equal_to_plain(cuda, form):
+    """#3 on twinned triangles, every hit a tie at equal t: the first in
+    slot order wins, as in the plain walk (material and slot equal)."""
+    packed = twin_scene(form).to(cuda)
+    o, d = _rays(4096, cuda, seed=3)
+    active = _active(4096, 0.5, cuda)
+    got = bk.intersect_tile(packed, o, d, active=active, with_slot=True)
+    want = bk.intersect_packed_plain(packed, o, d, active, True)
+    torch.cuda.synchronize()
+    assert set(want[2][want[0] < 1e19].tolist()) == {0, 1}
+    for name, a, b in zip(("t", "normal", "mat id", "slot"), got, want):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("form", ["bw", "mt"])

@@ -26,6 +26,7 @@ from spira_tpu_torch import _build
 from spira_tpu_torch.accel import bvh, mxu, pairs
 from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import mxu_megakernel as mk
+from spira_tpu_torch.scene.obj import icosphere
 
 torch.set_num_threads(1)
 
@@ -51,7 +52,8 @@ using namespace spira;
 // and coeff_pay (B*8, 128); mode 2-5: tri_rows (B, 128).  Modes: 0 the
 // block stream, 1 the pair walk over blocks, 2 and 3 over BW and MT rows,
 // 4 and 5 the same walks counting (WalkCounts, bounce 0), 6 the BW walk
-// over HostStack.
+// over HostStack, 7 and 8 the BW and MT walks loading leaf triangles 4 at
+// a time (kernel #3's RowLeaves<kForm, 4>).
 // out: float32 t, normal (n, 3), mat id; int32 slot; modes 4-5: int32
 // pops, pushes, traversals, leaf_visits, leaf_tris, leaf_visits_primary
 // (6, n); mode 6: int32 the deepest stack (n).
@@ -107,6 +109,8 @@ int main(int argc, char** argv) {
       walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th, none, stack);
       counts[i] = stack.deepest;
     }
+    if (mode == 7) walk_packed(p4, RowLeaves<kFormBW, 4>{s4}, root, o, d, th);
+    if (mode == 8) walk_packed(p4, RowLeaves<kFormMT, 4>{s4}, root, o, d, th);
     out[i] = th.t;
     out[n + 3 * i] = th.n.x;
     out[n + 3 * i + 1] = th.n.y;
@@ -159,7 +163,7 @@ def host_walk(tmp_path_factory):
                torch.from_numpy(raw[n:4 * n].reshape(n, 3).copy()),
                torch.from_numpy(raw[4 * n:].astype(np.int32)),
                torch.from_numpy(slot.copy()))
-        if mode < 4:
+        if mode < 4 or mode > 6:
             return out
         counts = np.fromfile(work / "out.bin", np.int32, offset=24 * n)
         return out, torch.from_numpy(counts.reshape(-1, n).copy())
@@ -314,3 +318,56 @@ def test_host_walk_deep_tree_matches_plain(host_walk):
     _assert_same(got, want)
     assert (want[3] == 0).all()  # the nearest triangle, at z = -1
     assert (deepest[0] == pairs.TRAVERSAL_STACK).all()
+
+
+def twin_scene(form):
+    """An icosphere whose every triangle is there twice, in materials 0
+    and 1: every hit is a tie of two triangles at equal t, which the first
+    in slot order wins."""
+    mesh = icosphere(center=(0.0, 0.1, 0.0), radius=0.6, subdivisions=2,
+                     material=0)
+    v0 = mesh.v0.numpy()
+    verts = np.stack([v0, v0 + mesh.e1.numpy(), v0 + mesh.e2.numpy()], 1)
+    faces = np.repeat(np.arange(3 * mesh.count).reshape(-1, 3), 2, axis=0)
+    tris = sp.make_triangles(verts.reshape(-1, 3), faces,
+                             np.tile([0, 1], mesh.count), device="cpu")
+    materials = sp.make_materials([dict(albedo=(0.7, 0.3, 0.3)),
+                                   dict(albedo=(0.3, 0.3, 0.7))],
+                                  device="cpu")
+    scene = sp.make_scene(triangles=tris, materials=materials,
+                          bvh=bvh.build_bvh_for_triangles(tris))
+    return sp.attach_packed(scene, form=form).packed
+
+
+@pytest.mark.parametrize("tree", ["mesh bw", "mesh mt", "twins bw",
+                                  "twins mt", "deep bw"])
+def test_host_batched_leaf_walk_matches_plain(host_walk, scene, tree):
+    """Kernel #3's walk, whose leaf visit loads 4 triangles' rows before
+    it tests them (``RowLeaves<kForm, 4>``): the plain walk's hits to the
+    bit, on the mesh scene (leaves of one and two rows, so batches of 4
+    end inside a row and across one) and on twinned triangles (every hit
+    a tie, decided by slot order) in both leaf forms, and on a tree as
+    deep as the walk's stack allows."""
+    kind, form = tree.split()
+    if kind == "mesh":
+        packed = pairs.pack_bvh(scene.bvh, scene.triangles, form=form)
+        assert packed.max_leaf > pairs.TRIS_PER_ROW
+        o, d = _rays(512, seed=13)
+    elif kind == "twins":
+        packed = twin_scene(form)
+        o, d = _rays(512, seed=14)
+    else:
+        packed = deep_tree_scene(pairs.TRAVERSAL_STACK).packed
+        rng = np.random.default_rng(12)
+        n = 256
+        o = np.concatenate([rng.uniform(-0.3, 0.3, (n, 2)),
+                            np.ones((n, 1))], 1)
+        d = np.concatenate([rng.uniform(-0.01, 0.01, (n, 2)),
+                            -np.ones((n, 1))], 1)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o, d = (torch.from_numpy(x.astype(np.float32)) for x in (o, d))
+    want = bk.intersect_packed_plain(packed, o, d, with_slot=True)
+    assert int((want[0] < 1e19).sum()) > 0
+    if kind == "twins":  # both copies win somewhere
+        assert set(want[2][want[0] < 1e19].tolist()) == {0, 1}
+    _assert_same(host_walk(7 if form == "bw" else 8, packed, o, d), want)
