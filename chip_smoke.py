@@ -38,6 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    on #3's plain version; and #3 at the main path's shape and mode: each
    bounce of the main path's first sample at 640x360 (the slot asked for,
    a partly dead ``active``), its outputs bit-equal to the plain walk's;
+   the mesh step's backward (``render_flat_hybrid_grad_mesh``, #3 in its
+   replay) against the same replay through the plain hook, the same
+   cotangent, at ``WAVEFRONT_PLAIN``'s shape: RGB (albedo, camera origin,
+   triangle v0) and spectral (``albedo_spd``), each field to the bit;
 3. the main paths, through the user's entry points, each with every launch
    count set to 0 just before and read just after: ``render`` of the bunny
    at 640x360, spp 16, depth 4 (engine ``cuda_bvh``), the same through
@@ -66,7 +70,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    wavefront's two-seed noise floor; ``render_with_cpu`` of the sphere
    demo at the same shape (no kernel, no plain tracer), and
    ``render_flat`` in reference semantics on the card against the same
-   call on the CPU;
+   call on the CPU; ``render(engine="bvh_sorted")`` of the bunny, equal to
+   ``render_flat(grad_hook=False)``'s image to the bit, 64 launches of #3;
+   the mesh step of ``bench.py`` (``render_flat_hybrid_grad_mesh`` at
+   640x360, spp 16, depth 4, ``grad_spp=2``, ``img.mean()``, the albedo's
+   gradient; spectrally the SPD albedo's): one launch of #2 (#5) whose
+   image equals ``render_flat_engine``'s to the bit, #3's launches in the
+   backward (``render.mesh_replay_launches``) and nothing else, the
+   gradient finite and nonzero on the bunny's material;
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card
@@ -89,7 +100,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    by its launches in one call of a main path, counted in phase 3: one
    render() under engine="auto" (the bunny, the sphere demo, and both
    spectrally), one step, one render_mse_loss_and_grads, one render_flat
-   of the bunny (the wavefront entry); the most over
+   of the bunny (the wavefront entry), one mesh step (RGB, spectral); the
+   most over
    those paths, 0 for a kernel none of them launched; each kernel's time
    and bound at the main paths' shape, 640x360 spp16 d4 (#2's work from
    its counting build there, the other path tracers' from their plain
@@ -107,7 +119,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    share, and the spectral frame's and ``render_with_cpu``'s wrapper
    times; #3 is ranked by its launches on ``render_flat`` and its time a
    launch there (its profiled time over its profiled launches) against
-   the mean of its four calls' bounds.
+   the mean of its four calls' bounds; the mesh step in a process of its
+   own (``spira_tpu_torch/bench/grad_step.py --mesh``, ``[mesh_step]``
+   lines, RGB and spectral): the step, its forward and backward (CUDA
+   events, median of 5), its launches, its time on the card, device
+   operations and idle share (``torch.profiler``), and the peak memory of
+   the step and of the backward's replay.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  ``--save DIR`` also writes the main
@@ -275,6 +292,16 @@ NOISE_FLOOR_MULT = 1.5
 #: threefry draws): rows within these, on this share of the rays
 WAVEFRONT_DEVICE_TOL = dict(rtol=1e-4, atol=1e-5, frac=0.99)
 STEP_LR, STEP_SEEDS = 2.0, range(5)
+#: the mesh step (render_flat_hybrid_grad_mesh, bench.py's mesh tier): the
+#: leaves of its gradient, RGB and spectral.  Its backward through #3 is
+#: held to the bit against the same replay through the plain hook: #3's
+#: outputs are the plain walk's bits, so both run the same operations on
+#: the same values, and the gathers' backward on the card (index_put_
+#: with accumulate) sorts the indices and sums each row in order, so the
+#: sums do not depend on the scheduler
+MESH_FIELDS = {False: (("materials", "albedo"), ("camera", "origin"),
+                       ("triangles", "v0")),
+               True: (("materials", "albedo_spd"),)}
 
 
 def log(*args):
@@ -710,22 +737,16 @@ def check_main(what, kernel, img, plain_img, got, png):
         raise AssertionError(f"{what}: uint8 means differ by {gap} > 1")
 
 
-def check_wavefront_hook(sp, bk, mk, scene, cam):
+def check_wavefront_hook(sp, bk, scene, cam):
     """render_flat's frame, every bounce's nearest hits from kernel #3,
     against the same frame with the hook on #3's plain version on the
     card, to the bit (the same threefry draws and tensor operations)."""
-    from spira_tpu_torch.render import accumulate_rows
+    from spira_tpu_torch.render import wavefront_mean
 
     shape = WAVEFRONT_PLAIN
     kernel = sp.render_flat(scene, cam, seed=3, **shape)
-    acc = accumulate_rows(
-        scene, cam, sp.rng.base_key(3), width=shape["width"],
-        height=shape["height"], row_start=0, n_rows=shape["height"],
-        sample_offset=0, n_samples=shape["spp"],
-        max_depth=shape["max_depth"], semantics="physical",
-        intersect_fn=bk.make_sorted_tile_intersect(
-            grad=True, query=bk.intersect_packed_plain))
-    plain = mk.true_divide(acc, float(shape["spp"]))
+    plain = wavefront_mean(scene, cam, bk.make_sorted_tile_intersect(
+        grad=True, query=bk.intersect_packed_plain), seed=3, **shape)
     torch.cuda.synchronize()
     return check_images(
         f"wavefront bunny {shape['width']}x{shape['height']} spp"
@@ -804,6 +825,37 @@ def check_wavefront_device(sp, scene, cam, name, **kw):
         raise AssertionError(f"{name}: the card's render disagrees with "
                              "the CPU's")
     return dict(case=name, share_close=close, max_abs_err=max_abs)
+
+
+def check_mesh_backward(sp, bk, gs, scene, cam, spectral):
+    """The mesh step's backward (#3 in the hook) at WAVEFRONT_PLAIN's
+    shape against the same replay's vector-Jacobian product with the hook
+    over #3's plain version, the same cotangent (``img.mean()``'s)."""
+    fields = MESH_FIELDS[spectral]
+    shape = WAVEFRONT_PLAIN
+    _, img, got = gs.mesh_step(sp, scene, cam, seed=3, spectral=spectral,
+                               shape=shape, fields=fields)
+    cot = torch.full_like(img, 1.0 / img.numel())
+    want = gs.mesh_replay_grads(scene, cam, cot, fields, seed=3,
+                                spectral=spectral, shape=shape,
+                                query=bk.intersect_packed_plain)
+    torch.cuda.synchronize()
+    name = (f"mesh step backward bunny {shape['width']}x{shape['height']} "
+            f"spp{shape['spp']} d{shape['max_depth']} grad_spp "
+            f"{gs.MESH_GRAD_SPP}{' spectral' * spectral}: #3 hook against the "
+            "plain hook")
+    rel = {f"{g}.{f}": rel_l2(got[g, f], want[g, f]) for g, f in fields}
+    err = {f"{g}.{f}": float((got[g, f] - want[g, f]).abs().max())
+           for g, f in fields}
+    ok = all(torch.isfinite(got[k]).all() and float(want[k].abs().max()) > 0
+             for k in fields)
+    same = all(torch.equal(got[k], want[k]) for k in fields)
+    log(f"[compare] {name}: bit-equal {same} (required), relative L2 a "
+        f"field {rel}, max abs {err}, finite and nonzero {ok}")
+    if not ok or not same:
+        raise AssertionError(f"{name}: the gradients disagree")
+    return dict(case=name, bit_equal=same, rel_l2=rel,
+                max_abs_err=max(err.values()))
 
 
 def check_peak(vp, x, outs, where):
@@ -944,6 +996,7 @@ def main() -> int:
     from spira_tpu_torch.kernels import mxu_megakernel as xk
     from spira_tpu_torch.kernels import spectral_bvh as sb
     from spira_tpu_torch.kernels import spectral_fused as sf
+    from spira_tpu_torch.render import mesh_replay_launches
     from spira_tpu_torch.utils import sol
 
     t_start = time.perf_counter()
@@ -1123,8 +1176,11 @@ def main() -> int:
                                        exact=True))
     bounce_checks, bounce_calls = check_wavefront_rays(bk, ib, bunny,
                                                        bunny_cam)
-    wavefront_checks = [check_wavefront_hook(sp, bk, mk, bunny, bunny_cam),
+    wavefront_checks = [check_wavefront_hook(sp, bk, bunny, bunny_cam),
                         *bounce_checks]
+    mesh_grad_checks = [check_mesh_backward(sp, bk, gs, bunny, bunny_cam,
+                                            spectral)
+                        for spectral in (False, True)]
     counted_checks = check_counted(bk, bunny, bunny_cam)
     counted = counted_checks["counters_640x360_spp4_d4"]
     spectral_checks = []
@@ -1313,6 +1369,58 @@ def main() -> int:
             "demo render_flat reference semantics 48x24 spp2 d4",
             width=48, height=24, spp=2, max_depth=4, seed=5,
             semantics="reference"))
+        # engine bvh_sorted: render_flat with the hook's forward form, to
+        # the bit, one #3 launch a bounce and nothing else
+        reset_counts()
+        img = sp.render(bunny, bunny_cam, w, h, engine="bvh_sorted",
+                        **main_args)
+        got = counts()
+        want = dict.fromkeys(got, 0)
+        want["bvh_intersect"] = MAIN["spp"] * MAIN["max_depth"]
+        same = bool(np.array_equal(img, to_uint8(sp.render_flat(
+            bunny, bunny_cam, grad_hook=False, **MAIN))))
+        log(f"[main] bunny render engine bvh_sorted {shape_name}: image "
+            f"{img.shape}, mean {img.mean():.4f}, equal to render_flat's with"
+            f" grad_hook=False to the bit: {same}, launches {got}")
+        if got != want or not same:
+            raise AssertionError(f"bvh_sorted: launches {got}, equal {same}")
+
+        # the mesh step of bench.py (render_flat_hybrid_grad_mesh,
+        # img.mean(), grad_spp 2): one #2 (#5) launch, its image render()'s
+        # to the bit, then #3 in the backward's replay and nothing else
+        mesh_runs = {}
+        for spectral in (False, True):
+            fwd = "spectral_bvh_megakernel" if spectral else "bvh_megakernel"
+            field = MESH_FIELDS[spectral][0]
+            reset_counts()
+            loss, flat, grads = gs.mesh_step(sp, bunny, bunny_cam,
+                                             spectral=spectral, shape=MAIN)
+            torch.cuda.synchronize()
+            got = counts()
+            what = f"render_flat_hybrid_grad_mesh{' spectral' * spectral}"
+            main_runs[what] = got
+            want = dict.fromkeys(got, 0)
+            want[fwd] = 1
+            want["bvh_intersect"] = mesh_replay_launches(
+                gs.MESH_GRAD_SPP, MAIN["max_depth"])
+            same = torch.equal(flat, sp.render_flat_engine(
+                bunny, bunny_cam, spectral=spectral, **MAIN))
+            g = grads[field]
+            log(f"[main] bunny {what} {shape_name} grad_spp "
+                f"{gs.MESH_GRAD_SPP}:"
+                f" loss {float(loss):.6g}, image equal to render_flat_engine"
+                f"'s (engine auto) to the bit: {same}; d loss / d "
+                f"{field[1]} of material 0 {g[0].tolist()[:4]}, |max| "
+                f"{float(g.abs().max()):.4g}; launches {got} (#3: "
+                f"{got['bvh_intersect']})")
+            if got != want or not same:
+                raise AssertionError(f"{what}: launches {got}, not {want}; "
+                                     f"image equal {same}")
+            if not torch.isfinite(g).all() or not g[0].abs().max() > 0:
+                raise AssertionError(f"{what}: no finite gradient on the "
+                                     "bunny's material")
+            mesh_runs[what] = dict(loss=float(loss), launches=got,
+                                   grad_material0=g[0].tolist())
 
         # the superleaf engines: one launch of their kernel, nothing else;
         # each image against its plain version at its own spp and against
@@ -1659,6 +1767,36 @@ def main() -> int:
         f"{wave_t['spectral_wrapper_ms']:.3f} ms, render_with_cpu demo "
         f"{MAIN_SHAPE} (tone map and host copy included) "
         f"{wave_t['render_with_cpu_demo_ms']:.3f} ms")
+    # the mesh step (bench/grad_step.py --mesh), in a process of its own
+    proc = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "spira_tpu_torch", "bench", "grad_step.py"),
+         "--mesh"], capture_output=True, text=True, timeout=600, check=True)
+    mesh_t = json.loads(proc.stdout.strip().splitlines()[-1])
+    for r in mesh_t["steps"]:
+        n3 = mesh_replay_launches(r["grad_spp"], MAIN["max_depth"])
+        log(f"[mesh_step] {card}: bunny render_flat_hybrid_grad_mesh "
+            f"{MAIN_SHAPE} grad_spp {r['grad_spp']} "
+            f"{'spectral, d albedo_spd' if r['spectral'] else 'RGB, d albedo'}"
+            f" (bench/grad_step.py --mesh, a process of its own): step "
+            f"{r['step_ms']:.3f} ms (median of {len(r['step_ms_runs'])}: "
+            f"{[round(x, 3) for x in r['step_ms_runs']]}), forward "
+            f"{r['forward_ms']:.3f} ms, backward {r['backward_ms']:.3f} ms; "
+            f"launches a step {r['launches_per_step']}; on the card "
+            f"{r['device_ms']:.3f} ms (one profiled step of "
+            f"{r['profiled_wall_ms']:.3f} ms), idle share "
+            f"{r['idle_share']:.4f} of the step; device operations "
+            f"{r['device_ops']}; kernels {r['kernel_launches_profiled']}; "
+            f"peak memory above the scene: the step "
+            f"{r['peak_mb_step']:.1f} MiB, the backward's replay "
+            f"{r['peak_mb_replay']:.1f} MiB; the replay by hand "
+            f"{r['replay_ms']:.3f} ms; top kernels "
+            f"(ms) {r['top_kernels_ms']}")
+        if (r["launches_per_step"] != dict(forward=1, intersect=n3)
+                or not r["grad_finite"] or not r["grad_abs_max"] > 0
+                or not all(math.isfinite(r[k]) for k in (
+                    "step_ms", "forward_ms", "backward_ms"))):
+            raise AssertionError(f"the timed mesh step is wrong: {r}")
     parent_t = parent_frames = this_frames = bounce_runs = None
     if args.parent:
         here = os.path.dirname(os.path.abspath(__file__))
@@ -1700,7 +1838,8 @@ def main() -> int:
                                        for k, r in f["frames"].items()}
 
         same = all(digests(f) == digests(frames[0]) for f in frames)
-        log(f"[compare] frames and cases a-c, g-i: every image of this tree "
+        log(f"[compare] frames, cases a-c, g-i and the wavefront frames "
+            f"(render_flat, RGB and spectral): every image of this tree "
             f"equal to the parent's to the bit (SHA-256): {same}")
         if not same:
             raise AssertionError("a frame or case renders differently from "
@@ -2035,7 +2174,10 @@ def main() -> int:
                 bounds["bvh_intersect"]["bound_ms"] / len(bounce_rows),
                 f"a launch in render_flat, bunny {MAIN_SHAPE}"),
             "wavefront_frame": wave_t,
-            "checks": isect_checks + wavefront_checks,
+            # the mesh step: its backward's replay launches #3
+            "mesh_step": mesh_t,
+            "mesh_step_runs": mesh_runs,
+            "checks": isect_checks + wavefront_checks + mesh_grad_checks,
         },
         {
             "name": "spectral_megakernel",

@@ -13,9 +13,12 @@ block leaves of ``csrc/superleaf.cuh``); and the differentiable step of
 sphere and small-triangle scenes (``render_flat_hybrid_grad``,
 ``render_mse_loss_and_grads``), whose gradients come from a hand-written
 adjoint kernel (``csrc/grad_megakernel.cu``); and the wavefront estimator
-(``render_flat``, engine ``wavefront``, ``render_with_cpu``), whose
-threefry draws are JAX's own bits and whose nearest hits on a packed
-scene on the card come from the packed-BVH query kernel.  Scenes and
+(``render_flat``, engine ``wavefront``, ``render_with_cpu``,
+``render_flat_bvh_sorted``), whose threefry draws are JAX's own bits and
+whose nearest hits on a packed scene on the card come from the packed-BVH
+query kernel; and the differentiable mesh render
+(``render_flat_hybrid_grad_mesh``: a packed-BVH kernel forward, the
+wavefront's vector-Jacobian product backward).  Scenes and
 cameras are made on the card unless ``device="cpu"`` is asked for.
 Nothing here imports JAX.
 """
@@ -31,7 +34,9 @@ from .kernels.megakernel import render_flat_hybrid_grad
 from .render import (
     render,
     render_flat,
+    render_flat_bvh_sorted,
     render_flat_engine,
+    render_flat_hybrid_grad_mesh,
     render_hdr,
     render_hybrid_gpu,
     render_with_cpu,
@@ -81,8 +86,10 @@ __all__ = [
     "pcg",
     "render",
     "render_flat",
+    "render_flat_bvh_sorted",
     "render_flat_engine",
     "render_flat_hybrid_grad",
+    "render_flat_hybrid_grad_mesh",
     "render_hdr",
     "render_hybrid_gpu",
     "render_mse_loss_and_grads",

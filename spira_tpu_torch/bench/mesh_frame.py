@@ -27,8 +27,9 @@ and #4 also the kernel's resident blocks an SM from
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (a probe library built
 from the checkout's own source, which it includes) and the waves its grid
 takes.  Then a digest of each image of ``chip_smoke.py``'s cases of #1
-(a-c) and #4 (g-i), and ``ptxas -v`` of the libraries, so that two
-commits' images can be held equal to the bit.
+(a-c) and #4 (g-i) and of the bunny's wavefront frame (``render_flat``
+at 640x360, spp 16, depth 4, RGB and spectral), and ``ptxas -v`` of the
+libraries, so that two commits' images can be held equal to the bit.
 
 ``--root`` imports ``spira_tpu_torch`` from another checkout (a ``git
 archive`` of another commit unpacked into a directory ``.gitignore``
@@ -278,6 +279,10 @@ def measure(device, probes):
         c = getattr(sp, cam_fn)(aspect or shape["width"] / shape["height"],
                                 device=device)
         cases[case] = digest(fn(scene, c, seed=7, **shape))
+    # the wavefront frame of the bunny (render_flat, #3 a bounce)
+    for spectral in (False, True):
+        cases["render_flat" + "_spectral" * spectral] = digest(
+            sp.render_flat(bunny, cam, spectral=spectral, **SHAPE))
     return dict(frames=frames, case_digests=cases, sms=sms)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 def tensor_dataclass(cls):
     """Make ``cls`` a frozen dataclass with a ``to(device)`` method that
@@ -33,3 +35,21 @@ def tensor_dataclass(cls):
 def replace(obj, **kwargs):
     """Functional field update for the frozen dataclasses."""
     return dataclasses.replace(obj, **kwargs)
+
+
+def requires_grad(*objs) -> bool:
+    """Whether any tensor among ``objs`` (tensors, tensor dataclasses,
+    nested ones, tuples of them) requires grad: what decides whether a
+    checkpoint would save anything."""
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            if obj.requires_grad:
+                return True
+        elif isinstance(obj, (tuple, list)):
+            if requires_grad(*obj):
+                return True
+        elif dataclasses.is_dataclass(obj):
+            if requires_grad(*(getattr(obj, f.name)
+                               for f in dataclasses.fields(obj))):
+                return True
+    return False

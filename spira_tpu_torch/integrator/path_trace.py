@@ -14,7 +14,11 @@ bounces carry 0.5, no roulette, no cutoff.
 
 The code keeps the JAX package's differentiable form (``torch.where``
 selections, double-where guards, the roulette's probability detached, no
-in-place writes to inputs); this slice tests its values only.
+in-place writes to inputs); ``tests/test_torch_mesh_grad.py`` holds its
+gradients against JAX's.  Unlike JAX's ``remat``, no bounce is a
+checkpoint: on the card that cost more time than the memory it saved
+(``PERF.md``); :func:`spira_tpu_torch.render.accumulate_rows` checkpoints
+each sample.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ superleaf kernels (the streaming path tracer and query, the packed-BVH
 path tracer with superleaf leaves), the peak-rate probes (kernels #9 and
 #10), the counting build of the packed-BVH path tracer, and the wavefront
 estimator (``render_flat`` through the packed-BVH query, one launch a
-bounce, with no synchronising call; ``render_with_cpu``).
+bounce, with no synchronising call; ``render_with_cpu``; ``bvh_sorted``),
+and the mesh gradient (``render_flat_hybrid_grad_mesh``: its forward one
+launch of #2 or #5, its backward #3's launches only, against the plain
+hook's backward, with no synchronising call).
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -32,6 +35,7 @@ from spira_tpu_torch.kernels import megakernel as mk
 from spira_tpu_torch.kernels import mxu_megakernel as xk
 from spira_tpu_torch.kernels import spectral_bvh as sb
 from spira_tpu_torch.kernels import spectral_fused as sf
+from spira_tpu_torch.render import mesh_replay_launches
 from spira_tpu_torch.scene.geometry import empty_spheres
 from spira_tpu_torch.scene.obj import icosphere
 from tests.test_torch_superleaf_host import deep_tree_scene, twin_scene
@@ -1035,3 +1039,125 @@ def test_render_with_cpu_runs_on_the_card(cuda):
     img = sp.render_with_cpu(scene, cam, 32, 16, samples_per_pixel=2,
                              max_depth=3, seed=7)
     assert img.shape == (16, 32, 3) and img.std() > 0
+
+
+# ---------------------------------------------------------------------------
+# The mesh gradient: render_flat_hybrid_grad_mesh, #2 or #5 forward, #3 in
+# the backward's replay
+# ---------------------------------------------------------------------------
+
+#: the backward's shape beside the plain hook (chip_smoke.py's
+#: WAVEFRONT_PLAIN)
+MESH_STEP = dict(width=160, height=90, spp=2, max_depth=4)
+
+
+@pytest.fixture(scope="module")
+def bunny():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    device = torch.device("cuda", 0)
+    scene, _ = sp.create_bunny_scene(allow_download=False, device=device)
+    cam = sp.bunny_camera(MESH_STEP["width"] / MESH_STEP["height"],
+                          device=device)
+    return scene, cam
+
+
+def _mesh_fields(spectral):
+    return ((("materials", "albedo_spd"),) if spectral else
+            (("materials", "albedo"), ("camera", "origin"),
+             ("triangles", "v0")))
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_mesh_step_launches_the_kernels_only(cuda, bunny, spectral,
+                                            monkeypatch):
+    """One step: the forward is one launch of #2 (#5 spectrally) whose
+    image equals render_flat_engine's (the engine render() takes) to the
+    bit; the backward launches #3 only, and calls neither #3's plain
+    version nor the stackless walk; gradients finite, nonzero on the
+    bunny's material."""
+    from spira_tpu_torch.accel import traverse
+    from spira_tpu_torch.bench import grad_step as gs
+
+    scene, cam = bunny
+    plain = []
+    for module, name in ((bk, "intersect_packed_plain"),
+                         (traverse, "_stackless_walk")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, real=real, **k: (
+            plain.append(real), real(*a, **k))[1])
+    counted = (bk.render_flat_bvh_megakernel,
+               sb.render_flat_spectral_bvh_megakernel, bk.intersect_tile,
+               mk.render_flat_megakernel)
+    for fn in counted:
+        fn.launches = 0
+    loss, img, grads = gs.mesh_step(sp, scene, cam, seed=3, spectral=spectral,
+                                    shape=MESH_STEP,
+                                    fields=_mesh_fields(spectral))
+    torch.cuda.synchronize()
+    n3 = mesh_replay_launches(2, MESH_STEP["max_depth"])
+    assert [fn.launches for fn in counted] == (
+        [0, 1, n3, 0] if spectral else [1, 0, n3, 0])
+    assert not plain
+    want = sp.render_flat_engine(scene, cam, seed=3, spectral=spectral,
+                                 **MESH_STEP)
+    assert torch.equal(img, want)
+    for field, g in grads.items():
+        assert torch.isfinite(g).all() and g.abs().max() > 0, field
+    # the bunny's own material (0) takes a gradient
+    assert grads[_mesh_fields(spectral)[0]][0].abs().max() > 0
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_mesh_backward_through_kernel_matches_plain_hook(cuda, bunny,
+                                                         spectral):
+    """The step's backward (#3 in the hook) against the same replay's
+    vector-Jacobian product with the hook over #3's plain version, the
+    same cotangent, to the bit: #3 gives the plain walk's bits, and the
+    gathers' backward on the card (index_put_ with accumulate) sorts the
+    indices and sums each row in order, whatever the scheduler does."""
+    from spira_tpu_torch.bench import grad_step as gs
+
+    scene, cam = bunny
+    fields = _mesh_fields(spectral)
+    _, img, got = gs.mesh_step(sp, scene, cam, seed=3, spectral=spectral,
+                               shape=MESH_STEP, fields=fields)
+    cot = torch.full_like(img, 1.0 / img.numel())
+    want = gs.mesh_replay_grads(scene, cam, cot, fields, seed=3,
+                                spectral=spectral, shape=MESH_STEP,
+                                query=bk.intersect_packed_plain)
+    for field in fields:
+        g, w = got[field], want[field]
+        assert float(w.abs().max()) > 0, field
+        assert torch.equal(g, w), (field, _rel_l2(g, w))
+
+
+def test_mesh_step_does_not_sync(cuda, bunny):
+    """A step with the packet backward enqueues its work and returns."""
+    from spira_tpu_torch.bench import grad_step as gs
+
+    scene, cam = bunny
+    kw = dict(seed=1, shape=dict(MESH_STEP, width=64, height=32),
+              fields=_mesh_fields(False))
+    gs.mesh_step(sp, scene, cam, **kw)  # builds, fills the constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gs.mesh_step(sp, scene, cam, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_bvh_sorted_is_render_flat_without_grad_hook(cuda):
+    scene, cam = _packed_mesh(cuda)
+    shape = dict(width=48, height=24, spp=2, max_depth=3, seed=4)
+    bk.intersect_tile.launches = 0
+    for spectral in (False, True):
+        got = sp.render_flat_engine(scene, cam, engine="bvh_sorted",
+                                    spectral=spectral, **shape)
+        want = sp.render_flat(scene, cam, grad_hook=False, spectral=spectral,
+                              **shape)
+        assert torch.equal(got, want) and got.std() > 1e-3
+    assert bk.intersect_tile.launches == 2 * 2 * 2 * 3
