@@ -78,6 +78,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    image equals ``render_flat_engine``'s to the bit, #3's launches in the
    backward (``render.mesh_replay_launches``) and nothing else, the
    gradient finite and nonzero on the bunny's material;
+3b. the command line, through ``cli.main`` at the demo preset (640x360,
+   depth 4), each path with the launch counts set to 0 just before it and
+   read just after (``[cli]`` lines; each path joins the kernels line
+   under the kernel it launches, as ``cli_paths`` with its ``cli_*``
+   label): ``render --spp 16 --seed 0`` of the sphere demo, the bunny, the
+   spectral Cornell box and the spectral bunny, each one launch of its
+   kernel (#1, #2, #4, #5) and nothing else, its PNG
+   ``to_uint8(tonemap(render_hdr(...)))`` of the same arguments to the
+   bit, with its wall time and Mrays/s; ``--adaptive-tol 0.05`` on the
+   bunny twice, #3 only, the same image both times, with its samples
+   saved against uniform spp, rounds and host syncs; ``--shading
+   preview`` and ``normal`` on the bunny, one #3 launch each, the image
+   equal to the preview through #3's plain version to the bit;
+   ``--checkpoint-dir D --checkpoint-every 4`` on the sphere demo stopped
+   after 8 samples (its third chunk raises), resumed, equal to the
+   uninterrupted run and to the one-shot wavefront render to the bit;
+   ``inverse --steps 3 --spp 4`` on the sphere demo (the wavefront's
+   autograd, no kernel) and on the bunny (#3's slot form only), every
+   loss finite, the albedo moved, with ms a step and peak memory (a main
+   path here is one ``step`` call: the target's render is not counted);
+   and ``info``, whose output names the card; the checkpoints go into a
+   temporary directory, only the PNGs into ``--save``;
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card
@@ -97,12 +119,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (VJP at grad_spp 16 and 4, a zero cotangent, loss mode and its
    forward kernel alone, the step at both grad_spp), the VJP bounds at
    both grad_spp beside loss mode's; ``[rank]`` lines weigh each kernel
-   by its launches in one call of a main path, counted in phase 3: one
-   render() under engine="auto" (the bunny, the sphere demo, and both
-   spectrally), one step, one render_mse_loss_and_grads, one render_flat
-   of the bunny (the wavefront entry), one mesh step (RGB, spectral); the
-   most over
-   those paths, 0 for a kernel none of them launched; each kernel's time
+   by its launches in one call of a main path, counted in phases 3 and
+   3b: one render() under engine="auto" (the bunny, the sphere demo, and
+   both spectrally), one step, one render_mse_loss_and_grads, one
+   render_flat of the bunny (the wavefront entry), one mesh step (RGB,
+   spectral), one command of phase 3b (the 3-step inverse command on the
+   bunny included); the most over those paths, 0 for a kernel none of
+   them launched; each kernel's time
    and bound at the main paths' shape, 640x360 spp16 d4 (#2's work from
    its counting build there, the other path tracers' from their plain
    versions there; #8 at that frame's primary rays; #3 on the four calls
@@ -962,6 +985,341 @@ def check_counted(bk, scene, cam):
                 image_bit_equal_uncounted=same, **check)
 
 
+#: the command line's phase: the demo preset (640x360, depth 4) at spp 16
+CLI_ARGS = ("--preset", "demo", "--spp", "16", "--seed", "0")
+#: cli render's four kernel paths: (label, scene, spectral, kernel)
+CLI_RENDERS = (("cli_render_default", "default", False, "megakernel"),
+               ("cli_render_bunny", "bunny", False, "bvh_megakernel"),
+               ("cli_render_cornell_spectral", "cornell", True,
+                "spectral_megakernel"),
+               ("cli_render_bunny_spectral", "bunny", True,
+                "spectral_bvh_megakernel"))
+
+
+def read_png(path):
+    """An 8-bit RGB PNG as an (H, W, 3) uint8 array: through PIL when it
+    is installed (the port writes with it then), else the unfiltered rows
+    the port's own writer makes."""
+    try:
+        from PIL import Image
+    except ImportError:
+        import struct
+        import zlib
+
+        data = open(path, "rb").read()
+        pos, idat, size = 8, b"", None
+        while pos < len(data):
+            n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+            body = data[pos + 8:pos + 8 + n]
+            if tag == b"IHDR":
+                size = struct.unpack(">II", body[:8])
+            elif tag == b"IDAT":
+                idat += body
+            pos += 12 + n
+        w, h = size
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+            h, 1 + 3 * w)
+        if rows[:, 0].any():
+            raise ValueError(f"{path}: filtered rows (no PIL to read them)")
+        return rows[:, 1:].reshape(h, w, 3).copy()
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+class _Records:
+    """The port's log records (``spira_tpu_torch``) while in the block,
+    with the structured fields the command line attaches to them."""
+
+    def __enter__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                self.records.append(record)
+
+        self.records = []
+        self.handler = Handler()
+        logging.getLogger("spira_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("spira_tpu_torch").removeHandler(self.handler)
+        return False
+
+    def field(self, name):
+        return [getattr(r, name) for r in self.records if hasattr(r, name)]
+
+
+def nonzero(got):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in got.items() if v}
+
+
+def check_only(label, got, kernel, n=None):
+    """``got`` (launch counts) has ``n`` launches of ``kernel`` (at least
+    one when ``n`` is None) and none of anything else."""
+    others = {k: v for k, v in got.items() if k != kernel and v}
+    if others or got[kernel] < 1 or (n is not None and got[kernel] != n):
+        raise AssertionError(f"{label}: launches {got}, wanted "
+                             f"{n or '> 0'} of {kernel} and nothing else")
+
+
+def cli_phase(sp, bk, out_dir, work_dir, main_runs, device="cuda",
+              size=(640, 360)):
+    """Phase 3b: the command line through ``cli.main``, each path with the
+    launch counts set to 0 just before it and read just after.  The PNGs
+    go into ``out_dir``, the checkpoints into ``work_dir`` (fresh each
+    run, so no path resumes from an earlier run's).  Returns {kernel
+    name: {cli label: what the path measured}} for the kernels line (the
+    paths that launch no kernel are logged only).  ``device`` and
+    ``size`` (the demo preset's by default) rehearse the phase
+    elsewhere."""
+    import contextlib
+    import io as io_mod
+
+    from spira_tpu_torch import cli, pipeline
+    from spira_tpu_torch.diff import inverse
+    from spira_tpu_torch.utils.metrics import sync_device
+    from spira_tpu_torch.integrator.preview import render_flat_preview
+    from spira_tpu_torch.io import image as img_io
+    from spira_tpu_torch.utils import checkpoint as ckpt
+    from spira_tpu_torch.utils import config
+
+    paths = {}
+    w, h = size
+    cli_args = [*CLI_ARGS, "--width", str(w), "--height", str(h),
+                "--device", device]
+
+    def run(label, argv, main_path=True):
+        """cli.main(argv): (records, launches, wall ms); the launches are
+        one call of a main path unless ``main_path`` is False."""
+        with _Records() as rec:
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            sync_device()
+            wall = 1e3 * (time.perf_counter() - t0)
+            got = counts()
+        if rc != 0:
+            raise AssertionError(f"{label}: cli.main returned {rc}")
+        if main_path:
+            main_runs[label] = got
+        return rec, got, wall
+
+    def reference(scene_name, spectral=False):
+        cfg = config.RenderConfig(scene=scene_name, spectral=spectral,
+                                  width=w, height=h, spp=16, max_depth=4,
+                                  device=device)
+        return config.build_scene(cfg)
+
+    # 1. cli render on the four kernel paths: one launch, render_hdr's
+    # image to the bit
+    for label, scene_name, spectral, kernel in CLI_RENDERS:
+        png = os.path.join(out_dir, f"{label}.png")
+        argv = ["render", "--scene", scene_name, *cli_args, "-o", png]
+        rec, got, wall = run(label, argv + ["--spectral"] * spectral)
+        check_only(label, got, kernel, 1)
+        scene, cam = reference(scene_name, spectral)
+        want = img_io.to_uint8(img_io.tonemap_gamma(sp.render_hdr(
+            scene, cam, w, h, spp=16, max_depth=4, seed=0,
+            spectral=spectral)))
+        same = bool(np.array_equal(read_png(png), want))
+        seconds = rec.field("render_seconds")[0]
+        rays = w * h * 16 * 4
+        info = dict(launches=got[kernel], wall_ms=wall,
+                    render_ms=1e3 * seconds,
+                    mrays_per_s=rays / seconds / 1e6,
+                    png_equals_render_hdr=same)
+        log(f"[cli] {label}: {' '.join(argv[1:])}{' --spectral' * spectral}"
+            f": launches {nonzero(got)}, wall {wall:.1f} ms, run_config "
+            f"{1e3 * seconds:.1f} ms, {info['mrays_per_s']:.1f} Mrays/s; "
+            f"PNG equal to render_hdr's tone-mapped image to the bit: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{label}: PNG differs from render_hdr's")
+        paths.setdefault(kernel, {})[label] = info
+
+    # 2. the adaptive renderer on the bunny (block granularity): #3 only,
+    # the same image twice
+    label = "cli_render_adaptive_bunny"
+    pngs, runs = [], []
+    for i in range(2):
+        pngs.append(os.path.join(out_dir, f"{label}_{i}.png"))
+        runs.append(run(label, ["render", "--scene", "bunny", *cli_args,
+                                "--adaptive-tol", "0.05", "-o", pngs[-1]]))
+    rec, got, wall = runs[0]
+    check_only(label, got, "bvh_intersect")
+    stats = rec.field("adaptive_stats")[0]
+    same = bool(np.array_equal(read_png(pngs[0]), read_png(pngs[1])))
+    info = dict(launches=got["bvh_intersect"], wall_ms=wall,
+                wall_ms_second_run=runs[1][2], rounds=stats["rounds"],
+                host_syncs=stats["host_syncs"],
+                total_samples=stats["total_samples"],
+                uniform_samples=stats["uniform_samples"],
+                samples_saved=(stats["uniform_samples"]
+                               - stats["total_samples"]),
+                savings=stats["savings"], deterministic=same)
+    log(f"[cli] {label}: --adaptive-tol 0.05 (block granularity, min spp "
+        f"8, cap 16): launches {nonzero(got)}, wall {wall:.1f} and "
+        f"{runs[1][2]:.1f} ms, {stats['total_samples']} samples of a "
+        f"uniform {stats['uniform_samples']} ({info['samples_saved']} saved,"
+        f" {100 * stats['savings']:.1f}%), {stats['rounds']} rounds, "
+        f"{stats['host_syncs']} host syncs; the same image twice: {same}")
+    if not same or runs[1][1] != got:
+        raise AssertionError(f"{label}: not deterministic")
+    paths.setdefault("bvh_intersect", {})[label] = info
+
+    # 3. the previews on the bunny: one #3 launch each; the image the
+    # preview through #3's hook, equal to the preview through #3's plain
+    # version to the bit (both recompute the winning hit alike)
+    scene, cam = reference("bunny")
+    for shading in ("preview", "normal"):
+        label = f"cli_render_{shading}_bunny"
+        png = os.path.join(out_dir, f"{label}.png")
+        rec, got, wall = run(label, ["render", "--scene", "bunny",
+                                     *cli_args, "--shading", shading, "-o",
+                                     png])
+        check_only(label, got, "bvh_intersect", 1)
+        kw = dict(width=w, height=h, seed=0, shading=shading)
+        hooked = render_flat_preview(scene, cam, **kw)
+        plain = render_flat_preview(
+            scene, cam, intersect_fn=bk.make_sorted_tile_intersect(
+                query=bk.intersect_packed_plain), **kw)
+        equal = bool(torch.equal(hooked, plain))
+        same = bool(np.array_equal(read_png(png), img_io.to_uint8(
+            img_io.tonemap_gamma(img_io.assemble_image(hooked, w, h)))))
+        err = float((hooked - plain).abs().max())
+        info = dict(launches=got["bvh_intersect"], wall_ms=wall,
+                    equals_plain=equal, max_abs_err=err,
+                    png_equals_preview=same)
+        log(f"[cli] {label}: --shading {shading}: launches "
+            f"{nonzero(got)}, wall {wall:.1f} ms; equal to the plain hook's "
+            f"preview to the bit: {equal} (max abs {err:.3g}); PNG the "
+            f"preview's to the bit: {same}")
+        if not equal or not same:
+            raise AssertionError(f"{label}: preview disagrees")
+        paths.setdefault("bvh_intersect", {})[label] = info
+
+    # 4. the progressive renderer on the sphere demo: stopped after 8 of
+    # 16 samples (the third chunk raises), resumed, equal to the
+    # uninterrupted run to the bit
+    label = "cli_render_progressive_default"
+    ckdir = os.path.join(work_dir, "progressive_ck")
+    argv = ["render", "--scene", "default", *cli_args, "--checkpoint-dir",
+            ckdir, "--checkpoint-every", "4"]
+    chunk, calls = pipeline._render_chunk, []
+
+    def preempted(*a, **k):
+        calls.append(1)
+        if len(calls) == 3:
+            raise InterruptedError("preempted after 8 samples")
+        return chunk(*a, **k)
+
+    resumed_png = os.path.join(out_dir, f"{label}_resumed.png")
+    pipeline._render_chunk = preempted
+    try:
+        cli.main(argv + ["-o", resumed_png])
+        raise AssertionError(f"{label}: the preempted run did not stop")
+    except InterruptedError:
+        pass
+    finally:
+        pipeline._render_chunk = chunk
+    saved = ckpt.load_render_state(ckdir)[1]
+    # the same command again resumes from the checkpoint
+    rec, got, wall = run(label, argv + ["-o", resumed_png])
+    resumed_at = rec.field("resumed_samples")
+    whole_png = os.path.join(out_dir, f"{label}_whole.png")
+    _, _, wall_whole = run(label + "_whole", [
+        "render", "--scene", "default", *cli_args, "--checkpoint-dir",
+        os.path.join(work_dir, "progressive_whole"), "--checkpoint-every",
+        "4", "-o", whole_png])
+    same = bool(np.array_equal(read_png(resumed_png), read_png(whole_png)))
+    scene, cam = reference("default")
+    one_shot = bool(np.array_equal(read_png(whole_png), img_io.to_uint8(
+        img_io.tonemap_gamma(sp.render_hdr(scene, cam, w, h, spp=16,
+                                           max_depth=4,
+                                           engine="wavefront")))))
+    log(f"[cli] {label}: {' '.join(argv[1:])}: stopped in the third chunk, "
+        f"the checkpoint holds {saved} samples, the same command resumed "
+        f"at {resumed_at}; the resumed 8 samples "
+        f"{wall:.1f} ms, the whole 16 {wall_whole:.1f} ms; launches "
+        f"{nonzero(got)} (the wavefront over spheres launches no kernel); "
+        f"the resumed image"
+        f" equals the uninterrupted one to the bit: {same}; and the one-shot"
+        f" wavefront render's: {one_shot}")
+    if (saved != 8 or resumed_at != [8] or not same or not one_shot
+            or any(got.values())):
+        raise AssertionError(f"{label}: resume not exact")
+
+    # 5. the inverse loop: 3 steps at spp 4 on the sphere demo (the
+    # wavefront's autograd) and on the bunny (#3's slot form); the main
+    # path is one step call, counted apart from the target's render
+    make_step, step_runs = inverse.make_inverse_step, []
+
+    def counting_make_step(*a, **k):
+        step, init = make_step(*a, **k)
+
+        def counted(*sa, **sk):
+            before = counts()
+            out = step(*sa, **sk)
+            step_runs.append({n: v - before[n] for n, v in counts().items()})
+            return out
+        return counted, init
+
+    for scene_name in ("default", "bunny"):
+        label = f"cli_inverse_{scene_name}"
+        ckdir = os.path.join(work_dir, f"{label}_ck")
+        step_runs.clear()
+        inverse.make_inverse_step = counting_make_step
+        try:
+            rec, got, wall = run(label, [
+                "inverse", "--scene", scene_name, *cli_args, "--spp", "4",
+                "--steps", "3", "--no-progress", "--checkpoint-dir", ckdir,
+                "--checkpoint-every", "1", "-o", ""], main_path=False)
+        finally:
+            inverse.make_inverse_step = make_step
+        if len(step_runs) != 3 or any(r != step_runs[0] for r in step_runs):
+            raise AssertionError(f"{label}: step launches {step_runs}")
+        main_runs[f"{label}: one step"] = step_runs[0]
+        losses = rec.field("loss")
+        stats = rec.field("inverse_stats")[0]
+        albedo = np.load(os.path.join(ckdir, "arrays.npz"))["params:albedo"]
+        moved = float(np.abs(albedo - 0.5).max())
+        info = dict(launches=got["bvh_intersect"],
+                    launches_per_step=step_runs[0]["bvh_intersect"],
+                    wall_ms=wall, ms_per_step=1e3 * stats["seconds"] / stats["steps"],
+                    peak_mib=stats["peak_mib"], losses=losses,
+                    albedo_moved=moved)
+        peak = ("not measured" if stats["peak_mib"] is None
+                else f"{stats['peak_mib']:.1f} MiB")
+        log(f"[cli] {label}: 3 steps at {w}x{h} spp4 d4: losses "
+            f"{[round(x, 6) for x in losses]}, {info['ms_per_step']:.1f} ms "
+            f"a step, peak memory {peak}, the albedo "
+            f"moved by up to {moved:.4f}; launches {nonzero(got)} (the "
+            f"target's render and the steps), a step "
+            f"{nonzero(step_runs[0])}; wall {wall:.1f} ms")
+        if (len(losses) != 3 or not np.isfinite(losses).all()
+                or not moved > 0):
+            raise AssertionError(f"{label}: bad loss or no update")
+        if scene_name == "bunny":
+            check_only(label, got, "bvh_intersect")
+            paths.setdefault("bvh_intersect", {})[label] = info
+        elif any(got.values()):
+            raise AssertionError(f"{label}: launched {got}")
+
+    # 6. info names the card
+    buf = io_mod.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["info"])
+    text = buf.getvalue()
+    log(f"[cli] cli_info: {' | '.join(text.splitlines())}")
+    if rc != 0 or torch.cuda.get_device_name(0) not in text:
+        raise AssertionError("cli info does not name the card")
+    return paths
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save", help="also write the main paths' PNGs "
@@ -1545,6 +1903,12 @@ def main() -> int:
             and float(d_scene.materials.albedo.abs().max()) > 0):
         raise AssertionError("render_mse_loss_and_grads: bad loss or "
                              "gradients")
+
+    # ---- 3b. the command line (cli.main) at the demo preset
+    t_cli = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_paths = cli_phase(sp, bk, args.save or tmp, tmp, main_runs)
+    log(f"[cli] phase 3b: {time.perf_counter() - t_cli:.1f} s")
 
     # ---- 4. timing
     def mrays(shape, ms):
@@ -2381,6 +2745,7 @@ def main() -> int:
     # their fill grid), largest first (the script's own counts stay in
     # "launches")
     for k in kernels:
+        k["cli_paths"] = cli_paths.get(k["name"], {})
         k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])
         paths = {path: got[k["name"]] for path, got in main_runs.items()
                  if got[k["name"]]}

@@ -15,16 +15,18 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the card."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as a ``torch.device``; ``None`` means the card.  Asking
+    for CUDA, by default or by name, on a host without it raises: nothing
+    falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device (torch.cuda.is_available() is False): the "
-            "constructors build on the card unless asked otherwise; pass "
-            "device='cpu' to build on the CPU"
+            f"device {str(device)!r}: no CUDA device "
+            "(torch.cuda.is_available() is False); the port runs on the "
+            "card unless asked otherwise: pass device='cpu' (--device cpu) "
+            "to run on the CPU"
         )
-    return torch.device("cuda")
+    return device
 
 
 _CONSTANTS: dict = {}

@@ -35,9 +35,14 @@ Every engine but ``wavefront`` renders physical semantics only.
 kernel forward, the wavefront's vector-Jacobian product backward.
 ``engine="auto"`` never picks the two superleaf engines, as in JAX: they
 are the retired experiments of :mod:`spira_tpu_torch.experiments`.
+``render(shading="preview"|"normal")`` takes the single-bounce renderer
+of :mod:`spira_tpu_torch.integrator.preview`.  :func:`accumulate_rows`,
+:func:`accumulate_row_set` and :func:`accumulate_block_set` are the
+wavefront's sample loops over a row range, a row set and a block set, for
+the renderers of :mod:`spira_tpu_torch.pipeline`.
 
-Every other path of the JAX renderer raises ``NotImplementedError`` naming
-the ROADMAP item (queue 1) that brings it.
+The sharded paths of the JAX renderer raise ``NotImplementedError`` naming
+the ROADMAP item (queue 1) that brings them.
 """
 
 from __future__ import annotations
@@ -89,14 +94,25 @@ def render_flat(scene, camera, *, width: int, height: int, spp: int = 16,
     #3 on the TPU; other scenes take :func:`spira_tpu_torch.integrator.
     intersect.intersect_scene`.
     """
-    intersect_fn = None
+    return wavefront_mean(scene, camera,
+                          wavefront_hook(scene, semantics, grad=grad_hook),
+                          width=width, height=height, spp=spp,
+                          max_depth=max_depth, seed=seed,
+                          semantics=semantics, inclusive_uv=inclusive_uv,
+                          spectral=spectral)
+
+
+def wavefront_hook(scene, semantics: str = "physical", grad: bool = False):
+    """The wavefront's nearest-hit hook for ``scene``: CUDA kernel #3
+    through :func:`make_sorted_tile_intersect` (``grad`` picks its
+    differentiable form) for a scene with packed tables on a CUDA device
+    in physical semantics, where JAX takes Pallas #3 on the TPU; ``None``
+    (:func:`spira_tpu_torch.integrator.intersect.intersect_scene`) for
+    every other scene."""
     if (scene.packed is not None and semantics == "physical"
             and scene.device.type == "cuda"):
-        intersect_fn = make_sorted_tile_intersect(grad=grad_hook)
-    return wavefront_mean(scene, camera, intersect_fn, width=width,
-                          height=height, spp=spp, max_depth=max_depth,
-                          seed=seed, semantics=semantics,
-                          inclusive_uv=inclusive_uv, spectral=spectral)
+        return make_sorted_tile_intersect(grad=grad)
+    return None
 
 
 def render_flat_bvh_sorted(scene, camera, *, width: int, height: int,
@@ -148,12 +164,16 @@ def accumulate_rows(scene, camera, base_key, *, width: int, height: int,
                     row_start: int, n_rows: int, sample_offset: int,
                     n_samples: int, max_depth: int, semantics: str,
                     inclusive_uv: bool = True, spectral: bool = False,
-                    intersect_fn=None, checkpoint_samples: bool = True):
+                    intersect_fn=None, checkpoint_samples: bool = True,
+                    init=None):
     """The sum of ``n_samples`` radiance estimates for the rows
     ``row_start .. row_start + n_rows``: (n_rows*width, 3).  Sample ``k``
     draws from ``fold_in(sample_key(base_key, sample_offset + k),
     row_start)``, so tiles of one image draw decorrelated randomness;
-    callers divide by the total spp.
+    callers divide by the total spp.  ``init`` (an (n_rows*width, 3)
+    tensor, not written to) is the sum to add the samples to, in sample
+    order: a render in chunks that passes each chunk the sum so far adds
+    exactly what one call over every sample adds.
 
     With ``checkpoint_samples``, when a gradient is being taken (grad mode
     on and a tensor of the scene or camera requires grad), each sample is
@@ -164,8 +184,9 @@ def accumulate_rows(scene, camera, base_key, *, width: int, height: int,
     RNG state kept).  A value-only call checkpoints nothing and adds no
     operation.
     """
-    acc = torch.zeros((n_rows * width, 3), dtype=torch.float32,
-                      device=camera.origin.device)
+    acc = (torch.zeros((n_rows * width, 3), dtype=torch.float32,
+                       device=camera.origin.device) if init is None
+           else init)
     remat = (checkpoint_samples and torch.is_grad_enabled()
              and requires_grad(scene, camera))
 
@@ -175,18 +196,96 @@ def accumulate_rows(scene, camera, base_key, *, width: int, height: int,
         origins, dirs = generate_rays(camera, width, height, skey,
                                       inclusive_uv=inclusive_uv,
                                       row_start=row_start, n_rows=n_rows)
-        if spectral:
-            return trace_spectral(scene, origins, dirs, skey,
-                                  max_depth=max_depth,
-                                  intersect_fn=intersect_fn)
-        return trace(scene, origins, dirs, skey, max_depth=max_depth,
-                     semantics=semantics, intersect_fn=intersect_fn)
+        return _trace(scene, origins, dirs, skey, max_depth, semantics,
+                      spectral, intersect_fn)
 
     for k in range(n_samples):
         acc = acc + (checkpoint(sample, k, use_reentrant=False,
                                 preserve_rng_state=False)
                      if remat else sample(k))
     return acc
+
+
+def _trace(scene, origins, dirs, skey, max_depth, semantics, spectral,
+           intersect_fn):
+    if spectral:
+        return trace_spectral(scene, origins, dirs, skey,
+                              max_depth=max_depth, intersect_fn=intersect_fn)
+    return trace(scene, origins, dirs, skey, max_depth=max_depth,
+                 semantics=semantics, intersect_fn=intersect_fn)
+
+
+#: Rec.709 luma weights: the adaptive sampler's convergence statistic
+LUMA = (0.2126, 0.7152, 0.0722)
+
+
+def accumulate_row_set(scene, camera, base_key, rows, sample_base, *,
+                       width: int, height: int, n_samples: int,
+                       max_depth: int, semantics: str = "physical",
+                       inclusive_uv: bool = True, spectral: bool = False,
+                       intersect_fn=None):
+    """The sums of ``n_samples`` radiance estimates over a SET of image
+    rows, the adaptive sampler's dispatch unit: ``rows`` is an (R,)
+    integer tensor or sequence of rows (counted from the bottom), and
+    sample ``k`` draws from ``sample_key(base_key, sample_base + k)``,
+    fresh every round and shared by the round's rows (rays decorrelate by
+    their position in the draw).
+
+    Returns ``(acc (R*W, 3), lum (R*W,), lum2 (R*W,))``: the radiance sum
+    and the sums of each estimate's luminance (``LUMA``) and its square,
+    which the convergence test needs.  Forward only.
+    """
+    rows = torch.as_tensor(rows, device=camera.origin.device).long()
+    return _accumulate_set(scene, camera, base_key, sample_base,
+                           int(rows.shape[0]) * width, dict(rows=rows),
+                           width=width, height=height, n_samples=n_samples,
+                           max_depth=max_depth, semantics=semantics,
+                           inclusive_uv=inclusive_uv, spectral=spectral,
+                           intersect_fn=intersect_fn)
+
+
+def accumulate_block_set(scene, camera, base_key, blocks, sample_base, *,
+                         width: int, height: int, n_samples: int,
+                         max_depth: int, semantics: str = "physical",
+                         inclusive_uv: bool = True, spectral: bool = False,
+                         intersect_fn=None, block_w: int = 128):
+    """:func:`accumulate_row_set` over a SET of ``block_w``-pixel row
+    segments instead (block id = row * (W // block_w) + col_block), so
+    that segments, not whole rows, retire independently.
+
+    Returns ``(acc (B*block_w, 3), lum (B*block_w,), lum2 (B*block_w,))``.
+    """
+    blocks = torch.as_tensor(blocks, device=camera.origin.device).long()
+    return _accumulate_set(scene, camera, base_key, sample_base,
+                           int(blocks.shape[0]) * block_w,
+                           dict(blocks=blocks, block_w=block_w),
+                           width=width, height=height, n_samples=n_samples,
+                           max_depth=max_depth, semantics=semantics,
+                           inclusive_uv=inclusive_uv, spectral=spectral,
+                           intersect_fn=intersect_fn)
+
+
+def _accumulate_set(scene, camera, base_key, sample_base, n, raygen, *,
+                    width, height, n_samples, max_depth, semantics,
+                    inclusive_uv, spectral, intersect_fn):
+    """The sums of :func:`accumulate_row_set` over the ``n`` rays that
+    ``generate_rays(**raygen)`` makes."""
+    device = camera.origin.device
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    lum = torch.zeros((n,), dtype=torch.float32, device=device)
+    lum2 = torch.zeros((n,), dtype=torch.float32, device=device)
+    for k in range(n_samples):
+        skey = srng.sample_key(base_key, sample_base + k)
+        origins, dirs = generate_rays(camera, width, height, skey,
+                                      inclusive_uv=inclusive_uv, **raygen)
+        radiance = _trace(scene, origins, dirs, skey, max_depth, semantics,
+                          spectral, intersect_fn)
+        y = (radiance[:, 0] * LUMA[0] + radiance[:, 1] * LUMA[1]
+             + radiance[:, 2] * LUMA[2])
+        acc = acc + radiance
+        lum = lum + y
+        lum2 = lum2 + y * y
+    return acc, lum, lum2
 
 
 def _render_flat_mxu(scene, camera, **kw):
@@ -313,26 +412,32 @@ def render(
 ) -> np.ndarray:
     """Render, tone map, optionally save; returns (H, W, 3) uint8, top-down.
 
-    ``output_path`` ending in ``.exr`` saves the HDR image, ``.ppm`` a PPM,
-    anything else a PNG.
+    ``shading="preview"``/``"normal"`` take the single-bounce quick-look
+    renderer (:func:`spira_tpu_torch.integrator.preview.
+    render_flat_preview`), which ignores the sampling and engine
+    arguments.  ``output_path`` ending in ``.exr`` saves the HDR image,
+    ``.ppm`` a PPM, anything else a PNG.
     """
     if shading != "full":
-        raise _not_ported(
-            f"shading={shading!r}", "item 13, the preview renderers"
+        from .integrator.preview import render_flat_preview
+
+        hdr = img_io.assemble_image(render_flat_preview(
+            scene, camera, width=width, height=height, seed=seed,
+            shading=shading, inclusive_uv=inclusive_uv), width, height)
+    else:
+        hdr = render_hdr(
+            scene,
+            camera,
+            width,
+            height,
+            spp=samples_per_pixel,
+            max_depth=max_depth,
+            seed=seed,
+            semantics=semantics,
+            inclusive_uv=inclusive_uv,
+            spectral=spectral,
+            engine=engine,
         )
-    hdr = render_hdr(
-        scene,
-        camera,
-        width,
-        height,
-        spp=samples_per_pixel,
-        max_depth=max_depth,
-        seed=seed,
-        semantics=semantics,
-        inclusive_uv=inclusive_uv,
-        spectral=spectral,
-        engine=engine,
-    )
     out = img_io.to_uint8(img_io.TONEMAPS[tonemap](hdr))
     if output_path is not None:
         if output_path.endswith(".exr"):

@@ -93,7 +93,8 @@ def default_camera(aspect_ratio, device=None) -> Camera:
 
 def generate_rays(camera: Camera, width: int, height: int, key, *,
                   inclusive_uv: bool = True, row_start: int = 0,
-                  n_rows: int | None = None):
+                  n_rows: int | None = None, rows=None, blocks=None,
+                  block_w: int = 128):
     """Jittered primary rays for the rows ``row_start .. row_start +
     n_rows`` (all rows by default), flattened to an (n_rows*W,) wavefront
     on the camera's device: (origins (N, 3), directions (N, 3)).
@@ -102,18 +103,44 @@ def generate_rays(camera: Camera, width: int, height: int, key, *,
     bottom of the image.  ``key`` (:mod:`spira_tpu_torch.core.rng`) is the
     sample's key; the jitter draws from its ``PIXEL_JITTER`` stream and
     the thin-lens disk from ``LENS``.  ``inclusive_uv=True`` divides by
-    (dim - 1), ``False`` by dim.  The JAX package's row-set and block-set
-    forms (``rows=``, ``blocks=``) are not ported.
+    (dim - 1), ``False`` by dim.
+
+    ``rows`` (an (R,) integer tensor or sequence) selects a SET of rows
+    instead of a contiguous range, as the adaptive sampler dispatches its
+    unconverged rows: ray ``r = i * W + col`` covers ``rows[i]``.
+    ``blocks`` (a (B,) integer tensor or sequence) selects a set of
+    ``block_w``-pixel row segments (block id = row * (W // block_w) +
+    col_block; ``W % block_w == 0``): ray ``r = i * block_w + lane``
+    covers lane ``lane`` of ``blocks[i]``.  The caller keeps keys fresh
+    across dispatches.
     """
-    if n_rows is None:
-        n_rows = height
-    n = width * n_rows
     device = camera.origin.device
+    if blocks is not None:
+        if width % block_w:
+            raise ValueError(f"block-set raygen needs width % {block_w} == "
+                             f"0, got {width}")
+        nbx = width // block_w
+        blocks = torch.as_tensor(blocks, device=device).long()
+        n = int(blocks.shape[0]) * block_w
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+        b = blocks[idx // block_w]
+        col = ((b % nbx) * block_w + idx % block_w).to(torch.float32)
+        row = (b // nbx).to(torch.float32)
+    elif rows is not None:
+        rows = torch.as_tensor(rows, device=device).long()
+        n = width * int(rows.shape[0])
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+        col = (idx % width).to(torch.float32)
+        row = rows[idx // width].to(torch.float32)
+    else:
+        if n_rows is None:
+            n_rows = height
+        n = width * n_rows
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+        col = (idx % width).to(torch.float32)
+        row = (idx // width + row_start).to(torch.float32)
     jitter = srng.uniform(srng.bounce_key(key, 0, srng.Stream.PIXEL_JITTER),
                           (n, 2), device)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    col = (idx % width).to(torch.float32)
-    row = (idx // width + row_start).to(torch.float32)
     return _rays_from_uv(camera, width, height, key, jitter, col, row,
                          inclusive_uv, n)
 

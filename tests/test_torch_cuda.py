@@ -7,9 +7,14 @@ path tracer with superleaf leaves), the peak-rate probes (kernels #9 and
 #10), the counting build of the packed-BVH path tracer, and the wavefront
 estimator (``render_flat`` through the packed-BVH query, one launch a
 bounce, with no synchronising call; ``render_with_cpu``; ``bvh_sorted``),
-and the mesh gradient (``render_flat_hybrid_grad_mesh``: its forward one
+the mesh gradient (``render_flat_hybrid_grad_mesh``: its forward one
 launch of #2 or #5, its backward #3's launches only, against the plain
-hook's backward, with no synchronising call).
+hook's backward, with no synchronising call), and the command line and
+its renderers (``cli render`` on the four kernel scenes, one launch each
+and ``render_hdr``'s image to the bit; the adaptive renderer on the bunny
+through #3, deterministic; the progressive renderer's exact resume; the
+preview through one #3 launch; an inverse step through #3's slot form
+with no synchronising call).
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -19,6 +24,7 @@ installed; run it there without the suite's conftest (which sets JAX up):
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -1161,3 +1167,191 @@ def test_bvh_sorted_is_render_flat_without_grad_hook(cuda):
                               **shape)
         assert torch.equal(got, want) and got.std() > 1e-3
     assert bk.intersect_tile.launches == 2 * 2 * 2 * 3
+
+
+# ---------------------------------------------------------------------------
+# The command line and its renderers: cli render, the adaptive, progressive
+# and preview renderers, the inverse step
+# ---------------------------------------------------------------------------
+
+#: the CLI's shape here (the block-set adaptive renderer needs W % 128 == 0)
+CLI = dict(width=128, height=64, spp=4, max_depth=3)
+CLI_ARGS = ["--width", "128", "--height", "64", "--spp", "4", "--max-depth",
+            "3", "--no-progress"]
+
+
+def _counted_launches(fn):
+    """(fn(), the launches of each path-tracing and nearest-hit kernel in
+    it)."""
+    counted = dict(megakernel=mk.render_flat_megakernel,
+                   bvh_megakernel=bk.render_flat_bvh_megakernel,
+                   spectral_megakernel=sf.render_flat_spectral_megakernel,
+                   spectral_bvh_megakernel=(
+                       sb.render_flat_spectral_bvh_megakernel),
+                   bvh_intersect=bk.intersect_tile)
+    for f in counted.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counted.items()}
+
+
+@pytest.mark.parametrize("scene,spectral,kernel", [
+    ("default", False, "megakernel"), ("bunny", False, "bvh_megakernel"),
+    ("cornell", True, "spectral_megakernel"),
+    ("bunny", True, "spectral_bvh_megakernel")])
+def test_cli_render_launches_its_kernel(cuda, tmp_path, scene, spectral,
+                                        kernel):
+    """``cli render`` launches exactly its scene's kernel once, and its
+    PNG is ``render_hdr``'s image tone mapped, to the bit."""
+    from PIL import Image
+
+    from spira_tpu_torch import cli
+    from spira_tpu_torch.io import image as img_io
+    from spira_tpu_torch.utils import config
+
+    out = str(tmp_path / "cli.png")
+    argv = ["render", "--scene", scene, *CLI_ARGS, "--seed", "2", "-o", out]
+    rc, got = _counted_launches(
+        lambda: cli.main(argv + ["--spectral"] * spectral))
+    want = dict.fromkeys(got, 0)
+    want[kernel] = 1
+    assert rc == 0 and got == want
+    s, c = config.build_scene(config.RenderConfig(scene=scene, **CLI))
+    hdr = sp.render_hdr(s, c, CLI["width"], CLI["height"], spp=CLI["spp"],
+                        max_depth=CLI["max_depth"], seed=2,
+                        spectral=spectral)
+    np.testing.assert_array_equal(np.asarray(Image.open(out)),
+                                  img_io.to_uint8(img_io.tonemap_gamma(hdr)))
+
+
+def _cli_bunny():
+    """The bunny and its camera at ``CLI``'s shape, as ``cli render``
+    builds them."""
+    from spira_tpu_torch.utils import config
+
+    return config.build_scene(config.RenderConfig(scene="bunny", **CLI))
+
+
+def test_adaptive_bunny_launches_intersect_and_is_deterministic(cuda):
+    """The adaptive renderer on the packed bunny: every bounce's nearest
+    hit from #3 and no other kernel, one host sync a round (counted by the
+    sync debug mode; the meter is off), the same image twice."""
+    from spira_tpu_torch import pipeline
+    from spira_tpu_torch.utils import config
+
+    scene, cam = _cli_bunny()
+    cfg = config.RenderConfig(scene="bunny", progress=False,
+                              **dict(CLI, spp=8))
+    kw = dict(tol=0.05, min_spp=2, chunk=2, granularity="block",
+              return_stats=True)
+    (a, stats), got = _counted_launches(
+        lambda: pipeline.render_adaptive(scene, cam, cfg, **kw))
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            b, _ = pipeline.render_adaptive(scene, cam, cfg, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert got["bvh_intersect"] > 0
+    assert sum(got.values()) == got["bvh_intersect"]
+    assert stats["host_syncs"] == stats["rounds"] == len(syncs) >= 2
+    assert np.isfinite(a).all() and a.std() > 1e-3
+    np.testing.assert_array_equal(a, b)
+
+
+def test_progressive_resume_is_exact_on_the_card(cuda, tmp_path,
+                                                 monkeypatch):
+    """The sphere demo in chunks of 2: the third chunk raises, the
+    checkpoint holds 4 samples, and the resume equals the uninterrupted
+    render and the one-shot wavefront render, to the bit."""
+    from spira_tpu_torch import pipeline
+    from spira_tpu_torch.utils import checkpoint as ckpt
+    from spira_tpu_torch.utils import config
+
+    ckdir = str(tmp_path / "ck")
+    cfg = config.RenderConfig(progress=False, checkpoint_dir=ckdir,
+                              checkpoint_every=2, **dict(CLI, spp=8))
+    scene, cam = config.build_scene(cfg)
+    chunk = pipeline._render_chunk
+    calls = []
+
+    def flaky(*args, **kw):
+        calls.append(1)
+        if len(calls) == 3:
+            raise InterruptedError("preempted")
+        return chunk(*args, **kw)
+
+    monkeypatch.setattr(pipeline, "_render_chunk", flaky)
+    with pytest.raises(InterruptedError):
+        pipeline.render_progressive(scene, cam, cfg)
+    assert ckpt.load_render_state(ckdir)[1] == 4
+    monkeypatch.setattr(pipeline, "_render_chunk", chunk)
+    resumed = pipeline.render_progressive(scene, cam, cfg)
+    whole = pipeline.render_progressive(
+        scene, cam, dataclasses.replace(cfg, checkpoint_dir=None))
+    np.testing.assert_array_equal(resumed, whole)
+    one_shot = sp.render_hdr(scene, cam, CLI["width"], CLI["height"], spp=8,
+                             max_depth=CLI["max_depth"], engine="wavefront")
+    np.testing.assert_array_equal(resumed, one_shot.cpu().numpy())
+
+
+@pytest.mark.parametrize("shading", ["preview", "normal"])
+def test_preview_launches_intersect_once(cuda, shading):
+    """The preview on the packed bunny: one #3 launch, the image equal to
+    the preview through #3's plain version to the bit (both recompute the
+    winning hit with the same operations)."""
+    from spira_tpu_torch.integrator.preview import render_flat_preview
+
+    scene, cam = _cli_bunny()
+    kw = dict(width=CLI["width"], height=CLI["height"], seed=1,
+              shading=shading)
+    got, n = _counted_launches(lambda: render_flat_preview(scene, cam, **kw))
+    assert n["bvh_intersect"] == 1 and sum(n.values()) == 1
+    plain = render_flat_preview(
+        scene, cam, intersect_fn=bk.make_sorted_tile_intersect(
+            query=bk.intersect_packed_plain), **kw)
+    assert torch.equal(got, plain) and got.std() > 1e-3
+
+
+def test_inverse_step_on_the_bunny(cuda, monkeypatch):
+    """An inverse step on the packed bunny (``intersect="packet"``):
+    #3 in its slot form (``with_slot``, the ``grad=True`` hook) and no
+    other kernel, no host sync (the loss is read outside the step), the
+    albedo moved, the loss finite."""
+    from spira_tpu_torch.diff.inverse import make_inverse_step
+
+    scene, cam = _cli_bunny()
+    shape = dict(width=64, height=32, spp=1, max_depth=2)
+    step, init = make_inverse_step(intersect="packet", **shape)
+    target = sp.render_flat(scene, cam, seed=9, **shape)
+    params = {"albedo": torch.full_like(scene.materials.albedo, 0.5)}
+    opt = init(params)
+    params, opt, loss = step(params, opt, scene, cam, target, 0)  # warm-up
+    torch.cuda.synchronize()
+    before = params["albedo"].clone()
+    with_slot = []
+    real = bk.intersect_tile
+
+    def spy(*a, **k):  # the kernel's wrapper counts on this name
+        with_slot.append(k.get("with_slot", False))
+        return real(*a, **k)
+
+    monkeypatch.setattr(bk, "intersect_tile", spy)
+    (params, opt, loss), got = _counted_launches(lambda: _no_sync(
+        lambda: step(params, opt, scene, cam, target, 1)))
+    assert got["bvh_intersect"] > 0
+    assert sum(got.values()) == got["bvh_intersect"]
+    assert len(with_slot) == got["bvh_intersect"] and all(with_slot)
+    assert torch.isfinite(loss)
+    assert not torch.equal(params["albedo"], before)
+
+
+def _no_sync(fn):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

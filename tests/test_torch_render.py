@@ -1,6 +1,7 @@
 """The port's slice as a whole: ``spira_tpu_torch.render`` against
-``spira_tpu.render(..., engine="fused")``, the image I/O, the paths that
-are not ported yet, and an import that leaves JAX out."""
+``spira_tpu.render(..., engine="fused")`` and the preview shadings, the
+image I/O, the paths that are not ported yet, and an import that leaves
+JAX out."""
 
 import dataclasses
 import os
@@ -122,8 +123,6 @@ def _big_mesh(scene):
 @pytest.mark.parametrize(
     "scene_fn,kw,match",
     [
-        pytest.param(None, dict(shading="preview"), "shading",
-                     id="None-kw2-shading"),
         pytest.param(None, dict(engine="pallas_bvh"), "engine 'pallas_bvh'",
                      id="None-kw4-engine 'pallas_bvh'"),
     ],
@@ -136,6 +135,19 @@ def test_unported_paths_raise(scenes, scene_fn, kw, match):
         sp.render(scene, cam, 16, 8, samples_per_pixel=1, max_depth=1, **kw)
     assert "ROADMAP.md" in str(err.value)
     assert "item 10" not in str(err.value)
+
+
+@pytest.mark.parametrize("shading", ["preview", "normal"])
+def test_preview_shading_renders_as_jax(scenes, shading):
+    """``render(shading=...)`` takes the single-bounce preview, as JAX's
+    does: the uint8 images within one level on at least 99.9% of
+    values."""
+    (jscene, jcam), (scene, cam) = scenes
+    want = st.render(jscene, jcam, W, H, shading=shading, **KW)
+    got = sp.render(scene, cam, W, H, shading=shading, **KW)
+    assert got.shape == (H, W, 3) and got.std() > 1.0
+    gap = np.abs(got.astype(int) - want.astype(int))
+    assert (gap <= 1).mean() >= 0.999 and gap.max() <= 2
 
 
 @pytest.mark.parametrize(
