@@ -100,6 +100,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    path here is one ``step`` call: the target's render is not counted);
    and ``info``, whose output names the card; the checkpoints go into a
    temporary directory, only the PNGs into ``--save``;
+3c. sharding on the card: ``bvh_rows`` (kernel #2) and its superleaf
+   form (#2b) on the bunny at rows 90-179 and samples 8-11 of 640x360 d4,
+   equal to their plain versions to the bit; the bunny at 640x360 spp16
+   d4 and at BASELINE config 5's 1920x1080 spp256 as a 4x1 split of
+   ``bvh_rows``, equal to the unsharded #2 frame to the bit; then, each
+   rank a process of ``spira_tpu_torch/bench/sharded_world.py`` on this
+   card, a 2-rank gloo world (``render_flat_sharded`` of the bunny on
+   ``cuda_bvh`` at 2x1, equal to the unsharded frame to the bit, and at
+   1x2, within the float-sum bound; on ``wavefront`` at 2x1, #3's launches
+   a rank, and equal to the same shard body through #3's plain hook to
+   the bit; one sharded inverse step, the parameters equal on both ranks;
+   ``cli render --scene bunny --n-tile 2``, its PNG the gathered sharded
+   render's) and a 1-rank NCCL world (``cli render --n-tile 1``);
+   ``[sharded]`` lines with each rank's wall time, launches, collective
+   bytes and the gather's and all-reduces' times; each rank's sharded
+   calls count as main paths, and join the kernels line under the kernel
+   they launch (``sharded_paths``);
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card
@@ -997,32 +1014,10 @@ CLI_RENDERS = (("cli_render_default", "default", False, "megakernel"),
 
 
 def read_png(path):
-    """An 8-bit RGB PNG as an (H, W, 3) uint8 array: through PIL when it
-    is installed (the port writes with it then), else the unfiltered rows
-    the port's own writer makes."""
-    try:
-        from PIL import Image
-    except ImportError:
-        import struct
-        import zlib
+    """An 8-bit RGB PNG the port wrote, as an (H, W, 3) uint8 array."""
+    from spira_tpu_torch.io.image import load_png
 
-        data = open(path, "rb").read()
-        pos, idat, size = 8, b"", None
-        while pos < len(data):
-            n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-            body = data[pos + 8:pos + 8 + n]
-            if tag == b"IHDR":
-                size = struct.unpack(">II", body[:8])
-            elif tag == b"IDAT":
-                idat += body
-            pos += 12 + n
-        w, h = size
-        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
-            h, 1 + 3 * w)
-        if rows[:, 0].any():
-            raise ValueError(f"{path}: filtered rows (no PIL to read them)")
-        return rows[:, 1:].reshape(h, w, 3).copy()
-    return np.asarray(Image.open(path).convert("RGB"))
+    return load_png(path)
 
 
 class _Records:
@@ -1318,6 +1313,143 @@ def cli_phase(sp, bk, out_dir, work_dir, main_runs, device="cuda",
         raise AssertionError("cli info does not name the card")
     return paths
 
+
+
+#: phase 3c: the offsets #2 and #2b are held at, and the shapes of the
+#: 4x1 split held to the bit against the unsharded #2 frame (BASELINE
+#: config 5's 1920x1080 spp256 among them)
+SHARD_OFFSETS = dict(n_rows=90, row_start=90, sample_offset=8, spp=4,
+                     max_depth=4)
+SPLIT_SHAPES = (MAIN, dict(width=1920, height=1080, spp=256, max_depth=4))
+#: the worlds of ranks phase 3c starts, each rank a process of
+#: spira_tpu_torch/bench/sharded_world.py: (job, ranks)
+WORLDS = (("gloo2", 2), ("nccl1", 1))
+WORLD_TIMEOUT = 300
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_world(job, n, work_dir):
+    """Start ``n`` ranks of ``bench/sharded_world.py --job job`` on this
+    card (each ``LOCAL_RANK`` 0, a ``localhost`` rendezvous on a free
+    port), wait for them, and return each rank's JSON; a rank that fails
+    or a world past WORLD_TIMEOUT kills the rest and raises."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs, outs, logs = [], [], []
+    for rank in range(n):
+        out = os.path.join(work_dir, f"{job}_rank{rank}.json")
+        logs.append(open(os.path.join(work_dir, f"{job}_rank{rank}.log"),
+                         "w+"))
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), PYTHONPATH=here)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "spira_tpu_torch.bench.sharded_world",
+             "--job", job, "--out", out, "--work", work_dir],
+            cwd=here, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        outs.append(out)
+    deadline = time.monotonic() + WORLD_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        for rank, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines()[-40:]:
+                log(f"[sharded] {job} rank {rank}: {line}")
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"the {job} world failed: exit codes "
+                             f"{[p.returncode for p in procs]}")
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def sharded_phase(sp, bk, scenes, main_runs, work_dir):
+    """Phase 3c: kernel #2 (and #2b's route) at a row and sample offset
+    against its plain version to the bit, the 4x1 split of the bunny's
+    frame against the unsharded #2 frame to the bit, then a 2-rank gloo
+    world and a 1-rank NCCL world on this card
+    (``spira_tpu_torch/bench/sharded_world.py``).  Each rank's sharded
+    paths go into ``main_runs`` (launch counts of one rank's call).
+    Returns {kernel name: {path: what it measured}} for the kernels
+    line, and the offset checks by kernel."""
+    from spira_tpu_torch.kernels.megakernel import true_divide
+
+    bunny, cam = scenes["bunny"]
+    bunny_sl = scenes["bunny_sl"][0]
+    w, h = MAIN["width"], MAIN["height"]
+    checks = {}
+    for kernel, scene, mxu in (("bvh_megakernel", bunny, False),
+                               ("bvh_mxu_megakernel", bunny_sl, True)):
+        kw = dict(width=w, height=h, seed=0, mxu_leaf=mxu, **SHARD_OFFSETS)
+        got = bk.bvh_rows(scene, cam, **kw)
+        rows = tuple(kw.pop(k) for k in ("n_rows", "row_start",
+                                         "sample_offset"))
+        want = bk.render_flat_bvh_fused(scene, cam, rows=rows,
+                                        normalize=False, **kw)
+        torch.cuda.synchronize()
+        checks[kernel] = check_images(
+            f"{kernel} bvh_rows rows {rows[1]}-{rows[1] + rows[0] - 1} "
+            f"samples {rows[2]}-{rows[2] + kw['spp'] - 1} of {w}x{h} "
+            f"d{kw['max_depth']} "
+            "against its plain version", got, want, BVH_TOL, exact=True)
+    splits = []
+    for shape in SPLIT_SHAPES:
+        sw, sh = shape["width"], shape["height"]
+        scam = sp.bunny_camera(sw / sh, device=cam.origin.device)
+        frame = bk.render_flat_bvh_megakernel(bunny, scam, **shape)
+        rest = {k: v for k, v in shape.items() if k != "height"}
+        t0 = time.perf_counter()
+        tiles = [bk.bvh_rows(bunny, scam, height=sh, n_rows=sh // 4,
+                             row_start=t * sh // 4, sample_offset=0,
+                             seed=0, **rest) for t in range(4)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        same = torch.equal(true_divide(torch.cat(tiles),
+                                       float(shape["spp"])), frame)
+        name = f"{sw}x{sh} spp{shape['spp']} d{shape['max_depth']}"
+        log(f"[sharded] bunny {name}: the 4x1 split of bvh_rows (4 launches"
+            f", {ms:.2f} ms on the host's clock) equal to the unsharded #2 "
+            f"frame to the bit: {same}")
+        if not same:
+            raise AssertionError(f"the 4x1 split of {name} differs from "
+                                 "the unsharded frame")
+        splits.append(dict(shape=name, bit_equal=same, four_launches_ms=ms))
+    worlds = {job: run_world(job, n, work_dir) for job, n in WORLDS}
+    paths = {"bvh_megakernel": {"4x1 split of bvh_rows": splits}}
+    zero = dict.fromkeys(counts(), 0)
+    for job, ranks in worlds.items():
+        for out in ranks:
+            for label, row in out["rows"].items():
+                got = row.get("launches")
+                where = f"{job} rank {out['rank']}: {label}"
+                log(f"[sharded] {out['card']}: {where}: "
+                    + ", ".join(f"{k} {v}" for k, v in row.items()))
+                if got is None:
+                    continue
+                main_runs[f"sharded {where}"] = dict(zero, **got)
+                for kernel in ("bvh_megakernel", "bvh_intersect"):
+                    if got.get(kernel):
+                        paths.setdefault(kernel, {})[where] = row
+    return paths, checks
 
 
 def main() -> int:
@@ -1910,6 +2042,14 @@ def main() -> int:
         cli_paths = cli_phase(sp, bk, args.save or tmp, tmp, main_runs)
     log(f"[cli] phase 3b: {time.perf_counter() - t_cli:.1f} s")
 
+    # ---- 3c. sharding on the card: #2 at offsets, the 4x1 split, a
+    # 2-rank gloo world and a 1-rank NCCL world
+    t_shard = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded_paths, offset_checks = sharded_phase(sp, bk, scenes,
+                                                     main_runs, tmp)
+    log(f"[sharded] phase 3c: {time.perf_counter() - t_shard:.1f} s")
+
     # ---- 4. timing
     def mrays(shape, ms):
         rays_ = shape["width"] * shape["height"] * shape["spp"] \
@@ -2202,7 +2342,7 @@ def main() -> int:
                                        for k, r in f["frames"].items()}
 
         same = all(digests(f) == digests(frames[0]) for f in frames)
-        log(f"[compare] frames, cases a-c, g-i and the wavefront frames "
+        log(f"[compare] frames, cases a-c, g-i, #7 and the wavefront frames "
             f"(render_flat, RGB and spectral): every image of this tree "
             f"equal to the parent's to the bit (SHA-256): {same}")
         if not same:
@@ -2746,6 +2886,9 @@ def main() -> int:
     # "launches")
     for k in kernels:
         k["cli_paths"] = cli_paths.get(k["name"], {})
+        k["sharded_paths"] = sharded_paths.get(k["name"], {})
+        if k["name"] in offset_checks:
+            k["checks"] = k["checks"] + [offset_checks[k["name"]]]
         k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])
         paths = {path: got[k["name"]] for path, got in main_runs.items()
                  if got[k["name"]]}

@@ -27,8 +27,9 @@ and #4 also the kernel's resident blocks an SM from
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (a probe library built
 from the checkout's own source, which it includes) and the waves its grid
 takes.  Then a digest of each image of ``chip_smoke.py``'s cases of #1
-(a-c) and #4 (g-i) and of the bunny's wavefront frame (``render_flat``
-at 640x360, spp 16, depth 4, RGB and spectral), and ``ptxas -v`` of the
+(a-c) and #4 (g-i), of the bunny's wavefront frame (``render_flat``
+at 640x360, spp 16, depth 4, RGB and spectral) and of #7's frame of the
+1,600-triangle mesh scene at that shape, and ``ptxas -v`` of the
 libraries, so that two commits' images can be held equal to the bit.
 
 ``--root`` imports ``spira_tpu_torch`` from another checkout (a ``git
@@ -283,6 +284,14 @@ def measure(device, probes):
     for spectral in (False, True):
         cases["render_flat" + "_spectral" * spectral] = digest(
             sp.render_flat(bunny, cam, spectral=spectral, **SHAPE))
+    # #7 on the 1,600-triangle mesh scene
+    from spira_tpu_torch.kernels import mxu_megakernel as xk
+
+    mesh = sp.attach_mxu(sp.attach_packed(sp.create_mesh_scene(
+        device=device)))
+    cases["mxu_megakernel"] = digest(xk.render_flat_mxu_megakernel(
+        mesh, sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                             aspect_ratio=w / h, device=device), **SHAPE))
     return dict(frames=frames, case_digests=cases, sms=sms)
 
 

@@ -9,6 +9,12 @@ Counterpart of :mod:`spira_tpu.cli`::
 Every command runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; asking for the card on a host without one
 raises, and nothing falls back to the CPU.
+
+``render --n-tile N [--n-spp-axis M]`` renders over a (N, M) mesh of the
+``torch.distributed`` ranks; run it under ``torchrun`` (one process a
+rank, each on card ``LOCAL_RANK``), and only rank 0 writes the image::
+
+    torchrun --nproc-per-node 2 -m spira_tpu_torch.cli render --n-tile 2
 """
 
 from __future__ import annotations
@@ -20,11 +26,13 @@ import sys
 
 
 def _cmd_render(args) -> int:
+    from .parallel.distributed import initialize
     from .pipeline import run_config
     from .utils.config import config_from_args
     from .utils.metrics import Timer, logger
 
     cfg = config_from_args(args)
+    initialize(device=cfg.device)  # a no-op unless run under torchrun
     with Timer("render") as t:  # synchronises the card on both ends
         run_config(cfg)
     rays = cfg.width * cfg.height * cfg.spp * cfg.max_depth

@@ -68,14 +68,16 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
                    const float* __restrict__ sph_g, int n_spheres,
                    const float* __restrict__ mat_g, int n_mats,
                    const float4* __restrict__ pairs, Leaves leaves, int root,
-                   float* __restrict__ out, int width, int height,
-                   SampleSplit split, int max_depth, uint32_t seed, float du,
-                   float dv, float inv_spp, int has_lens) {
+                   float* __restrict__ out, int width, int n_rows,
+                   int row_start, int sample_offset, SampleSplit split,
+                   int max_depth, uint32_t seed, float du, float dv,
+                   float inv_spp, int has_lens) {
   const auto make = [&](const float* sph, const float* mat) {
     return TreeIntersect<Leaves>{sph, n_spheres, mat, pairs, leaves, root};
   };
   render_mesh(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
-              height, split, max_depth, seed, du, dv, inv_spp, has_lens);
+              n_rows, row_start, sample_offset, split, max_depth, seed, du,
+              dv, inv_spp, has_lens);
 }
 
 // Add one thread's counts to totals[kNumCounts]: a warp sum of each count
@@ -127,7 +129,8 @@ __global__ void __launch_bounds__(128)
         &counts};
   };
   render_mesh(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
-              height, split, max_depth, seed, du, dv, inv_spp, has_lens);
+              height, 0, 0, split, max_depth, seed, du, dv, inv_spp,
+              has_lens);
   add_block_counts(counts, totals);
 }
 
@@ -171,16 +174,20 @@ unsigned blocks_for(int64_t n) {
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 // form_bw: 1 for Baldwin–Weber leaf rows, 0 for Möller–Trumbore.
+// The launch renders rows row_start .. row_start + n_rows - 1 of a frame
+// `width` wide at samples sample_offset .. sample_offset + spp - 1 into
+// out (n_rows * width, 3), each pixel's sum times inv_spp (du, dv: the
+// whole frame's); offsets 0 and n_rows = height are the whole frame.
 extern "C" int spira_bvh_megakernel_render(
     const float* cam, const float* spheres, int n_spheres, const float* mats,
     int n_mats, const float* pairs, const float* tri_rows, int root,
-    int form_bw, float* out, int width, int height, int spp, int max_depth,
-    uint32_t seed, float du, float dv, float inv_spp, int has_lens,
-    void* stream) {
+    int form_bw, float* out, int width, int n_rows, int row_start,
+    int sample_offset, int spp, int max_depth, uint32_t seed, float du,
+    float dv, float inv_spp, int has_lens, void* stream) {
   using namespace spira;
   const SampleSplit split = sample_split(spp);
   const unsigned blocks =
-      split_blocks(split, static_cast<int64_t>(width) * height);
+      split_blocks(split, static_cast<int64_t>(width) * n_rows);
   const size_t smem = mesh_smem_bytes(n_spheres, n_mats);
   const auto* p = reinterpret_cast<const float4*>(pairs);
   const auto* s = reinterpret_cast<const float4*>(tri_rows);
@@ -188,11 +195,13 @@ extern "C" int spira_bvh_megakernel_render(
   if (form_bw) {
     bvh_megakernel<RowLeaves<kFormBW>><<<blocks, kSplitThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormBW>{s}, root,
-        out, width, height, split, max_depth, seed, du, dv, inv_spp, has_lens);
+        out, width, n_rows, row_start, sample_offset, split, max_depth, seed,
+        du, dv, inv_spp, has_lens);
   } else {
     bvh_megakernel<RowLeaves<kFormMT>><<<blocks, kSplitThreads, smem, st>>>(
         cam, spheres, n_spheres, mats, n_mats, p, RowLeaves<kFormMT>{s}, root,
-        out, width, height, split, max_depth, seed, du, dv, inv_spp, has_lens);
+        out, width, n_rows, row_start, sample_offset, split, max_depth, seed,
+        du, dv, inv_spp, has_lens);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -231,24 +240,27 @@ extern "C" int spira_bvh_megakernel_render_counted(
 
 // The same path tracer over a pair tree whose leaves are superleaf blocks
 // (accel/mxu.py:SuperleafBVH): pairs (P, 16), coeff_uv (B*8, 384), coeff_t
-// and coeff_pay (B*8, 128), float32 row-major.
+// and coeff_pay (B*8, 128), float32 row-major; the rows and samples as
+// spira_bvh_megakernel_render takes them.
 extern "C" int spira_bvh_mxu_render(
     const float* cam, const float* spheres, int n_spheres, const float* mats,
     int n_mats, const float* pairs, const float* coeff_uv,
     const float* coeff_t, const float* coeff_pay, int root, float* out,
-    int width, int height, int spp, int max_depth, uint32_t seed, float du,
-    float dv, float inv_spp, int has_lens, void* stream) {
+    int width, int n_rows, int row_start, int sample_offset, int spp,
+    int max_depth, uint32_t seed, float du, float dv, float inv_spp,
+    int has_lens, void* stream) {
   using namespace spira;
   const SampleSplit split = sample_split(spp);
   const unsigned blocks =
-      split_blocks(split, static_cast<int64_t>(width) * height);
+      split_blocks(split, static_cast<int64_t>(width) * n_rows);
   bvh_megakernel<BlockLeaves><<<blocks, kSplitThreads,
                                mesh_smem_bytes(n_spheres, n_mats),
                                static_cast<cudaStream_t>(stream)>>>(
       cam, spheres, n_spheres, mats, n_mats,
       reinterpret_cast<const float4*>(pairs),
-      BlockLeaves{coeff_uv, coeff_t, coeff_pay}, root, out, width, height,
-      split, max_depth, seed, du, dv, inv_spp, has_lens);
+      BlockLeaves{coeff_uv, coeff_t, coeff_pay}, root, out, width, n_rows,
+      row_start, sample_offset, split, max_depth, seed, du, dv, inv_spp,
+      has_lens);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -125,14 +125,24 @@ __device__ __forceinline__ void render_samples(const SampleSplit& split,
 // The body of an RGB mesh render kernel: stage the camera, sphere and
 // material tables in shared memory, then trace each (pixel, sample) of the
 // split through trace_sample with the intersector `make(spheres, mats)`
-// builds over the staged tables, and write each pixel's mean.
+// builds over the staged tables, and write each pixel's sum times
+// inv_spp.
+//
+// The launch covers the n_rows rows from row_start of a frame `width`
+// wide (du and dv are the whole frame's) and the samples sample_offset ..
+// sample_offset + spp - 1: a thread's global pixel row_start * width +
+// local gives its PCG counter and its row, the global sample index its
+// draws, so a shard of rows or samples draws what the whole frame draws
+// there (the Pallas kernel's off_ref).  The output is indexed by the
+// local pixel.  At offsets 0 this is the whole frame, to the bit.
 template <class MakeIntersect>
 __device__ __forceinline__ void render_mesh(
     const float* __restrict__ cam_g, const float* __restrict__ sph_g,
     int n_spheres, const float* __restrict__ mat_g, int n_mats,
-    const MakeIntersect& make, float* __restrict__ out, int width, int height,
-    const SampleSplit& split, int max_depth, uint32_t seed, float du,
-    float dv, float inv_spp, int has_lens) {
+    const MakeIntersect& make, float* __restrict__ out, int width, int n_rows,
+    int row_start, int sample_offset, const SampleSplit& split,
+    int max_depth, uint32_t seed, float du, float dv, float inv_spp,
+    int has_lens) {
   extern __shared__ float smem[];
   float* cam = smem;
   float* sph = cam + kCamFields;
@@ -153,14 +163,17 @@ __device__ __forceinline__ void render_mesh(
   __syncthreads();
 
   const auto intersect = make(sph, mat);
+  const int64_t first = static_cast<int64_t>(row_start) * width;
   const auto sample = [&](int64_t pixel, int s) {
-    const int row = static_cast<int>(pixel / width);  // from the bottom
-    const int col = static_cast<int>(pixel % width);
+    const int64_t global = first + pixel;
+    const int row = static_cast<int>(global / width);  // from the bottom
+    const int col = static_cast<int>(global % width);
     return trace_sample(intersect, cam, has_lens != 0,
-                        static_cast<uint32_t>(pixel), static_cast<float>(row),
-                        static_cast<float>(col), seed, s, max_depth, du, dv);
+                        static_cast<uint32_t>(global),
+                        static_cast<float>(row), static_cast<float>(col),
+                        seed, sample_offset + s, max_depth, du, dv);
   };
-  render_samples(split, static_cast<int64_t>(width) * height, sample, out,
+  render_samples(split, static_cast<int64_t>(width) * n_rows, sample, out,
                  inv_spp);
 }
 

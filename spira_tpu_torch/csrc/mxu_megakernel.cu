@@ -53,7 +53,8 @@ __global__ void __launch_bounds__(128)
     return StreamIntersect{sph, n_spheres, mat, cuv, ct, cpay, n_blocks};
   };
   render_mesh(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
-              height, split, max_depth, seed, du, dv, inv_spp, has_lens);
+              height, 0, 0, split, max_depth, seed, du, dv, inv_spp,
+              has_lens);
 }
 
 __global__ void __launch_bounds__(128)

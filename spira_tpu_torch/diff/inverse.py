@@ -10,26 +10,26 @@ that the backward replays from its threefry keys.  The optimizer is
 ``torch.optim.Adam``, whose update ``lr · m̂ / (sqrt(v̂) + eps)`` is
 optax's ``adam`` up to the order of rounding.
 
-The sharded step (``mesh=``) raises ``NotImplementedError`` naming
-ROADMAP item 16.
+With a ``mesh`` (:func:`spira_tpu_torch.parallel.mesh.make_mesh`) the
+render is split over the ranks' tiles and sample slots as the forward
+renderer splits it, and the step all-reduces the replicated parameters'
+gradients over every rank before Adam steps, as XLA's backward does for
+JAX's ``shard_map``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..core import rng as srng
 from ..kernels.bvh_megakernel import make_sorted_tile_intersect
 from ..kernels.megakernel import true_divide
-from ..render import _not_ported, accumulate_rows, with_fields
+from ..parallel.sharded import sample_slot, sum_over_spp, tile_rows
+from ..render import accumulate_rows, with_fields
 
 #: the ``intersect`` forms of :func:`render_for_grad`
 INTERSECTS = (None, "packet")
-
-
-def _sharded():
-    return _not_ported("the sharded inverse step (mesh=)",
-                       "item 16, parallel/")
 
 
 def render_for_grad(
@@ -59,9 +59,15 @@ def render_for_grad(
     autograd), which a packed scene on the card needs: the stackless walk
     of ``intersect_scene`` would synchronise the host every few steps.
     ``None`` takes ``intersect_scene``.
+
+    With ``mesh`` it returns this rank's tile, (H/n_tile * W, 3): the
+    rows from ``row_start = t * H/n_tile`` at the samples of the rank's
+    slot, summed over the tile's ranks, over the whole ``spp``, as JAX's
+    shard body computes it.  The sum's backward reaches this rank's own
+    samples only: the gradient of a function of the whole image is the
+    sum over every rank of each rank's gradient of its tile's share
+    (:func:`make_inverse_step` takes it so).
     """
-    if mesh is not None:
-        raise _sharded()
     if intersect not in INTERSECTS:
         raise ValueError(f"intersect {intersect!r} is none of {INTERSECTS} "
                          "(JAX's 'packet_interpret' is a TPU knob)")
@@ -70,10 +76,17 @@ def render_for_grad(
     base = srng.fold_in(srng.base_key(0), seed)
     intersect_fn = (make_sorted_tile_intersect(grad=True)
                     if intersect == "packet" else None)
+    n_rows, row_start, spp_per, s_off = height, 0, spp, 0
+    if mesh is not None:
+        n_rows, row_start = tile_rows(mesh, height)
+        spp_per, s_off = sample_slot(mesh, spp)
     acc = accumulate_rows(
-        scene, camera, base, width=width, height=height, row_start=0,
-        n_rows=height, sample_offset=0, n_samples=spp, max_depth=max_depth,
-        semantics=semantics, spectral=spectral, intersect_fn=intersect_fn)
+        scene, camera, base, width=width, height=height,
+        row_start=row_start, n_rows=n_rows, sample_offset=s_off,
+        n_samples=spp_per, max_depth=max_depth, semantics=semantics,
+        spectral=spectral, intersect_fn=intersect_fn)
+    if mesh is not None:
+        acc = sum_over_spp(acc, mesh)
     return true_divide(acc, float(spp))
 
 
@@ -119,14 +132,23 @@ def make_inverse_step(
     emissions to >= 0).  The parameters are updated in place and returned;
     the loss is a detached tensor on the scene's device, so the step
     makes no host sync of its own.
+
+    With ``mesh`` (every rank calls ``init`` and ``step`` alike, with the
+    whole (H*W, 3) ``target``): ``init`` broadcasts the parameters from
+    rank 0; a step renders the rank's tile, takes the gradient of its
+    share of the global MSE (its tile's squared error over the whole
+    image's element count), sums the gradients over every rank in one
+    all-reduce, and steps, so every rank's parameters stay identical; the
+    loss, the global mean, is the tiles' squared errors all-reduced over
+    the tile axis.
     """
-    if mesh is not None:
-        raise _sharded()
     def init(params):
         for name, p in params.items():
             if not p.is_leaf:
                 raise ValueError(f"parameter {name!r} is not a leaf tensor;"
                                  " pass .detach() of it")
+            if mesh is not None and mesh.group is not None:
+                dist.broadcast(p.detach(), src=0, group=mesh.group)
             p.requires_grad_(True)
         return torch.optim.Adam(list(params.values()), lr=learning_rate,
                                 foreach=False)
@@ -135,10 +157,13 @@ def make_inverse_step(
         img = render_for_grad(
             params, scene, camera, width=width, height=height, spp=spp,
             max_depth=max_depth, seed=step_idx, semantics=semantics,
-            spectral=spectral, intersect=intersect)
-        loss = mse_loss(img, target)
+            spectral=spectral, intersect=intersect, mesh=mesh)
         tensors = list(params.values())
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        if mesh is None:
+            loss = mse_loss(img, target)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        else:
+            loss, grads = sharded_mse_grads(img, target, tensors, mesh)
         for p, g in zip(tensors, grads):
             p.grad = torch.zeros_like(p) if g is None else g
         opt_state.step()
@@ -147,3 +172,29 @@ def make_inverse_step(
         return params, opt_state, loss.detach()
 
     return step, init
+
+
+def sharded_mse_grads(tile, target, tensors, mesh):
+    """The global MSE of a sharded render against the whole (H*W, 3)
+    ``target``, and its gradients with respect to ``tensors``: this
+    rank's tile's squared error over the whole image's element count, its
+    gradients summed over every rank in one all-reduce (each rank's reach
+    its own samples, :func:`render_for_grad`), and the loss all-reduced
+    over the tile axis.  Returns (loss, gradients), the same on every
+    rank; a tensor the render does not reach gets zeros."""
+    n_rows = tile.shape[0]
+    row_start = mesh.coords[0] * n_rows
+    sq = torch.sum((tile - target[row_start:row_start + n_rows]) ** 2)
+    grads = torch.autograd.grad(sq / target.numel(), tensors,
+                                allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(tensors, grads)]
+    if mesh.group is not None:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        grads = [part.view_as(g) for part, g in zip(
+            flat.split([g.numel() for g in grads]), grads)]
+    sq = sq.detach()
+    if mesh.tile_group is not None:
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=mesh.tile_group)
+    return sq / target.numel(), grads

@@ -75,6 +75,34 @@ def save_png(path: str, image_uint8: np.ndarray) -> None:
     Image.fromarray(image_uint8, mode="RGB").save(path)
 
 
+def load_png(path: str) -> np.ndarray:
+    """An 8-bit RGB PNG as an (H, W, 3) uint8 array: through PIL when it
+    is installed (:func:`save_png` writes with it then), else the
+    unfiltered rows :func:`save_png` writes without it."""
+    try:
+        from PIL import Image
+    except ImportError:
+        with open(path, "rb") as f:
+            data = f.read()
+        pos, idat, size = 8, b"", None
+        while pos < len(data):
+            n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+            body = data[pos + 8:pos + 8 + n]
+            if tag == b"IHDR":
+                size = struct.unpack(">II", body[:8])
+            elif tag == b"IDAT":
+                idat += body
+            pos += 12 + n
+        w, h = size
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+            h, 1 + 3 * w)
+        if rows[:, 0].any():
+            raise ValueError(f"{path}: filtered rows (no PIL to read them)")
+        return rows[:, 1:].reshape(h, w, 3).copy()
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
 def _save_png_pure(path: str, img: np.ndarray) -> None:
     h, w, _ = img.shape
 

@@ -395,15 +395,33 @@ def sphere_tuples(scene):
             for k in range(scene.spheres.count)]
 
 
+def check_rows(height, rows):
+    """``rows`` = (n_rows, row_start, sample_offset) of a shard of a frame
+    ``height`` rows high: the rows it covers, from the bottom, lie in the
+    frame and the first sample is not negative."""
+    n_rows, row_start, sample_offset = rows
+    if n_rows < 1 or row_start < 0 or row_start + n_rows > height:
+        raise ValueError(f"rows {row_start} .. {row_start + n_rows - 1} "
+                         f"outside a frame of {height} rows")
+    if sample_offset < 0:
+        raise ValueError(f"sample_offset must be >= 0, got {sample_offset}")
+
+
 def trace_mesh(scene, camera, intersect_fn, *, width, height, spp,
-               max_depth, seed, inclusive_uv):
+               max_depth, seed, inclusive_uv, rows=None, normalize=True):
     """Plain mesh render through :func:`megakernel.trace_tile` with
-    ``intersect_fn`` → flat (H*W, 3) bottom-up HDR buffer.  Each call adds
-    one to ``trace_mesh.calls``."""
+    ``intersect_fn`` → flat (H*W, 3) bottom-up HDR buffer, each pixel's
+    mean of ``spp`` samples (with ``normalize=False`` its sum).  ``rows``
+    = (n_rows, row_start, sample_offset) renders the ``n_rows`` rows from
+    ``row_start`` at the samples from ``sample_offset`` on instead, keyed
+    on the global pixel and sample as the whole frame keys them:
+    (n_rows*W, 3).  Each call adds one to ``trace_mesh.calls``."""
     trace_mesh.calls += 1
+    n_rows, row_start, sample_offset = rows or (height, 0, 0)
+    check_rows(height, (n_rows, row_start, sample_offset))
     cam = mk.cam_tuple(mk.pack_camera(camera), camera.has_lens)
-    pixel = torch.arange(height * width, dtype=torch.int64,
-                         device=scene.device)
+    pixel = torch.arange(row_start * width, (row_start + n_rows) * width,
+                         dtype=torch.int64, device=scene.device)
     du, dv = mk._uv_scale(width, height, inclusive_uv)
     r, g, b = mk.trace_tile(
         pixel,
@@ -416,8 +434,11 @@ def trace_mesh(scene, camera, intersect_fn, *, width, height, spp,
         max_depth=max_depth,
         du=du,
         dv=dv,
+        sample_offset=sample_offset,
         intersect_fn=intersect_fn,
     )
+    if not normalize:
+        return torch.stack([r, g, b], dim=-1)
     inv = mk._inv_spp(spp)
     return torch.stack([r * inv, g * inv, b * inv], dim=-1)
 
@@ -437,16 +458,20 @@ def render_flat_bvh_fused(
     seed: int = 0,
     inclusive_uv: bool = True,
     mxu_leaf: bool = False,
+    rows=None,
+    normalize: bool = True,
 ):
     """Plain-PyTorch packed-BVH render → flat (H*W, 3) bottom-up HDR
     buffer, on the scene's device.  Same math, walk and RNG as the CUDA
-    kernel; ``mxu_leaf`` walks the superleaf tree on ``scene.wide``."""
+    kernel; ``mxu_leaf`` walks the superleaf tree on ``scene.wide``;
+    ``rows`` and ``normalize`` as :func:`trace_mesh` takes them."""
     packed = _require_tree(scene, mxu_leaf)
     intersect = make_packed_intersect(sphere_tuples(scene), packed,
                                       pack_materials(scene.materials))
     return trace_mesh(scene, camera, intersect, width=width, height=height,
                       spp=spp, max_depth=max_depth, seed=seed,
-                      inclusive_uv=inclusive_uv)
+                      inclusive_uv=inclusive_uv, rows=rows,
+                      normalize=normalize)
 
 
 def render_bvh_counters_fused(
@@ -501,6 +526,13 @@ _RENDER_TAIL = (
     ctypes.c_uint32, _F, _F, _F, _I,  # seed, du, dv, inv_spp, has_lens
     _VP,  # stream
 )
+#: the tail of kernel #2's entries, which take a shard's rows and samples
+_ROWS_TAIL = (
+    _VP, _I, _I, _I, _I,  # out, width, n_rows, row_start, sample_offset
+    _I, _I,  # spp, max_depth
+    ctypes.c_uint32, _F, _F, _F, _I,  # seed, du, dv, inv_spp, has_lens
+    _VP,  # stream
+)
 _INTERSECT_ARGTYPES = (
     _VP, _VP, _VP, _I,  # origins, dirs, active (or null), n
     _VP, _VP, _I, _I,  # pairs, tri_rows, root, form_bw
@@ -545,13 +577,18 @@ def check_block_tables(tables, device, n_blocks):
 
 def launch_render(what, library, symbol, tree_argtypes, tree_args, scene,
                   camera, *, width, height, spp, max_depth, seed,
-                  inclusive_uv):
+                  inclusive_uv, rows=None, normalize=True):
     """Pack and check the camera, sphere and material tables of ``scene``
     on its CUDA device and launch the mesh render entry ``symbol`` of
     ``csrc/<library>.cu`` with the (already checked) tree arguments
-    ``tree_args``: returns the flat (H*W, 3) output."""
+    ``tree_args``: returns the flat (H*W, 3) output, each pixel's mean
+    (with ``normalize=False`` its sum).  ``rows`` = (n_rows, row_start,
+    sample_offset) goes to an entry that takes a shard's rows and samples
+    (kernel #2's), whose output is (n_rows*W, 3)."""
     device = scene.device
     mk._check_launch_args(device, width, height, spp, max_depth, what)
+    if rows is not None:
+        check_rows(height, rows)
     with torch.no_grad():
         cam = mk.pack_camera(camera).contiguous()
         sph = mk.pack_scene(scene).contiguous()
@@ -561,15 +598,18 @@ def launch_render(what, library, symbol, tree_argtypes, tree_args, scene,
     mk._check_table("material table", mat, device, N_MAT_FIELDS)
     mk._check_smem(cam, sph, mat)
     du, dv = mk._uv_scale(width, height, inclusive_uv)
-    out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
-    fn = _build.entry(library, symbol,
-                      _RENDER_HEAD + tuple(tree_argtypes) + _RENDER_TAIL)
+    n_rows = height if rows is None else rows[0]
+    out = torch.empty((n_rows * width, 3), dtype=torch.float32, device=device)
+    fn = _build.entry(library, symbol, _RENDER_HEAD + tuple(tree_argtypes)
+                      + (_RENDER_TAIL if rows is None else _ROWS_TAIL))
+    film = (width, height) if rows is None else (width, *rows)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             cam.data_ptr(), sph.data_ptr(), sph.shape[0], mat.data_ptr(),
-            mat.shape[0], *tree_args, out.data_ptr(), width, height, spp,
-            max_depth, seed & 0xFFFFFFFF, du, dv, mk._inv_spp(spp),
+            mat.shape[0], *tree_args, out.data_ptr(), *film, spp,
+            max_depth, seed & 0xFFFFFFFF, du, dv,
+            mk._inv_spp(spp) if normalize else 1.0,
             int(camera.has_lens), stream,
         )
     mk._launch_error(what, err)
@@ -603,23 +643,77 @@ def render_flat_bvh_megakernel(
         return render_flat_bvh_mxu_megakernel(
             scene, camera, width=width, height=height, spp=spp,
             max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv)
-    packed = _require_tree(scene)
     kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
               seed=seed, inclusive_uv=inclusive_uv)
     if scene.device.type == "cpu":
         return render_flat_bvh_fused(scene, camera, **kw)
-    _check_tree_tables(packed, scene.device)
-    out = launch_render(
-        "bvh_megakernel", "bvh_megakernel", "spira_bvh_megakernel_render",
-        (_VP, _VP, _I, _I),  # pairs, tri_rows, root, form_bw
-        (packed.pairs.data_ptr(), packed.tri_rows.data_ptr(), packed.root,
-         int(packed.form == "bw")), scene, camera, **kw)
-    render_flat_bvh_megakernel.launches += 1
-    return out
+    return _launch_bvh(scene, camera, **kw)
 
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 render_flat_bvh_megakernel.launches = 0
+
+
+def _launch_bvh(scene, camera, *, mxu_leaf=False, rows=None, normalize=True,
+                **kw):
+    """Launch kernel #2 (``spira_bvh_megakernel_render``) or, with
+    ``mxu_leaf``, its superleaf form (``spira_bvh_mxu_render``) on the
+    scene's CUDA device, over ``rows`` (:func:`launch_render`), and add one
+    to ``render_flat_bvh_megakernel.launches`` or
+    ``render_flat_bvh_mxu_megakernel.launches``."""
+    tree = _require_tree(scene, mxu_leaf)
+    if mxu_leaf:
+        device = scene.device
+        _check_aligned("superleaf pairs", tree.pairs, device, 16)
+        _check_root(tree)
+        check_block_tables(tree, device, tree.n_blocks)
+        out = launch_render(
+            "bvh_mxu_megakernel", "bvh_megakernel", "spira_bvh_mxu_render",
+            (_VP, _VP, _VP, _VP, _I),  # pairs, coeff_uv, coeff_t, coeff_pay, root
+            (tree.pairs.data_ptr(), tree.coeff_uv.data_ptr(),
+             tree.coeff_t.data_ptr(), tree.coeff_pay.data_ptr(), tree.root),
+            scene, camera, rows=rows or (kw["height"], 0, 0),
+            normalize=normalize, **kw)
+        render_flat_bvh_mxu_megakernel.launches += 1
+        return out
+    _check_tree_tables(tree, scene.device)
+    out = launch_render(
+        "bvh_megakernel", "bvh_megakernel", "spira_bvh_megakernel_render",
+        (_VP, _VP, _I, _I),  # pairs, tri_rows, root, form_bw
+        (tree.pairs.data_ptr(), tree.tri_rows.data_ptr(), tree.root,
+         int(tree.form == "bw")), scene, camera,
+        rows=rows or (kw["height"], 0, 0), normalize=normalize, **kw)
+    render_flat_bvh_megakernel.launches += 1
+    return out
+
+
+def bvh_rows(scene, camera, *, width: int, height: int, n_rows: int,
+             row_start: int, sample_offset: int, spp: int, max_depth: int,
+             seed: int, inclusive_uv: bool = True, mxu_leaf: bool = False):
+    """The packed-BVH path tracer over a range of rows and samples, the
+    shard body of the tile- and sample-sharded mesh renderer
+    (:mod:`spira_tpu_torch.parallel.sharded`): the **sum** over samples
+    ``sample_offset .. sample_offset + spp - 1`` of the ``n_rows`` rows
+    from ``row_start`` (counted from the bottom) of a ``width`` x
+    ``height`` frame, (n_rows*width, 3).
+
+    The counterpart of JAX's ``bvh_rows``
+    (``spira_tpu/kernels/bvh_megakernel.py:1399``), less its TPU knobs.
+    PCG keys on the global pixel and sample, so the shards of a frame sum
+    to the frame: with the samples unsplit and a power-of-two ``spp``, the
+    shards' sums over ``spp`` are :func:`render_flat_bvh_megakernel`'s
+    image to the bit.  A scene on a CUDA device launches kernel #2 once
+    (with ``mxu_leaf`` its superleaf form over ``scene.wide``) and counts
+    it as :func:`render_flat_bvh_megakernel` (or
+    :func:`render_flat_bvh_mxu_megakernel`) does; a scene on the CPU runs
+    :func:`render_flat_bvh_fused` over the same rows.
+    """
+    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+              seed=seed, inclusive_uv=inclusive_uv, mxu_leaf=mxu_leaf,
+              rows=(n_rows, row_start, sample_offset), normalize=False)
+    if scene.device.type == "cpu":
+        return render_flat_bvh_fused(scene, camera, **kw)
+    return _launch_bvh(scene, camera, **kw)
 
 
 def render_bvh_with_counters(
@@ -701,23 +795,11 @@ def render_flat_bvh_mxu_megakernel(
     fp32 result is the JAX kernel's ``mxu_precision="highest"``; that TPU
     knob is not taken.
     """
-    tree = _require_tree(scene, mxu_leaf=True)
     kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
-              seed=seed, inclusive_uv=inclusive_uv)
+              seed=seed, inclusive_uv=inclusive_uv, mxu_leaf=True)
     if scene.device.type == "cpu":
-        return render_flat_bvh_fused(scene, camera, mxu_leaf=True, **kw)
-    device = scene.device
-    _check_aligned("superleaf pairs", tree.pairs, device, 16)
-    _check_root(tree)
-    check_block_tables(tree, device, tree.n_blocks)
-    out = launch_render(
-        "bvh_mxu_megakernel", "bvh_megakernel", "spira_bvh_mxu_render",
-        (_VP, _VP, _VP, _VP, _I),  # pairs, coeff_uv, coeff_t, coeff_pay, root
-        (tree.pairs.data_ptr(), tree.coeff_uv.data_ptr(),
-         tree.coeff_t.data_ptr(), tree.coeff_pay.data_ptr(), tree.root),
-        scene, camera, **kw)
-    render_flat_bvh_mxu_megakernel.launches += 1
-    return out
+        return render_flat_bvh_fused(scene, camera, **kw)
+    return _launch_bvh(scene, camera, **kw)
 
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).

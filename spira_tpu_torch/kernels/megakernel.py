@@ -605,10 +605,27 @@ def render_flat_fused(
     ``render_flat_fused.calls``."""
     render_flat_fused.calls += 1
     _check_fused_supported(scene)
-    device = scene.device
-    cam_arr, sph_arr, tri_arr = (
-        tables if tables is not None else pack_tables(scene, camera))
-    cam = cam_tuple(cam_arr, camera.has_lens)
+    du, dv = _uv_scale(width, height, inclusive_uv)
+    r, g, b = _trace_rows(
+        tables if tables is not None else pack_tables(scene, camera),
+        camera.has_lens, width=width, n_rows=height, row_start=0,
+        sample_offset=0, spp=spp, max_depth=max_depth, seed=seed, du=du,
+        dv=dv, remat=remat)
+    inv = _inv_spp(spp)
+    return torch.stack([r * inv, g * inv, b * inv], dim=-1)
+
+
+#: Plain-tracer calls since the count was last reset (set it to 0 to reset).
+render_flat_fused.calls = 0
+
+
+def _trace_rows(tables, has_lens, *, width, n_rows, row_start,
+                sample_offset, spp, max_depth, seed, du, dv, remat):
+    """:func:`trace_tile` over the ``n_rows`` rows from ``row_start`` of a
+    frame ``width`` wide, from the (camera, sphere, triangle) tables of
+    :func:`pack_tables`, keyed on the global pixel: the summed (r, g, b)
+    of the samples from ``sample_offset`` on."""
+    cam_arr, sph_arr, tri_arr = tables
     spheres = [
         tuple(sph_arr[k, f] for f in range(14))
         for k in range(sph_arr.shape[0])
@@ -617,13 +634,13 @@ def render_flat_fused(
         tuple(tri_arr[k, f] for f in range(22))
         for k in range(tri_arr.shape[0])
     ]
-    pixel = torch.arange(height * width, dtype=torch.int64, device=device)
-    du, dv = _uv_scale(width, height, inclusive_uv)
-    r, g, b = trace_tile(
+    pixel = torch.arange(row_start * width, (row_start + n_rows) * width,
+                         dtype=torch.int64, device=cam_arr.device)
+    return trace_tile(
         pixel,
         (pixel // width).to(torch.float32),
         (pixel % width).to(torch.float32),
-        cam,
+        cam_tuple(cam_arr, has_lens),
         spheres,
         triangles,
         seed=seed,
@@ -632,13 +649,34 @@ def render_flat_fused(
         du=du,
         dv=dv,
         remat=remat,
+        sample_offset=sample_offset,
     )
-    inv = _inv_spp(spp)
-    return torch.stack([r * inv, g * inv, b * inv], dim=-1)
 
 
-#: Plain-tracer calls since the count was last reset (set it to 0 to reset).
-render_flat_fused.calls = 0
+def fused_rows(scene, camera, *, width: int, n_rows: int, row_start: int,
+               sample_offset: int, spp: int, max_depth: int, seed: int,
+               du: float, dv: float):
+    """The plain tracer over a range of rows and samples, the shard body
+    of the tile- and sample-sharded sphere renderer
+    (:mod:`spira_tpu_torch.parallel.sharded`, engine ``fused``): the
+    **sum** over samples ``sample_offset .. sample_offset + spp - 1`` of
+    the ``n_rows`` rows from ``row_start`` of a frame ``width`` wide whose
+    uv scale is ``du``, ``dv``: (n_rows*width, 3), on the scene's device.
+
+    The counterpart of JAX's ``fused_rows``
+    (``spira_tpu/kernels/megakernel.py:818``), an XLA tracer there and
+    plain PyTorch here, as the ``fused`` engine is.  PCG keys on the
+    global pixel and sample, so the shards of a frame sum to
+    :func:`render_flat_fused`'s frame.  Each call adds one to
+    ``render_flat_fused.calls``.
+    """
+    render_flat_fused.calls += 1
+    _check_fused_supported(scene)
+    r, g, b = _trace_rows(
+        pack_tables(scene, camera), camera.has_lens, width=width,
+        n_rows=n_rows, row_start=row_start, sample_offset=sample_offset,
+        spp=spp, max_depth=max_depth, seed=seed, du=du, dv=dv, remat=False)
+    return torch.stack([r, g, b], dim=-1)
 
 
 # ----------------------------------------------------------------------------

@@ -1,19 +1,23 @@
 """Progressive chunked rendering with checkpoint/resume, the adaptive
 renderer, and ``run_config``, what ``cli render`` runs.
 
-Counterpart of :mod:`spira_tpu.pipeline`, on one device.  The host loops
-over sample chunks, reports rays/s and an ETA, and saves a checkpoint a
-chunk, so a long render survives preemption.  The resume is exact: the
-RNG is counter-based, so samples [k, k+n) are the same paths whenever
-they are rendered, and each chunk adds its samples to the sum so far in
-sample order, so a render in chunks is the one-shot wavefront render to
-the bit.
+Counterpart of :mod:`spira_tpu.pipeline`.  The host loops over sample
+chunks, reports rays/s and an ETA, and saves a checkpoint a chunk, so a
+long render survives preemption.  The resume is exact: the RNG is
+counter-based, so samples [k, k+n) are the same paths whenever they are
+rendered, and each chunk adds its samples to the sum so far in sample
+order, so a render in chunks is the one-shot wavefront render to the bit.
 
-The sharded paths (``n_tile``, a device ``mesh``) raise
-``NotImplementedError`` naming ROADMAP item 16.
+With a ``mesh`` (:func:`spira_tpu_torch.parallel.mesh.make_mesh`), or
+``n_tile`` in the configuration, each chunk or adaptive round is split
+over the ranks' tiles and sample slots (:mod:`spira_tpu_torch.parallel.
+sharded`); every rank runs the same host loop, and only the primary rank
+writes checkpoints and the image.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,8 +25,15 @@ import torch
 from .core import rng as srng
 from .io import image as img_io
 from .kernels.megakernel import true_divide
+from .parallel.distributed import gather_rows, is_primary
+from .parallel.mesh import make_mesh, replicate
+from .parallel.sharded import (
+    accumulate_row_set_sharded,
+    render_chunk_sharded,
+    render_flat_sharded,
+    tile_rows,
+)
 from .render import (
-    _not_ported,
     accumulate_block_set,
     accumulate_row_set,
     accumulate_rows,
@@ -32,10 +43,6 @@ from .render import (
 from .utils import checkpoint as ckpt
 from .utils.config import RenderConfig, build_scene, same_render
 from .utils.metrics import RenderMeter, logger
-
-
-def _sharded(what: str):
-    return _not_ported(what, "item 16, parallel/")
 
 
 def _render_chunk(scene, camera, sample_offset, *, width, height, n_samples,
@@ -71,20 +78,27 @@ def render_progressive(scene, camera, cfg: RenderConfig,
     nearest hits come from kernel #3
     (:func:`spira_tpu_torch.render.wavefront_hook`), as in
     ``render_flat``.
+
+    With ``mesh`` each chunk is :func:`spira_tpu_torch.parallel.sharded.
+    render_chunk_sharded` on the wavefront (chunk sizes divide by the spp
+    axis): each rank keeps its tile's sum, adds the chunks' sums to it in
+    sample order, as JAX does, and the tiles are gathered for each
+    checkpoint, which the primary rank writes, and for the image, which
+    every rank returns.
     """
-    if mesh is not None:
-        raise _sharded("the sharded progressive renderer (mesh=)")
+    W, H = cfg.width, cfg.height
     device = camera.origin.device
-    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
-                      device=device)
+    n_rows, row_start = (H, 0) if mesh is None else tile_rows(mesh, H)
+    tile = slice(row_start * W, (row_start + n_rows) * W)
+    acc = torch.zeros((n_rows * W, 3), dtype=torch.float32, device=device)
     done = 0
     if cfg.checkpoint_dir:
         state = ckpt.load_render_state(cfg.checkpoint_dir)
         if state is not None:
             saved_acc, saved_done, saved_seed, saved_cfg = state
             if same_render(saved_cfg, cfg) and saved_seed == cfg.seed:
-                acc = torch.from_numpy(
-                    np.asarray(saved_acc, np.float32)).to(device)
+                acc = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(saved_acc, np.float32)[tile])).to(device)
                 done = saved_done
                 logger.info("resumed at sample %d/%d", done, cfg.spp,
                             extra={"resumed_samples": done})
@@ -101,11 +115,16 @@ def render_progressive(scene, camera, cfg: RenderConfig,
     try:
         while done < cfg.spp:
             take = min(chunk, cfg.spp - done)
-            acc = _render_chunk(
-                scene, camera, done, width=cfg.width, height=cfg.height,
-                n_samples=take, max_depth=cfg.max_depth,
-                semantics=cfg.semantics, spectral=cfg.spectral,
-                seed=cfg.seed, intersect_fn=intersect_fn, init=acc)
+            kw = dict(width=W, height=H, n_samples=take,
+                      max_depth=cfg.max_depth, semantics=cfg.semantics,
+                      spectral=cfg.spectral, seed=cfg.seed)
+            if mesh is None:
+                acc = _render_chunk(scene, camera, done,
+                                    intersect_fn=intersect_fn, init=acc,
+                                    **kw)
+            else:
+                acc = acc + render_chunk_sharded(scene, camera, done,
+                                                 mesh=mesh, **kw)
             done += take
             # the previous chunk's save goes only now, behind this chunk's
             # launch, so its write overlaps this chunk's work
@@ -114,9 +133,12 @@ def render_progressive(scene, camera, cfg: RenderConfig,
                              **pending_save)
                 pending_save = None
             if cfg.checkpoint_dir and done < cfg.spp:
-                pending_save = dict(accumulator=ckpt.host_snapshot(acc),
-                                    samples_done=done, seed=cfg.seed,
-                                    config_json=cfg.to_json())
+                snapshot = (ckpt.host_snapshot(acc) if mesh is None
+                            else gather_rows(acc, mesh))
+                if is_primary():
+                    pending_save = dict(accumulator=snapshot,
+                                        samples_done=done, seed=cfg.seed,
+                                        config_json=cfg.to_json())
             meter.update(done)
     finally:
         # a chunk that raised: keep the last completed chunk's checkpoint
@@ -125,7 +147,9 @@ def render_progressive(scene, camera, cfg: RenderConfig,
                          **pending_save)
         saver.wait()
     flat = true_divide(acc, float(cfg.spp))
-    return img_io.assemble_image(flat, cfg.width, cfg.height).cpu().numpy()
+    if mesh is not None:
+        flat = gather_rows(flat, mesh)
+    return img_io.assemble_image(flat, W, H).cpu().numpy()
 
 
 def render_adaptive(
@@ -153,9 +177,20 @@ def render_adaptive(
     round's sums on the host, where the convergence ledger lives: one copy
     from the card a round, the design's only synchronisation (counted in
     the stats as ``host_syncs``).  JAX pads each round's set to a power of
-    two so that it compiles few programs; nothing is compiled here, so no
-    segment is padded, and a ray's draws depend only on its position, so
-    the live segments' samples are the same.
+    two so that it compiles few programs; nothing is compiled here, so on
+    one device no segment is padded, and a ray's draws depend only on its
+    position, so the live segments' samples are the same.
+
+    With ``mesh`` (rows only, as in JAX) each round's row set is padded
+    as JAX pads it, to ``n_tile`` times a power of two (never past the
+    image) with copies of its first row, split contiguously over the
+    tiles, whose keys fold in the tile index, and its samples over the
+    spp axis (:func:`spira_tpu_torch.parallel.sharded.
+    accumulate_row_set_sharded`; ``chunk`` is rounded up to the axis):
+    the padding decides which rows draw which stream, so it draws JAX's
+    bits.  The round's sums are gathered to every rank's host, every
+    rank keeps the same ledger, the pad rows' sums are dropped, and only
+    the primary rank writes checkpoints.
 
     Convergence, as in JAX: ``statistic="quantile"`` retires a segment
     when the ``quantile`` of its pixels' relative half-CI95 of mean
@@ -171,11 +206,9 @@ def render_adaptive(
     with the same config and hyperparameters resumes from it exactly.
 
     Returns the (H, W, 3) HDR image as NumPy; with ``return_stats=True``
-    also a dict of sample counts, the per-segment spp map, the rounds and
-    the host syncs.
+    also a dict of sample counts (``dispatched_samples`` counts the pad
+    rows too), the per-segment spp map, the rounds and the host syncs.
     """
-    if mesh is not None:
-        raise _sharded("the sharded adaptive renderer (mesh=)")
     W, H = cfg.width, cfg.height
     max_spp = cfg.spp
     if max_spp < 1:
@@ -184,6 +217,10 @@ def render_adaptive(
     base = srng.base_key(cfg.seed)
 
     if granularity == "block":
+        if mesh is not None:
+            raise NotImplementedError(
+                "block-granularity adaptive sampling is single-device; "
+                "use granularity='row' with a mesh")
         if W % 128:
             raise ValueError(f"granularity='block' needs W % 128 == 0, "
                              f"got {W}")
@@ -215,15 +252,23 @@ def render_adaptive(
     counts = np.zeros((n_segs,), np.int64)
     meter = RenderMeter(W, H, max_spp, cfg.max_depth, enabled=cfg.progress)
 
+    n_tile, n_spp = (1, 1) if mesh is None else (mesh.n_tile, mesh.n_spp)
+    if max_spp % n_spp:
+        raise ValueError(f"spp {max_spp} must divide by the spp axis "
+                         f"{n_spp}")
+    chunk = -(-chunk // n_spp) * n_spp  # rounded up to the axis
+
     active = np.arange(n_segs, dtype=np.int32)
     spp_done = 0  # active segments retire together, so they share a count
     sample_base = 0
 
-    # the stopping hyperparameters live in the manifest beside the config:
-    # a resumed run must take the same retirement decisions (the mesh
-    # shape stays in the layout JAX writes, here always one device)
+    # the stopping hyperparameters and the mesh shape live in the manifest
+    # beside the config: a resumed run must take the same retirement
+    # decisions and draw the same streams (the tiles fold their index into
+    # the keys, so another mesh draws others)
     hyper = dict(tol=tol, min_spp=min_spp, chunk=chunk, quantile=quantile,
-                 mesh=[1, 1], granularity=granularity, statistic=statistic)
+                 mesh=[n_tile, n_spp], granularity=granularity,
+                 statistic=statistic)
     if cfg.checkpoint_dir:
         state = ckpt.load_adaptive_state(cfg.checkpoint_dir)
         if state is not None:
@@ -240,28 +285,42 @@ def render_adaptive(
                 logger.warning("checkpoint config mismatch — starting fresh")
     meter.samples_done = int(counts.sum() / n_segs)
 
-    set_fn = accumulate_block_set if granularity == "block" \
-        else accumulate_row_set
+    if mesh is not None:
+        set_fn = functools.partial(accumulate_row_set_sharded, mesh=mesh)
+    elif granularity == "block":
+        set_fn = accumulate_block_set
+    else:
+        set_fn = accumulate_row_set
     device = camera.origin.device
-    rounds = 0
+    rounds = dispatched = 0
     while active.size and spp_done < max_spp:
         take = int(min(chunk, max_spp - spp_done))
         r = active.size
+        # under a mesh, JAX's padding: n_tile times a power of two, never
+        # past the whole image
+        r_pad = r if mesh is None else min(
+            n_tile * (1 << (-(-r // n_tile) - 1).bit_length()),
+            n_tile * -(-n_segs // n_tile))
+        dispatched += r_pad * take
+        segs = np.concatenate([active, np.full(r_pad - r, active[0],
+                                               np.int32)])
         # the set goes up without waiting for the card (the array is
         # staged before the call returns and never written again)
-        ids = torch.from_numpy(active).to(device, non_blocking=True)
+        ids = torch.from_numpy(segs).to(device, non_blocking=True)
         a, l, l2 = set_fn(
             scene, camera, base, ids, sample_base, width=W, height=H,
             n_samples=take,
             max_depth=cfg.max_depth, semantics=cfg.semantics,
             spectral=cfg.spectral, intersect_fn=intersect_fn)
-        # the round's sums to the host in one copy: the loop's one sync
-        host = torch.cat([a.reshape(-1), l, l2]).cpu().numpy()
-        n = r * seg_w
+        # the round's sums to the host in one copy (under a mesh, one
+        # gather of the tiles): the loop's one sync
+        sums = torch.cat([a, l[:, None], l2[:, None]], 1)
+        host = (sums.cpu() if mesh is None
+                else gather_rows(sums, mesh)).numpy()[:r * seg_w]
         at = seg_index(active)
-        acc[at] += host[:3 * n].reshape(r, seg_w, 3)
-        lum[at] += host[3 * n:4 * n].reshape(r, seg_w)
-        lum2[at] += host[4 * n:].reshape(r, seg_w)
+        acc[at] += host[:, :3].reshape(r, seg_w, 3)
+        lum[at] += host[:, 3].reshape(r, seg_w)
+        lum2[at] += host[:, 4].reshape(r, seg_w)
         counts[active] += take
         spp_done += take
         sample_base += take
@@ -284,7 +343,8 @@ def render_adaptive(
                 seg_err = np.quantile(rel_ci, quantile, axis=1)
             active = active[seg_err > tol]
 
-        if cfg.checkpoint_dir and active.size and spp_done < max_spp:
+        if (cfg.checkpoint_dir and active.size and spp_done < max_spp
+                and is_primary()):
             ckpt.save_adaptive_state(
                 cfg.checkpoint_dir,
                 arrays=dict(acc=acc, lum=lum, lum2=lum2, counts=counts,
@@ -305,6 +365,7 @@ def render_adaptive(
     uniform = H * W * max_spp
     stats = {
         "total_samples": total,
+        "dispatched_samples": dispatched * seg_w,
         "uniform_samples": uniform,
         "savings": 1.0 - total / float(uniform),
         "spp_per_row": spp_map.mean(axis=1),
@@ -326,11 +387,19 @@ def _tonemap(cfg: RenderConfig, hdr) -> np.ndarray:
 def run_config(cfg: RenderConfig) -> np.ndarray:
     """Build the scene, render, tone map and save: the (H, W, 3) uint8
     image.  The dispatch follows JAX's order: a preview shading first,
-    then the adaptive renderer (``cfg.adaptive_tol``), then the sharded
-    renderers (``cfg.n_tile``: not ported, ROADMAP item 16), then the
-    progressive renderer (a checkpoint directory or interval), else one
-    render through the engine dispatch (``render_flat_engine``, so the
-    kernels serve the scenes they serve in ``render``)."""
+    then the adaptive renderer (``cfg.adaptive_tol``, whole rows under a
+    mesh), then the progressive renderer (a checkpoint directory or
+    interval), then the sharded wavefront frame
+    (:func:`spira_tpu_torch.parallel.sharded.render_flat_sharded`), else
+    one render through the engine dispatch (``render_flat_engine``, so
+    the kernels serve the scenes they serve in ``render``).
+
+    ``cfg.n_tile`` puts the adaptive, progressive or one-shot render on a
+    (``n_tile``, ``n_spp_axis``) mesh over the ranks of the default
+    process group (:func:`spira_tpu_torch.parallel.mesh.make_mesh` on the
+    scene's device; the scene and camera replicated from rank 0), as
+    JAX's ``run_config`` does, ``--engine`` ignored; every rank renders
+    and returns the whole image, and only the primary rank writes it."""
     scene, camera = build_scene(cfg)
     if cfg.shading != "full":
         from .integrator.preview import render_flat_preview
@@ -340,7 +409,7 @@ def run_config(cfg: RenderConfig) -> np.ndarray:
                                    shading=cfg.shading)
         out = _tonemap(cfg, img_io.assemble_image(flat, cfg.width,
                                                   cfg.height))
-        if cfg.output:
+        if cfg.output and is_primary():
             img_io.save_png(cfg.output, out)
             logger.info("wrote %s", cfg.output)
         return out
@@ -349,18 +418,24 @@ def run_config(cfg: RenderConfig) -> np.ndarray:
             cfg.n_tile is not None or cfg.checkpoint_dir
             or cfg.checkpoint_every > 0 or cfg.adaptive_tol is not None):
         logger.warning(
-            "--engine %s is ignored by the progressive and adaptive renderers "
-            "(wavefront family only: they need sample offsets)", cfg.engine)
+            "--engine %s is ignored by the sharded, progressive and adaptive "
+            "renderers (wavefront family only: they need sample offsets)",
+            cfg.engine)
+    mesh = None
     if cfg.n_tile is not None:
-        raise _sharded("n_tile (the tile-sharded renderers)")
+        mesh = make_mesh(n_tile=cfg.n_tile, n_spp=cfg.n_spp_axis,
+                         device=scene.device)
+        scene, camera = replicate(scene, mesh), replicate(camera, mesh)
     if cfg.adaptive_tol is not None:
         gran = cfg.adaptive_granularity
-        if cfg.width % 128:
-            gran = "row"  # block sets need the width in 128-pixel blocks
+        if mesh is not None or cfg.width % 128:
+            # block sets are single-device and need the width in 128-pixel
+            # blocks
+            gran = "row"
         hdr, stats = render_adaptive(
             scene, camera, cfg, tol=cfg.adaptive_tol,
             min_spp=cfg.adaptive_min_spp, return_stats=True,
-            granularity=gran)
+            granularity=gran, mesh=mesh)
         logger.info(
             "adaptive: %.0f%% of uniform %d spp (%d samples saved), %d "
             "rounds, %d host syncs",
@@ -369,7 +444,16 @@ def run_config(cfg: RenderConfig) -> np.ndarray:
             stats["rounds"], stats["host_syncs"],
             extra={"adaptive_stats": stats})
     elif cfg.checkpoint_dir or cfg.checkpoint_every > 0:
-        hdr = render_progressive(scene, camera, cfg)
+        # under a mesh the BASELINE config-5 shape: chunked, checkpointed,
+        # each chunk sharded
+        hdr = render_progressive(scene, camera, cfg, mesh=mesh)
+    elif mesh is not None:
+        flat = render_flat_sharded(
+            scene, camera, width=cfg.width, height=cfg.height, mesh=mesh,
+            spp=cfg.spp, max_depth=cfg.max_depth, seed=cfg.seed,
+            semantics=cfg.semantics, spectral=cfg.spectral)
+        hdr = img_io.assemble_image(gather_rows(flat, mesh), cfg.width,
+                                    cfg.height)
     else:
         flat = render_flat_engine(
             scene, camera, width=cfg.width, height=cfg.height, spp=cfg.spp,
@@ -378,7 +462,7 @@ def run_config(cfg: RenderConfig) -> np.ndarray:
         hdr = img_io.assemble_image(flat, cfg.width, cfg.height)
 
     out = _tonemap(cfg, hdr)
-    if cfg.output:
+    if cfg.output and is_primary():
         if cfg.output.endswith(".exr"):
             img_io.save_exr(cfg.output, hdr)
         elif cfg.output.endswith(".ppm"):

@@ -39,10 +39,8 @@ are the retired experiments of :mod:`spira_tpu_torch.experiments`.
 of :mod:`spira_tpu_torch.integrator.preview`.  :func:`accumulate_rows`,
 :func:`accumulate_row_set` and :func:`accumulate_block_set` are the
 wavefront's sample loops over a row range, a row set and a block set, for
-the renderers of :mod:`spira_tpu_torch.pipeline`.
-
-The sharded paths of the JAX renderer raise ``NotImplementedError`` naming
-the ROADMAP item (queue 1) that brings them.
+the renderers of :mod:`spira_tpu_torch.pipeline`.  The sharded renderers
+over a mesh of ranks are :mod:`spira_tpu_torch.parallel`.
 """
 
 from __future__ import annotations
@@ -313,13 +311,6 @@ _ENGINE_FNS = {
     "cuda_bvh_mxu": (_render_flat_bvh_mxu, None),
     "fused": (render_flat_fused, render_flat_fused_spectral),
 }
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to spira_tpu_torch yet (ROADMAP.md queue 1, "
-        f"{item})"
-    )
 
 
 def _unknown_engine(engine: str, engines=ENGINES):

@@ -130,9 +130,11 @@ def add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--aperture", type=float, default=0.0)
     p.add_argument("--focus-dist", type=float, default=None)
     p.add_argument("--n-tile", type=int, default=None,
-                   help="tile-axis device count (not ported: ROADMAP item "
-                        "16)")
-    p.add_argument("--n-spp-axis", type=int, default=1)
+                   help="tile-axis rank count: render over a (n-tile, "
+                        "n-spp-axis) mesh of the torch.distributed ranks "
+                        "(run under torchrun; --engine is ignored)")
+    p.add_argument("--n-spp-axis", type=int, default=1,
+                   help="spp-axis rank count under --n-tile")
     p.add_argument("--adaptive-tol", type=float, default=None,
                    help="adaptive sampling: stop segments whose relative "
                         "luminance CI95 falls below this (--spp = cap)")

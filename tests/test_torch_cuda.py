@@ -1355,3 +1355,93 @@ def _no_sync(fn):
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel #2's row and sample offsets (the sharded renderer's shard body)
+# ---------------------------------------------------------------------------
+
+#: #2 over row leaves in each form, and #2b over superleaf blocks
+SHARD_TREES = ("bw", "mt", "superleaf")
+
+
+def _shard_scene(device, tree):
+    if tree == "superleaf":
+        return sp.attach_superleaf(_mesh(device))
+    return _mesh(device, tree)
+
+
+@pytest.mark.parametrize("tree", SHARD_TREES)
+def test_bvh_rows_bit_equal_to_plain_at_offsets(cuda, tree):
+    """``bvh_rows`` on rows 7-15 of a 37x23 frame at samples 5-7, depth
+    4: one launch of #2 (#2b on superleaf blocks), each pixel's sum equal
+    to the plain version's over the same rows and samples to the bit."""
+    scene = _shard_scene(cuda, tree)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    mxu = tree == "superleaf"
+    counter = (bk.render_flat_bvh_mxu_megakernel if mxu
+               else bk.render_flat_bvh_megakernel)
+    kw = dict(width=37, height=23, spp=3, max_depth=4, seed=9)
+    before = counter.launches
+    got = bk.bvh_rows(scene, cam, n_rows=9, row_start=7, sample_offset=5,
+                      mxu_leaf=mxu, **kw)
+    assert counter.launches == before + 1
+    want = bk.render_flat_bvh_fused(scene, cam, mxu_leaf=mxu,
+                                    rows=(9, 7, 5), normalize=False, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (9 * 37, 3) and got.std() > 1e-3
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tree", SHARD_TREES)
+def test_tile_split_equals_the_frame(cuda, tree):
+    """A 4x1 split of a 64x48 frame at spp 4 (a power of two), each tile
+    one ``bvh_rows`` launch, the tiles' sums over spp: the unsharded #2
+    (#2b) frame to the bit; a split of the samples within float-sum order
+    (the same samples added in another order: at most 2 (spp - 1) units
+    of 2^-24 of each channel, whose terms are not negative)."""
+    scene = _shard_scene(cuda, tree)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=64 / 48, device=cuda)
+    mxu = tree == "superleaf"
+    kw = dict(width=64, height=48, max_depth=4, seed=2, mxu_leaf=mxu)
+    frame = bk.render_flat_bvh_megakernel(scene, cam, spp=4, **kw)
+    tiles = [bk.bvh_rows(scene, cam, n_rows=12, row_start=12 * t,
+                         sample_offset=0, spp=4, **kw) for t in range(4)]
+    assert torch.equal(mk.true_divide(torch.cat(tiles), 4.0), frame)
+    halves = [bk.bvh_rows(scene, cam, n_rows=48, row_start=0,
+                          sample_offset=2 * k, spp=2, **kw)
+              for k in range(2)]
+    split = mk.true_divide(halves[0] + halves[1], 4.0)
+    assert float(((split - frame).abs() - 6 * 2.0 ** -24 * frame).max()) \
+        <= 0.0
+
+
+@pytest.mark.parametrize("kernel", ["#2", "#4", "#5", "#7"])
+def test_offsets_zero_keep_the_frames(cuda, kernel):
+    """The kernels that share ``render_mesh`` or ``render_samples`` and
+    pass it offsets 0 (#2's whole frame, #4, #5 and #7) on a ragged 37x23
+    frame at spp 3: equal to their plain versions to the bit, so the
+    offsets changed none of their pixels."""
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=3, max_depth=4, seed=5)
+    rows, stream, _ = _superleaf_scenes(cuda)
+    pair = {
+        "#2": (bk.render_flat_bvh_megakernel, bk.render_flat_bvh_fused,
+               rows),
+        "#4": (sf.render_flat_spectral_megakernel,
+               sf.render_flat_fused_spectral,
+               sp.create_cornell_box(device=cuda)),
+        "#5": (sb.render_flat_spectral_bvh_megakernel,
+               sb.render_flat_spectral_bvh_fused, rows),
+        "#7": (xk.render_flat_mxu_megakernel, xk.render_flat_mxu_fused,
+               stream),
+    }
+    kernel_fn, plain_fn, scene = pair[kernel]
+    got = kernel_fn(scene, cam, **kw)
+    want = plain_fn(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert got.std() > 1e-3
+    assert torch.equal(got, want)

@@ -215,11 +215,34 @@ def test_packet_hook_gradients_equal_the_walk():
 
 
 def test_refusals():
+    """A mesh of one rank (no process group): ``render_for_grad(mesh=)``
+    is the unsharded render to the bit and ``make_inverse_step(mesh=)``
+    the unsharded step's parameters to the bit (the loss within float-sum
+    order); a spp that does not divide by the spp axis raises JAX's
+    ``ValueError``; JAX's TPU knob and a parameter that is not a leaf are
+    refused."""
+    from spira_tpu_torch.parallel import Mesh, make_mesh
+
     _, _, scene, cam = _demo()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        inverse.make_inverse_step(**KW, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        inverse.render_for_grad({}, scene, cam, seed=0, mesh=object(), **KW)
+    mesh = make_mesh(1, 1, device="cpu")
+    start = _start(scene)
+    params = {k: torch.from_numpy(v) for k, v in start.items()}
+    assert torch.equal(
+        inverse.render_for_grad(params, scene, cam, seed=0, mesh=mesh, **KW),
+        inverse.render_for_grad(params, scene, cam, seed=0, **KW))
+    target = torch.from_numpy(_target())
+    out = []
+    for m in (None, mesh):
+        step, init = inverse.make_inverse_step(**KW, mesh=m)
+        p = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+        p, _, loss = step(p, init(p), scene, cam, target, 0)
+        out.append((float(loss), p))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-6)
+    for k in start:
+        assert torch.equal(out[1][1][k], out[0][1][k]), k
+    with pytest.raises(ValueError, match="not divisible by spp axis 4"):
+        inverse.render_for_grad({}, scene, cam, seed=0, **KW, mesh=Mesh(
+            n_tile=1, n_spp=4, rank=0, device=torch.device("cpu")))
     with pytest.raises(ValueError, match="packet_interpret"):
         inverse.render_for_grad({}, scene, cam, seed=0,
                                 intersect="packet_interpret", **KW)

@@ -381,11 +381,27 @@ def test_progressive_resumes_a_jax_checkpoint(tmp_path):
 
 
 def test_progressive_refuses_a_mesh():
+    """The progressive renderer under a mesh of one rank (no process
+    group) with a chunk of the whole spp is the one-shot wavefront render
+    to the bit, and in chunks of 2 the chunks' sums added in sample order
+    (JAX's ``acc + part``) within float-sum order; ``run_config(n_tile=1)``
+    is the tone-mapped sharded frame.  A mesh larger than the world raises
+    ``ValueError``, as JAX's ``make_mesh`` does."""
+    from spira_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, device="cpu")
     cfg = tiny_cfg()
     scene, cam = config.build_scene(cfg)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pipeline.render_progressive(scene, cam, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
+    want = sp.render_hdr(scene, cam, cfg.width, cfg.height, spp=cfg.spp,
+                         max_depth=cfg.max_depth, engine="wavefront").numpy()
+    whole = pipeline.render_progressive(scene, cam, cfg, mesh=mesh)
+    np.testing.assert_array_equal(whole, want)
+    chunked = pipeline.render_progressive(
+        scene, cam, tiny_cfg(checkpoint_every=2), mesh=mesh)
+    np.testing.assert_allclose(chunked, want, rtol=0, atol=4e-6 * want.max())
+    out = pipeline.run_config(tiny_cfg(n_tile=1))
+    np.testing.assert_array_equal(out, pipeline._tonemap(cfg, want))
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         pipeline.run_config(tiny_cfg(n_tile=2))
 
 
