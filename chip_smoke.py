@@ -28,8 +28,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ragged grid, the full 16-bounce tape, ``inclusive_uv=False``, a camera
    inside a sphere), loss mode's loss against the MSE of kernel #1's
    image, with a central-difference check of its gradients, the
-   streaming superleaf query on the bunny's random and primary rays, and the streaming superleaf path tracer and
-   the superleaf-leaf BVH path tracer (``MXU_CASES``); the counting build
+   streaming superleaf query on the bunny's random and primary rays (to
+   the bit), and the streaming superleaf path tracer and the
+   superleaf-leaf BVH path tracer (``MXU_CASES``, to the bit; #7 on both
+   of its routes, the staged one by size on the mesh and the read-only
+   one by size on the bunny and forced on the mesh); the counting build
    of the packed-BVH path tracer on the bunny: its image bit-equal to the
    uncounted kernel's, its totals equal to the plain counting walk's, and
    pops == traversals + pushes; the wavefront estimator's frame on the
@@ -59,8 +62,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    mode's forward kernel and one of the VJP kernel; and the superleaf
    engines: ``render`` of the bunny on
    ``cuda_bvh_mxu`` and of the 1,600-triangle mesh scene on ``cuda_mxu``
-   at 640x360, spp 16, depth 4, each one launch and no plain call, each
-   image held against its plain version and against ``cuda_bvh``'s image
+   at 640x360, spp 16, depth 4, each one launch and no plain call (#7 on
+   its staged route), each image held against its plain version (to the
+   bit) and against ``cuda_bvh``'s image
    of the same scene and seed, and ``intersect_tile_mxu`` on the bunny's
    primary rays, held against the packed-BVH query; the wavefront
    estimator: ``render_flat`` of the bunny at 640x360, spp 16, depth 4,
@@ -130,7 +134,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the data-sheet bound (every operation over 67 TFLOP/s) beside it; the
    probes' bound is their counted operations at the issue rate; each
    kernel's share of its bound and launches x (time - bound), largest
-   first; the superleaf kernels beside ``cuda_bvh`` on the same calls;
+   first; the superleaf kernels beside ``cuda_bvh`` on the same calls,
+   #7's and #8's bounds over the real lanes they test, with the bound had
+   every block's 128 lanes been tested beside them;
    the counting build's time beside the uncounted one; the adjoint
    kernels and the step through ``spira_tpu_torch/bench/grad_step.py``
    (VJP at grad_spp 16 and 4, a zero cotangent, loss mode and its
@@ -173,11 +179,14 @@ kernel and step (a ``git archive`` of it unpacked into ``DIR``) with
 ``spira_tpu_torch/bench/grad_step.py``, its frames (#2, #5, #2b, #3
 on the bunny, #1 and #4 at 640x360 spp16 d4 and 1920x1080 spp256, with
 their host share, ``ptxas -v`` and #1's and #4's occupancy) beside this
-tree's with ``spira_tpu_torch/bench/mesh_frame.py``, and its #3 on the
+tree's with ``spira_tpu_torch/bench/mesh_frame.py``, its #3 on the
 wavefront's four calls of a sample with
-``spira_tpu_torch/bench/intersect_bounces.py`` (each parent, this, this,
-parent), each run in a process of its own; every image and every output
-of #3 of both commits must agree to the bit.
+``spira_tpu_torch/bench/intersect_bounces.py``, and its superleaf kernels
+(#7 on the mesh at spp 4 and 16, #8 on the bunny's primary rays, #2b on
+the bunny at spp 4 and 16) with ``spira_tpu_torch/bench/superleaf.py``
+(each parent, this, this, parent), each run in a process of its own;
+every image and every output of #3, #7, #8 and #2b of both commits must
+agree to the bit.
 """
 
 from __future__ import annotations
@@ -316,6 +325,12 @@ MXU_CASES = (
     ("u: #2b bunny 640x360 spp4 d4", "bvh_mxu", "bunny_sl", BVH_TIMED),
     ("v: #2b mesh 256x256 spp4 d4", "bvh_mxu", "mesh_sl",
      dict(width=256, height=256, spp=4, max_depth=4)),
+    # #7's read-only route: forced on the mesh, and where the bunny's
+    # 72,960 lanes do not fit a block's shared memory
+    ("r2: #7 mesh 256x256 spp4 d4 read-only route", "mxu_global",
+     "mesh_mxu", dict(width=256, height=256, spp=4, max_depth=4)),
+    ("s2: #7 bunny 160x90 spp1 d2 read-only route", "mxu", "bunny_mxu",
+     dict(width=160, height=90, spp=1, max_depth=2)),
 )
 #: the differentiable step: albedo of the red sphere and the ground
 #: perturbed as in tests/test_grad.py, plain gradient descent
@@ -423,12 +438,15 @@ def random_rays(n, device, seed=0):
     return o.to(device), d.to(device)
 
 
-def compare_intersect(name, kernel_fn, plain_fn, o, d):
+def compare_intersect(name, kernel_fn, plain_fn, o, d, exact=False):
     """A nearest-hit kernel ``kernel_fn(o, d)`` against ``plain_fn(o, d)``
-    (its plain version, or another query) under the query limits."""
+    (its plain version, or another query) under the query limits, and
+    with ``exact`` equal to the bit."""
     kt, kn, kmid = kernel_fn(o, d)
     pt, pn, pmid = plain_fn(o, d)
     torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in ((kt, pt), (kn, pn),
+                                                    (kmid, pmid)))
     n = o.shape[0]
     kmiss, pmiss = kt >= 1e19, pt >= 1e19
     miss_share = float((kmiss != pmiss).float().mean())
@@ -442,16 +460,17 @@ def compare_intersect(name, kernel_fn, plain_fn, o, d):
         f"sets differ on {miss_share:.2e} (limit {MISS_SHARE:g}), t max rel "
         f"{t_rel:.2e} (limit {T_RTOL:g}), mat id equal on {mid_share:.6f} "
         f"(limit {MID_SHARE}), normal within {NORMAL_ATOL:g} on "
-        f"{n_share:.6f} (limit {NORMAL_SHARE})")
+        f"{n_share:.6f} (limit {NORMAL_SHARE}); bit-equal {bit_equal}"
+        f"{' (required)' if exact else ''}")
     if not torch.isfinite(kt).all() or kn.shape != (n, 3):
         raise AssertionError(f"{name}: kernel output bad shape or not finite")
     if (miss_share > MISS_SHARE or t_rel > T_RTOL or mid_share < MID_SHARE
-            or n_share < NORMAL_SHARE):
+            or n_share < NORMAL_SHARE or (exact and not bit_equal)):
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     return dict(case=name, rays=n, common_hits=int(both.sum()),
                 max_abs_err=float(t_err.max()) if both.any() else 0.0,
                 t_max_rel=t_rel, miss_share=miss_share, mid_share=mid_share,
-                normal_share=n_share)
+                normal_share=n_share, bit_equal=bit_equal)
 
 
 def counters():
@@ -487,8 +506,12 @@ def counters():
 def reset_counts():
     from spira_tpu_torch.kernels import bvh_megakernel, megakernel
 
+    from spira_tpu_torch.kernels import mxu_megakernel
+
     for fn in counters().values():
         fn.launches = 0
+    mxu_megakernel.render_flat_mxu_megakernel.routes.update(
+        dict.fromkeys(mxu_megakernel.ROUTES, 0))
     megakernel.render_flat_fused.calls = 0
     bvh_megakernel.trace_mesh.calls = 0
 
@@ -502,14 +525,18 @@ def counts():
     return got
 
 
-def count_work(module, factory, fn, stream_blocks=0):
+def count_work(module, factory, fn, stream_blocks=0, stream_lanes=0,
+               block_lanes=None):
     """Run ``fn()`` (a plain version) with ``module.factory``'s intersector
     counting the live path segments it is asked for and the hits among
     them, and the packed walk counting its pops, leaf triangles and
     superleaf blocks: the work a kernel does on the same inputs (the plain
     walk pops the records the kernel's walk pops, in the same order).
-    ``stream_blocks``: the superleaf blocks every segment tests, for the
-    streaming kernels, which have no walk."""
+    ``stream_blocks`` and ``stream_lanes``: the superleaf blocks and the
+    real lanes every segment tests, for the streaming kernels, which have
+    no walk and test only a block's real lanes (``lanes`` in the work);
+    ``block_lanes``: each block's real lanes, for a walk whose kernel
+    tests only those of a block it visits."""
     from spira_tpu_torch.kernels import bvh_megakernel as bk
 
     made = getattr(module, factory) if factory else None
@@ -527,6 +554,9 @@ def count_work(module, factory, fn, stream_blocks=0):
 
     def counting_block_hits(views, ptr, *args):
         work["blocks"] += ptr.numel()
+        if block_lanes is not None:
+            work["lanes"] = (work.get("lanes", 0)
+                             + int(block_lanes[ptr].sum()))
         return block_hits(views, ptr, *args)
 
     def counting(*args, **kwargs):
@@ -539,6 +569,9 @@ def count_work(module, factory, fn, stream_blocks=0):
             work["segments"] += int(live.sum())
             work["hits"] += int((live & out[0]).sum())
             work["blocks"] += int(live.sum()) * stream_blocks
+            if stream_lanes:
+                work["lanes"] = (work.get("lanes", 0)
+                                 + int(live.sum()) * stream_lanes)
             return out
 
         return wrapped
@@ -606,6 +639,19 @@ def table_bytes(*tensors):
 def coeff_bytes(tables):
     """Bytes of a superleaf packing's coefficient tables."""
     return table_bytes(tables.coeff_uv, tables.coeff_t, tables.coeff_pay)
+
+
+def lane_bytes(tables):
+    """Bytes the streaming kernels read of a superleaf packing: the real
+    lanes' records, their offsets and the payload table."""
+    lanes = tables.lanes
+    return table_bytes(lanes.records, lanes.offsets, tables.coeff_pay)
+
+
+def all_lanes(work):
+    """``work`` priced as if every block's 128 lanes were tested (the
+    TPU's contraction), for the bound beside the real-lane one."""
+    return {k: v for k, v in work.items() if k != "lanes"}
 
 
 def rel_l2(kernel, plain):
@@ -1582,7 +1628,8 @@ def main() -> int:
     t_pack = time.perf_counter()
     # the superleaf packings, attached once outside the render calls
     bunny_sl = sp.attach_superleaf(bunny)
-    bunny_mxu = sp.attach_mxu(bunny).wide
+    bunny_mxu_scene = sp.attach_mxu(bunny)
+    bunny_mxu = bunny_mxu_scene.wide
     mesh_sl, mesh_mxu = sp.attach_superleaf(mesh), sp.attach_mxu(mesh)
     log(f"[scene] superleaf packings in {time.perf_counter() - t_pack:.1f} "
         f"s: bunny {bunny_sl.wide.n_blocks} blocks "
@@ -1606,6 +1653,7 @@ def main() -> int:
         bunny=(bunny, bunny_cam), mesh=(mesh, mesh_cam),
         bunny_sl=(bunny_sl, bunny_cam), mesh_sl=(mesh_sl, mesh_cam),
         mesh_mxu=(mesh_mxu, mesh_cam), mesh_mxu_wide=(mesh_mxu, mesh_wide_cam),
+        bunny_mxu=(bunny_mxu_scene, bunny_cam),
         demo=(sp.create_scene(device=device),
               sp.default_camera(w / h, device=device)),
         cornell=(sp.create_cornell_box(device=device),
@@ -1641,21 +1689,37 @@ def main() -> int:
             f"#8 bunny {key} rays",
             lambda o, d: xk.intersect_tile_mxu(bunny_mxu, o, d),
             lambda o, d: xk.intersect_mxu_plain(bunny_mxu, o, d),
-            *rays[key])
+            *rays[key], exact=True)
         for key in ("random", "primary")]
     mxu_renders = dict(mxu=(xk.render_flat_mxu_megakernel,
                             xk.render_flat_mxu_fused),
+                       mxu_global=(lambda scene, cam, **k: xk._launch_render(
+                           scene, cam, scene.wide, "global", seed=0,
+                           inclusive_uv=True, **k), xk.render_flat_mxu_fused),
                        bvh_mxu=(bk.render_flat_bvh_mxu_megakernel,
                                 lambda *a, **k: bk.render_flat_bvh_fused(
                                     *a, mxu_leaf=True, **k)))
+    # (engine, check): each image equal to its plain version's to the bit;
+    # #7's checks name the route it ran
     mxu_checks = []
     for name, engine, key, shape in MXU_CASES:
         scene, cam = scenes[key]
         kernel_fn, plain_fn = mxu_renders[engine]
+        reset_counts()
         kernel = kernel_fn(scene, cam, **shape)
+        ran = dict(xk.render_flat_mxu_megakernel.routes)
         plain = plain_fn(scene, cam, **shape)
         torch.cuda.synchronize()
-        mxu_checks.append(check_images(name, kernel, plain, BVH_TOL))
+        check = check_images(name, kernel, plain, BVH_TOL, exact=True)
+        if engine != "bvh_mxu":
+            check["route"] = next(r for r, k in ran.items() if k)
+        mxu_checks.append((engine, check))
+    routes_by_size = {c["case"]: c["route"] for e, c in mxu_checks
+                      if e == "mxu"}
+    log(f"[compare] #7's routes: {routes_by_size}")
+    if set(routes_by_size.values()) != set(xk.ROUTES):
+        raise AssertionError(f"#7 did not take both routes by size: "
+                             f"{routes_by_size}")
     bvh_checks = []
     for name, key, shape in BVH_CASES:
         scene, cam = scenes[key]
@@ -1934,13 +1998,19 @@ def main() -> int:
             if got != want:
                 raise AssertionError(f"{what} render on {engine} launched "
                                      f"{got}, not {want}")
+            if engine == "cuda_mxu":
+                main_routes = dict(xk.render_flat_mxu_megakernel.routes)
+                log(f"[main] #7 on {what}: routes {main_routes}")
+                if main_routes != {"staged": 1, "global": 0}:
+                    raise AssertionError(f"#7 on {what} took {main_routes}, "
+                                         "not the staged route")
             plain = plain_fn(scene, cam, **MAIN)
             check_main(f"{what} render on {engine} {shape_name}", kernel,
                        img, to_uint8(plain), got, png)
             flat = sp.render_flat_engine(scene, cam, engine=engine, **MAIN)
             main_mxu_checks.append(check_images(
                 f"{what} {engine} against its plain version {shape_name}",
-                flat, plain, BVH_TOL))
+                flat, plain, BVH_TOL, exact=True))
             main_mxu_checks.append(check_images(
                 f"{what} {engine} against cuda_bvh {shape_name}", flat,
                 bk.render_flat_bvh_megakernel(row_scene, cam, **MAIN),
@@ -2302,6 +2372,7 @@ def main() -> int:
                     "step_ms", "forward_ms", "backward_ms"))):
             raise AssertionError(f"the timed mesh step is wrong: {r}")
     parent_t = parent_frames = this_frames = bounce_runs = None
+    superleaf_runs = None
     if args.parent:
         here = os.path.dirname(os.path.abspath(__file__))
 
@@ -2369,6 +2440,24 @@ def main() -> int:
         if not same:
             raise AssertionError("#3 differs from the parent's on the main "
                                  "path's bounces")
+        # the superleaf kernels (#7, #8, #2b) of both commits, each run in
+        # its own process: parent, this, this, parent
+        superleaf_runs = [bench("superleaf.py", root)
+                          for root in (args.parent, here, here, args.parent)]
+        for f in superleaf_runs:
+            log(f"[superleaf] {card}: {f['root']} (bench/superleaf.py): "
+                + "; ".join(f"{k} {r['ms']:.4f} ms"
+                            for k, r in f["frames"].items())
+                + f"; routes {f['routes']}; ptxas {f['ptxas']}")
+        same = all({k: r["digest"] for k, r in f["frames"].items()}
+                   == {k: r["digest"]
+                       for k, r in superleaf_runs[0]["frames"].items()}
+                   for f in superleaf_runs)
+        log(f"[compare] #7, #8 and #2b: every output of this tree equal to "
+            f"the parent's (SHA-256): {same}")
+        if not same:
+            raise AssertionError("a superleaf kernel's output differs from "
+                                 "the parent's")
     step_prof = device_breakdown(lambda: step(albedo0, 0, MAIN["spp"]))
     log_breakdown(card, "differentiable step 640x360 spp16 d4 exact "
                   "replay", step_prof)
@@ -2416,19 +2505,25 @@ def main() -> int:
     bounce_work = [count_work(None, None, lambda o=o, d=d, a=a: (
         bk.intersect_packed_plain(bunny.packed, o, d, a, True)))
         for o, d, a, _ in bounce_calls]
+    sl_lanes = bunny_sl.wide.lanes.offsets.diff()
     bvh_mxu_work = count_work(bk, "make_packed_intersect", run(
-        mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, BVH_TIMED))
+        mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, BVH_TIMED),
+        block_lanes=sl_lanes)
+    mesh_lanes = mesh_mxu.wide.lanes.n_lanes
     mxu_work = count_work(xk, "make_mxu_stream_intersect", run(
         mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, BVH_TIMED),
-        stream_blocks=xk.n_blocks(mesh_mxu.wide))
+        stream_blocks=xk.n_blocks(mesh_mxu.wide), stream_lanes=mesh_lanes)
     bvh_mxu16_work = count_work(bk, "make_packed_intersect", run(
-        mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, MAIN))
+        mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, MAIN),
+        block_lanes=sl_lanes)
     mxu16_work = count_work(xk, "make_mxu_stream_intersect", run(
         mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, MAIN),
-        stream_blocks=xk.n_blocks(mesh_mxu.wide))
-    # the stream tests every block for every ray: no walk to count
+        stream_blocks=xk.n_blocks(mesh_mxu.wide), stream_lanes=mesh_lanes)
+    # the stream tests every block's real lanes for every ray: no walk to
+    # count
     mxu_isect_work = dict(segments=w * h, hits=0, pops=0, leaf_tris=0,
-                          blocks=w * h * xk.n_blocks(bunny_mxu))
+                          blocks=w * h * xk.n_blocks(bunny_mxu),
+                          lanes=w * h * bunny_mxu.lanes.n_lanes)
     log(f"[work] on the timed inputs: demo {sph_work}, bunny spp4 "
         f"{bvh_work}, #3 on a sample's bounces {bounce_work}, spectral "
         f"cornell {spec_work}, spectral bunny spp4 {sbvh_work}, #2b bunny "
@@ -2471,10 +2566,20 @@ def main() -> int:
         bvh_mxu_megakernel_16=sol_bound(
             sol.path_units(bvh_mxu16_work, n_px * MAIN["spp"], n_bunny_sph,
                            0, bvh=True),
+            table_bytes(bunny_sl.wide.pairs) + lane_bytes(bunny_sl.wide)
+            + out_bytes, rates),
+        bvh_mxu_megakernel_16_all_lanes=sol_bound(
+            sol.path_units(all_lanes(bvh_mxu16_work), n_px * MAIN["spp"],
+                           n_bunny_sph, 0, bvh=True),
             table_bytes(bunny_sl.wide.pairs) + coeff_bytes(bunny_sl.wide)
             + out_bytes, rates),
         mxu_megakernel_16=sol_bound(
             sol.path_units(mxu16_work, n_px * MAIN["spp"],
+                           mesh_mxu.spheres.count, 0),
+            lane_bytes(mesh_mxu.wide) + out_bytes, rates),
+        # the same work had every block's 128 lanes been tested
+        mxu_megakernel_16_all_lanes=sol_bound(
+            sol.path_units(all_lanes(mxu16_work), n_px * MAIN["spp"],
                            mesh_mxu.spheres.count, 0),
             coeff_bytes(mesh_mxu.wide) + out_bytes, rates),
         # loss mode at exact replay: the forward, the replay's forward,
@@ -2498,16 +2603,29 @@ def main() -> int:
         bvh_mxu_megakernel=sol_bound(
             sol.path_units(bvh_mxu_work, n_px * BVH_TIMED["spp"],
                            n_bunny_sph, 0, bvh=True),
+            table_bytes(bunny_sl.wide.pairs) + lane_bytes(bunny_sl.wide)
+            + out_bytes, rates),
+        bvh_mxu_megakernel_all_lanes=sol_bound(
+            sol.path_units(all_lanes(bvh_mxu_work), n_px * BVH_TIMED["spp"],
+                           n_bunny_sph, 0, bvh=True),
             table_bytes(bunny_sl.wide.pairs) + coeff_bytes(bunny_sl.wide)
             + out_bytes, rates),
         mxu_megakernel=sol_bound(
             sol.path_units(mxu_work, n_px * BVH_TIMED["spp"],
                            mesh_mxu.spheres.count, 0),
+            lane_bytes(mesh_mxu.wide) + out_bytes, rates),
+        mxu_megakernel_all_lanes=sol_bound(
+            sol.path_units(all_lanes(mxu_work), n_px * BVH_TIMED["spp"],
+                           mesh_mxu.spheres.count, 0),
             coeff_bytes(mesh_mxu.wide) + out_bytes, rates),
-        # bytes: the rays in, t, normal and material id out, the tables
+        # bytes: the rays in, t, normal and material id out, the records
+        # and the payload
         mxu_intersect=sol_bound(sol.walk_units(mxu_isect_work),
-                            coeff_bytes(bunny_mxu) + n_px * (24 + 20),
-                            rates),
+                                lane_bytes(bunny_mxu) + n_px * (24 + 20),
+                                rates),
+        mxu_intersect_all_lanes=sol_bound(
+            sol.walk_units(all_lanes(mxu_isect_work)),
+            coeff_bytes(bunny_mxu) + n_px * (24 + 20), rates),
         # the probes: their counted operations (one ALU instruction each,
         # in separate mode and in float32) at the issue rate; bytes: one
         # float32 in and out an element
@@ -2591,6 +2709,14 @@ def main() -> int:
         return None if runs is None else [
             dict(root=f["root"], ptxas=f["ptxas"],
                  **{n: f["frames"][n] for n in names}) for f in runs]
+
+    def superleaf_rows(*names):
+        """Calls ``names`` of each bench/superleaf.py run (parent, this,
+        this, parent), with ``--parent``."""
+        return None if superleaf_runs is None else [
+            dict(root=f["root"], ptxas=f["ptxas"],
+                 **{n: f["frames"][n] for n in names})
+            for f in superleaf_runs]
 
     brute_rgb = ("megakernel", "megakernel_1920x1080_spp256")
     brute_spectral = ("spectral_megakernel",
@@ -2790,8 +2916,19 @@ def main() -> int:
             "source": "spira_tpu_torch/csrc/mxu_megakernel.cu",
             "replaces": "spira_tpu/kernels/mxu_megakernel.py:205",
             "launches": launches["mxu_megakernel"],
-            "max_abs_err": max(c["max_abs_err"] for c in mxu_checks[:2]),
+            "max_abs_err": max(c["max_abs_err"] for e, c in mxu_checks
+                               if e != "bvh_mxu"),
             "ms": mxu_t["mxu_megakernel"]["ms"],
+            "routes_main_path": main_routes,
+            "routes_by_case": {c["case"]: c["route"] for e, c in mxu_checks
+                               if e != "bvh_mxu"},
+            "bound_ms_128_lanes": bounds["mxu_megakernel_all_lanes"][
+                "bound_ms"],
+            "bound_ms_128_lanes_640x360_spp16_d4": bounds[
+                "mxu_megakernel_16_all_lanes"]["bound_ms"],
+            "real_lanes": mesh_lanes,
+            "superleaf_runs": superleaf_rows("mxu_megakernel_spp4",
+                                             "mxu_megakernel_spp16"),
             "plain_ms": mxu_t["mxu_megakernel"]["plain_ms"],
             "shape": "mesh (1,600 triangles) 640x360 spp4 d4",
             "ms_640x360_spp16_d4": mxu_t["mxu_megakernel"]["full_ms"],
@@ -2802,7 +2939,8 @@ def main() -> int:
             "cuda_bvh_ms_640x360_spp16_d4": (
                 mxu_t["mxu_megakernel"]["cuda_bvh_full_ms"]),
             "profile_640x360_spp16_d4": mxu_prof["mxu_megakernel"],
-            "checks": mxu_checks[:2] + main_mxu_checks[2:4],
+            "checks": [c for e, c in mxu_checks if e != "bvh_mxu"]
+            + main_mxu_checks[2:4],
         },
         {
             "name": "mxu_intersect",
@@ -2815,6 +2953,10 @@ def main() -> int:
             "ms": mxu_t["mxu_intersect"]["ms"],
             "plain_ms": mxu_t["mxu_intersect"]["plain_ms"],
             "shape": "bunny primary rays 640x360",
+            "bound_ms_128_lanes": bounds["mxu_intersect_all_lanes"][
+                "bound_ms"],
+            "real_lanes": bunny_mxu.lanes.n_lanes,
+            "superleaf_runs": superleaf_rows("mxu_intersect"),
             "bvh_intersect_ms_same_rays": isect_k,
             "checks": mxu_isect_checks + main_mxu_checks[4:],
         },
@@ -2826,8 +2968,15 @@ def main() -> int:
             "leaf_source": "spira_tpu_torch/csrc/superleaf.cuh",
             "replaces": "spira_tpu/kernels/bvh_megakernel.py:252",
             "launches": launches["bvh_mxu_megakernel"],
-            "max_abs_err": mxu_checks[3]["max_abs_err"],
+            "max_abs_err": max(c["max_abs_err"] for e, c in mxu_checks
+                               if e == "bvh_mxu"),
             "ms": mxu_t["bvh_mxu_megakernel"]["ms"],
+            "bound_ms_128_lanes": bounds["bvh_mxu_megakernel_all_lanes"][
+                "bound_ms"],
+            "bound_ms_128_lanes_640x360_spp16_d4": bounds[
+                "bvh_mxu_megakernel_16_all_lanes"]["bound_ms"],
+            "superleaf_runs": superleaf_rows("bvh_mxu_megakernel_spp4",
+                                             "bvh_mxu_megakernel_spp16"),
             "plain_ms": mxu_t["bvh_mxu_megakernel"]["plain_ms"],
             "shape": "bunny 640x360 spp4 d4",
             "ms_640x360_spp16_d4": mxu_t["bvh_mxu_megakernel"]["full_ms"],
@@ -2839,7 +2988,8 @@ def main() -> int:
             "cuda_bvh_ms_640x360_spp16_d4": (
                 mxu_t["bvh_mxu_megakernel"]["cuda_bvh_full_ms"]),
             "profile_640x360_spp16_d4": mxu_prof["bvh_mxu_megakernel"],
-            "checks": mxu_checks[2:] + main_mxu_checks[:2],
+            "checks": [c for e, c in mxu_checks if e == "bvh_mxu"]
+            + main_mxu_checks[:2],
         },
         {
             "name": "vpu_peak",

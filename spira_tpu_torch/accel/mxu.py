@@ -30,9 +30,16 @@ Two trees lead to the blocks: :class:`MXUBVH` (16-wide rows, the
 streaming engine reads only its blocks) and :class:`SuperleafBVH` (pair
 records, walked by the packed-BVH kernel with block leaves).  Packing is
 host-side NumPy; the tables stay on the CPU until the caller moves them.
+
+The CUDA kernels read the same coefficients lane-major
+(:class:`LaneRecords`, each tree's ``lanes``): one record of
+:data:`LANE_RECORD` floats a lane, for the real lanes of each block only,
+derived from the tables on their device once per tree object.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -45,6 +52,54 @@ from .wide import SLOT, WIDTH, _collapse16, binary_kids, host_tree, wide_slot
 SUPERLEAF = 128
 #: rows per superleaf in each coefficient table
 BLOCK_ROWS = 8
+#: floats of a lane's record: coeff_uv rows 0-5 of its det, u_num and
+#: v_num columns, coeff_t rows 0-2 and 6, then 2 zeros (six float4s)
+LANE_RECORD = 24
+
+
+@tensor_dataclass
+class LaneRecords:
+    """The real lanes of every superleaf block as lane-major records.
+
+    ``records[offsets[b] + j]`` is lane j of block b for j < ``offsets[b +
+    1] - offsets[b]``, the block's real lanes: up to its last lane with a
+    non-zero coefficient in ``coeff_uv`` or ``coeff_t``.  The lanes after it
+    are all zero (det == 0) and never hit, so a visit that skips them keeps
+    every bit.  The payload stays in ``coeff_pay``."""
+
+    records: torch.Tensor  # (n_lanes, LANE_RECORD) float32
+    offsets: torch.Tensor  # (n_blocks + 1,) int32, offsets[0] == 0
+    n_lanes: int = 0
+    max_lanes: int = 0  # the most real lanes of one block
+
+
+def lane_records(coeff_uv, coeff_t) -> LaneRecords:
+    """:class:`LaneRecords` of coefficient tables (B*8, 384) and (B*8,
+    128), on their device; values copied, never rounded."""
+    uv = coeff_uv.reshape(-1, BLOCK_ROWS, 3, SUPERLEAF)
+    tc = coeff_t.reshape(-1, BLOCK_ROWS, SUPERLEAF)
+    full = torch.zeros((uv.shape[0], SUPERLEAF, LANE_RECORD),
+                       dtype=torch.float32, device=coeff_uv.device)
+    for s in range(3):  # det, u_num, v_num: rows 0-5 of each column group
+        full[:, :, 6 * s: 6 * s + 6] = uv[:, 0:6, s].transpose(1, 2)
+    full[:, :, 18:21] = tc[:, 0:3].transpose(1, 2)
+    full[:, :, 21] = tc[:, 6]
+    nonzero = (uv != 0).any(dim=1).any(dim=1) | (tc != 0).any(dim=1)
+    lane = torch.arange(1, SUPERLEAF + 1, device=coeff_uv.device)
+    counts = torch.where(nonzero, lane, 0).amax(dim=1)
+    real = lane - 1 < counts[:, None]
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return LaneRecords(records=full[real].contiguous(),
+                       offsets=offsets.to(torch.int32),
+                       n_lanes=int(offsets[-1]),
+                       max_lanes=int(counts.max()) if counts.numel() else 0)
+
+
+def _lanes(self) -> LaneRecords:
+    """The tables' lane-major records (:func:`lane_records`), derived on
+    first use and kept with this object (a moved or replaced tree derives
+    its own)."""
+    return lane_records(self.coeff_uv, self.coeff_t)
 
 
 @tensor_dataclass
@@ -59,6 +114,8 @@ class MXUBVH:
     n_nodes: int = 0
     n_leaves: int = 0
 
+    lanes = functools.cached_property(_lanes)
+
 
 @tensor_dataclass
 class SuperleafBVH:
@@ -68,7 +125,8 @@ class SuperleafBVH:
     except that a leaf child's ``ptr`` is a block index into the
     coefficient tables (rows ``ptr*8 : ptr*8+8``) and its ``count`` is the
     cut node's triangle count (a walk only tests it ``> 0``: a block visit
-    tests all 128 lanes).
+    tests the block's lanes, all 128 in the plain version, the real ones in
+    the kernel).
     """
 
     pairs: torch.Tensor  # (P, 16) float32 pair records
@@ -79,6 +137,8 @@ class SuperleafBVH:
     n_pairs: int = 0
     n_blocks: int = 0
     depth: int = 1  # pair records on the longest root->leaf chain
+
+    lanes = functools.cached_property(_lanes)
 
 
 def _leaf_blocks(v0, e1, e2, nrm, mat):

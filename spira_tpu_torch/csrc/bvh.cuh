@@ -1,7 +1,7 @@
 // Packed-BVH nearest hit: a per-thread depth-first walk over the pair
 // records of spira_tpu_torch/accel/pairs.py, templated on its leaf visitor
 // (the leaf rows here, `RowLeaves`; the superleaf blocks of
-// superleaf.cuh, `BlockLeaves`), and the `TreeIntersect` intersector that
+// superleaf.cuh, `RecordLeaves`), and the `TreeIntersect` intersector that
 // plugs it into trace.cuh:trace_pixel (`PackedIntersect` over row leaves).
 //
 // Replaces the packet traversal of spira_tpu/kernels/bvh_megakernel.py

@@ -61,7 +61,7 @@
 
 namespace spira {
 
-// Leaves: RowLeaves<kForm> (leaf rows) or BlockLeaves (superleaf blocks).
+// Leaves: RowLeaves<kForm> (leaf rows) or RecordLeaves (superleaf blocks).
 template <class Leaves>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     bvh_megakernel(const float* __restrict__ cam_g,
@@ -239,28 +239,29 @@ extern "C" int spira_bvh_megakernel_render_counted(
 }
 
 // The same path tracer over a pair tree whose leaves are superleaf blocks
-// (accel/mxu.py:SuperleafBVH): pairs (P, 16), coeff_uv (B*8, 384), coeff_t
-// and coeff_pay (B*8, 128), float32 row-major; the rows and samples as
+// (accel/mxu.py:SuperleafBVH): pairs (P, 16); the blocks' lane records
+// (n_lanes, 24) and offsets (n_blocks + 1) of accel/mxu.py:LaneRecords;
+// coeff_pay (B*8, 128), float32 row-major; the rows and samples as
 // spira_bvh_megakernel_render takes them.
 extern "C" int spira_bvh_mxu_render(
     const float* cam, const float* spheres, int n_spheres, const float* mats,
-    int n_mats, const float* pairs, const float* coeff_uv,
-    const float* coeff_t, const float* coeff_pay, int root, float* out,
-    int width, int n_rows, int row_start, int sample_offset, int spp,
-    int max_depth, uint32_t seed, float du, float dv, float inv_spp,
-    int has_lens, void* stream) {
+    int n_mats, const float* pairs, const float* records, const int* offsets,
+    const float* coeff_pay, int root, float* out, int width, int n_rows,
+    int row_start, int sample_offset, int spp, int max_depth, uint32_t seed,
+    float du, float dv, float inv_spp, int has_lens, void* stream) {
   using namespace spira;
   const SampleSplit split = sample_split(spp);
   const unsigned blocks =
       split_blocks(split, static_cast<int64_t>(width) * n_rows);
-  bvh_megakernel<BlockLeaves><<<blocks, kSplitThreads,
-                               mesh_smem_bytes(n_spheres, n_mats),
-                               static_cast<cudaStream_t>(stream)>>>(
+  bvh_megakernel<RecordLeaves><<<blocks, kSplitThreads,
+                                mesh_smem_bytes(n_spheres, n_mats),
+                                static_cast<cudaStream_t>(stream)>>>(
       cam, spheres, n_spheres, mats, n_mats,
       reinterpret_cast<const float4*>(pairs),
-      BlockLeaves{coeff_uv, coeff_t, coeff_pay}, root, out, width, n_rows,
-      row_start, sample_offset, split, max_depth, seed, du, dv, inv_spp,
-      has_lens);
+      RecordLeaves{reinterpret_cast<const float4*>(records), offsets,
+                   coeff_pay},
+      root, out, width, n_rows, row_start, sample_offset, split, max_depth,
+      seed, du, dv, inv_spp, has_lens);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -295,6 +295,89 @@ struct WantsBounce<T, decltype(void(&T::begin_bounce))> {
   static constexpr bool value = true;
 };
 
+// A sample's path in flight: what trace_sample carries from one bounce to
+// the next.
+struct Path {
+  Vec3 o, d;           // the ray of the next bounce
+  float tr, tg, tb;    // throughput
+  float lr, lg, lb;    // radiance so far
+  uint32_t s32, base;  // the sample, its first PCG stream id
+};
+
+// Sample s's path at bounce 0: its camera ray, unit throughput, no
+// radiance.
+__device__ __forceinline__ Path start_path(const float* cam, bool has_lens,
+                                           uint32_t pixel, float row_f,
+                                           float col_f, uint32_t seed, int s,
+                                           int max_depth, float du,
+                                           float dv) {
+  Path p;
+  const uint32_t per_sample = static_cast<uint32_t>(max_depth) * kStreams + 1u;
+  p.s32 = static_cast<uint32_t>(s);
+  p.base = p.s32 * per_sample;
+  camera_ray(cam, has_lens, pixel, p.s32, p.base, seed, row_f, col_f, du, dv,
+             p.o, p.d);
+  p.tr = p.tg = p.tb = 1.0f;
+  p.lr = p.lg = p.lb = 0.0f;
+  return p;
+}
+
+// Bounce b of the path, whose nearest hit is h: on a miss the sky ends it;
+// on a hit, emission, the scattered direction, throughput and Russian
+// roulette, then the next bounce's ray.  Returns whether the path goes on
+// (its caller ends it at max_depth).
+__device__ __forceinline__ bool shade_path(Path& p, const SurfaceHit& h,
+                                           int b, uint32_t pixel,
+                                           uint32_t seed) {
+  if (!h.hit) {
+    // ---- miss: sky gradient
+    const float t_sky = 0.5f * (p.d.y + 1.0f);
+    p.lr += p.tr * (1.0f - t_sky + 0.5f * t_sky);
+    p.lg += p.tg * (1.0f - t_sky + 0.7f * t_sky);
+    p.lb += p.tb * (1.0f - t_sky + 1.0f * t_sky);
+    return false;
+  }
+  const float* m = h.mat;
+  // ---- emission
+  p.lr += p.tr * m[3];
+  p.lg += p.tg * m[4];
+  p.lb += p.tb * m[5];
+
+  Vec3 n = h.n;
+  const bool entering = dot3(p.d, n) < 0.0f;
+  if (!entering) n = {-n.x, -n.y, -n.z};
+
+  const uint32_t bounce = p.base + static_cast<uint32_t>(b) * kStreams;
+  const Uniform4 lobe = uniform4(pixel, p.s32, bounce + kSLobe, seed);
+  const Vec3 nd = scatter_dir(p.d, n, entering, m, lobe, pixel, p.s32,
+                              bounce, seed);
+
+  // ---- throughput *= albedo, then Russian roulette
+  float ntr = p.tr * m[0];
+  float ntg = p.tg * m[1];
+  float ntb = p.tb * m[2];
+  if (b > kRRStart) {
+    const float p_cont =
+        fminf(fmaxf(fmaxf(ntr, fmaxf(ntg, ntb)), 1e-6f), kRRCap);
+    if (lobe.y > p_cont) return false;
+    const float inv_p = 1.0f / p_cont;
+    ntr = ntr * inv_p;
+    ntg = ntg * inv_p;
+    ntb = ntb * inv_p;
+    if (!(fmaxf(ntr, fmaxf(ntg, ntb)) >= kCutoff)) return false;
+  }
+
+  // offset along the hemisphere the new direction leaves through
+  const float osgn = dot3(nd, n) >= 0.0f ? 1.0f : -1.0f;
+  p.o = {h.p.x + kScatterEps * osgn * n.x, h.p.y + kScatterEps * osgn * n.y,
+         h.p.z + kScatterEps * osgn * n.z};
+  p.d = nd;
+  p.tr = ntr;
+  p.tg = ntg;
+  p.tb = ntb;
+  return true;
+}
+
 // Trace sample s of one pixel; returns its radiance.  pixel: the PCG
 // counter row * width + col (row counted from the image bottom, unpadded
 // width); cam: the 20-float camera record.  A sample's PCG counters are
@@ -306,66 +389,13 @@ __device__ __forceinline__ Vec3 trace_sample(const Intersect& intersect,
                                              float col_f, uint32_t seed,
                                              int s, int max_depth, float du,
                                              float dv) {
-  const uint32_t per_sample = static_cast<uint32_t>(max_depth) * kStreams + 1u;
-  const uint32_t s32 = static_cast<uint32_t>(s);
-  const uint32_t base = s32 * per_sample;
-  Vec3 o, d;
-  camera_ray(cam, has_lens, pixel, s32, base, seed, row_f, col_f, du, dv, o,
-             d);
-
-  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-  float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+  Path p = start_path(cam, has_lens, pixel, row_f, col_f, seed, s, max_depth,
+                      du, dv);
   for (int b = 0; b < max_depth; ++b) {
     if constexpr (WantsBounce<Intersect>::value) intersect.begin_bounce(b);
-    const SurfaceHit h = intersect(o, d);
-    if (!h.hit) {
-      // ---- miss: sky gradient
-      const float t_sky = 0.5f * (d.y + 1.0f);
-      lr += tr * (1.0f - t_sky + 0.5f * t_sky);
-      lg += tg * (1.0f - t_sky + 0.7f * t_sky);
-      lb += tb * (1.0f - t_sky + 1.0f * t_sky);
-      break;
-    }
-    const float* m = h.mat;
-    // ---- emission
-    lr += tr * m[3];
-    lg += tg * m[4];
-    lb += tb * m[5];
-
-    Vec3 n = h.n;
-    const bool entering = dot3(d, n) < 0.0f;
-    if (!entering) n = {-n.x, -n.y, -n.z};
-
-    const uint32_t bounce = base + static_cast<uint32_t>(b) * kStreams;
-    const Uniform4 lobe = uniform4(pixel, s32, bounce + kSLobe, seed);
-    const Vec3 nd = scatter_dir(d, n, entering, m, lobe, pixel, s32, bounce,
-                                seed);
-
-    // ---- throughput *= albedo, then Russian roulette
-    float ntr = tr * m[0];
-    float ntg = tg * m[1];
-    float ntb = tb * m[2];
-    if (b > kRRStart) {
-      const float p_cont =
-          fminf(fmaxf(fmaxf(ntr, fmaxf(ntg, ntb)), 1e-6f), kRRCap);
-      if (lobe.y > p_cont) break;
-      const float inv_p = 1.0f / p_cont;
-      ntr = ntr * inv_p;
-      ntg = ntg * inv_p;
-      ntb = ntb * inv_p;
-      if (!(fmaxf(ntr, fmaxf(ntg, ntb)) >= kCutoff)) break;
-    }
-
-    // offset along the hemisphere the new direction leaves through
-    const float osgn = dot3(nd, n) >= 0.0f ? 1.0f : -1.0f;
-    o = {h.p.x + kScatterEps * osgn * n.x, h.p.y + kScatterEps * osgn * n.y,
-         h.p.z + kScatterEps * osgn * n.z};
-    d = nd;
-    tr = ntr;
-    tg = ntg;
-    tb = ntb;
+    if (!shade_path(p, intersect(p.o, p.d), b, pixel, seed)) break;
   }
-  return {lr, lg, lb};
+  return {p.lr, p.lg, p.lb};
 }
 
 // Trace `spp` samples of one pixel; returns the summed radiance, added in

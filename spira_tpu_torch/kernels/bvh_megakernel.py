@@ -37,9 +37,11 @@ visit hit leaves at once, nearer child first; push hit internal children
 far first, so the nearer one pops next.  Children are ordered by their
 clamped entry distance, the earlier slot winning a tie.  Leaf triangles are
 tested in slot order with a strict ``t < best_t``, so the first of equal
-hits wins in both versions.  A superleaf block tests its 128 lanes in
-order with the same strict ``t < best_t``, so the lowest lane of equal hits
-wins.
+hits wins in both versions.  A superleaf block tests its lanes in order
+with the same strict ``t < best_t``, so the lowest lane of equal hits wins:
+the kernel its real lanes as lane records
+(:class:`~spira_tpu_torch.accel.mxu.LaneRecords`), the plain version all
+128 of the packed tables, whose padding lanes never hit.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..accel.mxu import BLOCK_ROWS, SUPERLEAF, SuperleafBVH
+from ..accel.mxu import BLOCK_ROWS, LANE_RECORD, SUPERLEAF, SuperleafBVH
 from ..accel.pairs import TRI_STRIDE, TRIS_PER_ROW, check_stack_depth
 from ..accel.traverse import _winner_triangle_hit
 from ..core.vecmath import INF
@@ -197,7 +199,7 @@ def block_views(tables):
 
 
 def lane_hits(uv, tc, o, d, best):
-    """The superleaf lane test of ``csrc/superleaf.cuh:visit_block``: the
+    """The superleaf lane test of ``csrc/superleaf.cuh:lane_hit``: the
     nearest of a block's 128 lanes that beats ``best``, for each ray.
 
     uv (..., 8, 384) and tc (..., 8, 128): the block's coefficient rows
@@ -575,6 +577,22 @@ def check_block_tables(tables, device, n_blocks):
                              f"{BLOCK_ROWS} for each of {n_blocks} blocks")
 
 
+def check_lane_records(tables, device, n_blocks):
+    """The tables of ``n_blocks`` superleaf blocks (:func:`check_block_tables`)
+    and their lane records (``tables.lanes``, derived on ``device`` at
+    first use) as the kernels read them; returns the records."""
+    check_block_tables(tables, device, n_blocks)
+    lanes = tables.lanes
+    _check_aligned("superleaf lane records", lanes.records, device,
+                   LANE_RECORD)
+    off = lanes.offsets
+    if (off.device != device or off.dtype != torch.int32
+            or off.shape != (n_blocks + 1,) or not off.is_contiguous()):
+        raise ValueError(f"superleaf lane offsets must be contiguous int32 "
+                         f"({n_blocks + 1},) on {device}")
+    return lanes
+
+
 def launch_render(what, library, symbol, tree_argtypes, tree_args, scene,
                   camera, *, width, height, spp, max_depth, seed,
                   inclusive_uv, rows=None, normalize=True):
@@ -666,12 +684,12 @@ def _launch_bvh(scene, camera, *, mxu_leaf=False, rows=None, normalize=True,
         device = scene.device
         _check_aligned("superleaf pairs", tree.pairs, device, 16)
         _check_root(tree)
-        check_block_tables(tree, device, tree.n_blocks)
+        lanes = check_lane_records(tree, device, tree.n_blocks)
         out = launch_render(
             "bvh_mxu_megakernel", "bvh_megakernel", "spira_bvh_mxu_render",
-            (_VP, _VP, _VP, _VP, _I),  # pairs, coeff_uv, coeff_t, coeff_pay, root
-            (tree.pairs.data_ptr(), tree.coeff_uv.data_ptr(),
-             tree.coeff_t.data_ptr(), tree.coeff_pay.data_ptr(), tree.root),
+            (_VP, _VP, _VP, _VP, _I),  # pairs, records, offsets, pay, root
+            (tree.pairs.data_ptr(), lanes.records.data_ptr(),
+             lanes.offsets.data_ptr(), tree.coeff_pay.data_ptr(), tree.root),
             scene, camera, rows=rows or (kw["height"], 0, 0),
             normalize=normalize, **kw)
         render_flat_bvh_mxu_megakernel.launches += 1

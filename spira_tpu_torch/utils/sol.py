@@ -100,9 +100,10 @@ class Rates:
 #:   adjoint_hit  adjoint.cuh's reverse sweep of one replayed hit: the
 #:                recomputed diffuse lobe, three norm3 adjoints, the
 #:                intersection adjoint
-#:   block, lane  a superleaf block visit (superleaf.cuh:visit_block): m =
-#:                o x d, and per lane det/u/v (18 products, 15 sums), t,
-#:                1/det, 3 products, u + v, 6 compares, |det|
+#:   block, lane  a superleaf block visit (superleaf.cuh:visit_lanes): m =
+#:                o x d, and per lane tested (lane_hit) det/u/v (18
+#:                products, 15 sums), t, 1/det, 3 products, u + v, 6
+#:                compares, |det|; the kernels test a block's real lanes
 OPS = dict(
     sphere_test=dict(alu=18),
     tri_test=dict(alu=50, div=1),
@@ -133,11 +134,13 @@ def ops_of(units: dict) -> dict:
 
 def walk_units(work: dict, form: str = "bw") -> dict:
     """Units of a BVH walk's inventory (``pops``, ``leaf_tris``,
-    ``blocks``: superleaf blocks visited)."""
+    ``blocks``: superleaf blocks visited; ``lanes``: the lanes those visits
+    test, where a kernel tests only a block's real lanes, else all 128 of
+    each block)."""
     leaf = "leaf_tri" if form == "bw" else "leaf_tri_mt"
     blocks = work.get("blocks", 0)
     return {"pop": work.get("pops", 0), leaf: work.get("leaf_tris", 0),
-            "block": blocks, "lane": blocks * SUPERLEAF}
+            "block": blocks, "lane": work.get("lanes", blocks * SUPERLEAF)}
 
 
 def path_units(work: dict, samples: int, n_spheres: int, n_tris: int, *,

@@ -58,6 +58,7 @@ struct Dim3 {
 };
 Dim3 threadIdx, blockIdx, blockDim;
 inline void __syncthreads() {}
+inline bool __any_sync(unsigned, bool pred) { return pred; }
 using std::min;
 #include "mesh_render.cuh"
 #include "scene_tables.cuh"

@@ -153,6 +153,8 @@ struct Dim3 {
 };
 Dim3 threadIdx, blockIdx, blockDim;
 inline void __syncthreads() {}
+// one thread steps alone: the warp's vote is its own
+inline bool __any_sync(unsigned, bool pred) { return pred; }
 using std::min;
 #include "mesh_render.cuh"
 using namespace spira;
@@ -164,7 +166,10 @@ using namespace spira;
 // mesh_render.cuh, block by block and round by round, each (pixel,
 // sample) through trace_sample on its own thread slot, each pixel's
 // values summed by its group's first slot (fold_samples), its counts
-// summed over its samples.
+// summed over its samples; 2: kernel #7's split, at least 4 samples a
+// thread slot, each slot's samples through trace_samples (path
+// regeneration) into the block's value buffer, each pixel's values then
+// summed by its group's first slot.
 // out: float32 rgb (n, 3); int32 counts (7, n) in WalkCounts order.
 template <int kForm>
 void run(const std::vector<float>& t, const int* h, const float* f,
@@ -186,6 +191,42 @@ void run(const std::vector<float>& t, const int* h, const float* f,
   };
   const TreeIntersect<RowLeaves<kForm>> tree{sph, n_sph, mat, p4,
                                              RowLeaves<kForm>{s4}, root};
+  if (h[11] == 2) {
+    const SampleSplit split = sample_split(spp, kSplitThreads, 4);
+    const int per = split.pixels * spp;
+    std::vector<float> vals(3 * static_cast<size_t>(per));
+    for (int64_t b = 0; b < split_blocks(split, n); ++b) {
+      for (int th = 0; th < kSplitThreads; ++th) {
+        const SampleUnit u = sample_unit(split, b, th, n);
+        if (!u.live) continue;
+        const int idx = static_cast<int>(u.pixel);
+        float* v = vals.data() + (th / split.chunk) * spp;
+        WalkCounts c;
+        const CountingIntersect<RowLeaves<kForm>> it{tree, &c};
+        trace_samples(it, cam, false, static_cast<uint32_t>(idx),
+                      static_cast<float>(idx / width),
+                      static_cast<float>(idx % width),
+                      static_cast<uint32_t>(h[10]), u.j, split.chunk, spp,
+                      depth, f[0], f[1], [&](const Path& p) {
+                        v[p.s32] = p.lr;
+                        v[per + p.s32] = p.lg;
+                        v[2 * per + p.s32] = p.lb;
+                      });
+        add_counts(c, idx);
+      }
+      for (int th = 0; th < kSplitThreads; ++th) {
+        const SampleUnit u = sample_unit(split, b, th, n);
+        if (!u.live || u.j != 0) continue;
+        const float* v = vals.data() + (th / split.chunk) * spp;
+        const Vec3 acc = fold_samples(v, v + per, v + 2 * per, spp,
+                                      Vec3{0.0f, 0.0f, 0.0f});
+        rgb[3 * u.pixel] = acc.x * f[2];
+        rgb[3 * u.pixel + 1] = acc.y * f[2];
+        rgb[3 * u.pixel + 2] = acc.z * f[2];
+      }
+    }
+    return;
+  }
   if (h[11]) {
     const SampleSplit split = sample_split(spp);
     std::vector<float> buf(3 * kSplitThreads);
@@ -279,7 +320,8 @@ int main(int argc, char** argv) {
 def host_trace(tmp_path_factory):
     """The counting kernel's body as a host program: (flat rgb, {counter:
     (H*W,) int64}) for a packed scene and pinhole camera, per pixel
-    (``trace_pixel``) or through the kernels' split (``split=True``)."""
+    (``trace_pixel``), through the kernels' split (``split=True``) or
+    through kernel #7's regenerating split (``split=2``)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler (g++ or c++) on the PATH")
@@ -362,3 +404,22 @@ def test_host_split_matches_trace_pixel(host_trace, mesh, spp):
     for k in tbk.COUNTERS:
         assert torch.equal(got_counts[k], counts[k]), k
     assert counts["leaf_visits"].sum() > 0
+
+
+@pytest.mark.parametrize("spp", [1, 3, 16, 17, 130])
+def test_host_regen_split_matches_trace_pixel(host_trace, mesh, spp):
+    """Kernel #7's split (``mesh_render.cuh:render_mesh_regen``: at least
+    4 samples a thread slot, each slot tracing its samples with path
+    regeneration, ``trace_samples``, into a value buffer that each pixel's
+    group's first slot sums in sample order) against ``trace_pixel`` at
+    37x5, depth 3: the image bit for bit, and each pixel's counts equal,
+    so every sample ran trace_sample's bounces."""
+    _, (scene, cam) = mesh
+    scene = sp.attach_packed(scene, form="bw")
+    kw = dict(width=37, height=5, spp=spp, max_depth=3, seed=6)
+    rgb, counts = host_trace(scene, cam, **kw)
+    got, got_counts = host_trace(scene, cam, split=2, **kw)
+    assert torch.equal(got, rgb)
+    for k in tbk.COUNTERS:
+        assert torch.equal(got_counts[k], counts[k]), k
+    assert counts["traversals"].sum() > 37 * 5 * spp

@@ -44,7 +44,8 @@ from spira_tpu_torch.kernels import spectral_fused as sf
 from spira_tpu_torch.render import mesh_replay_launches
 from spira_tpu_torch.scene.geometry import empty_spheres
 from spira_tpu_torch.scene.obj import icosphere
-from tests.test_torch_superleaf_host import deep_tree_scene, twin_scene
+from tests.test_torch_superleaf_host import (blocks_twice, deep_tree_scene,
+                                             twin_mesh_scene, twin_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -889,6 +890,152 @@ def test_mxu_wrapper_refusals(cuda):
         xk.intersect_tile_mxu(stream.wide, o, d.cpu())
     with pytest.raises(ValueError, match="row leaves"):
         bk.intersect_tile(walk.wide, o, d)
+
+
+def _stream_tables(kind, device):
+    """Streaming tables (on ``device``) for the bit-for-bit card tests of
+    #7 and #8, and whether the test expects #7's staged route.
+
+    * ``mesh``: the 1,600-triangle mesh, 19 blocks (not a multiple of the
+      ring's stages), one of them full (128 real lanes);
+    * ``one_block``: the 80-triangle icosphere under one cut, one block;
+    * ``five_blocks``: the mesh at subdivision 1, 5 blocks;
+    * ``twins``: every triangle twice, in two lanes of one block;
+    * ``blocks_twice``: the mesh's blocks followed by a copy of each, the
+      copies' material ids raised: ties across two blocks;
+    * ``large``: the mesh at subdivision 4, 5,440 lanes, whose records do
+      not fit a block's shared memory: #7's read-only route.
+    """
+    if kind == "twins":
+        tw = twin_mesh_scene()
+        return sp.attach_mxu(tw).wide.to(device), True
+    if kind == "one_block":
+        tris = icosphere(material=0, subdivisions=1)
+        scene = sp.make_scene(triangles=tris, materials=sp.make_materials(
+            [dict(albedo=(0.7, 0.3, 0.3))], device="cpu"),
+            bvh=build_bvh_for_triangles(tris, leaf_size=4, use_native=False))
+        return sp.attach_mxu(scene).wide.to(device), True
+    sub = dict(mesh=3, five_blocks=1, blocks_twice=1, large=4)[kind]
+    tables = sp.attach_mxu(sp.create_mesh_scene(subdivisions=sub,
+                                                device="cpu")).wide
+    if kind == "blocks_twice":
+        tables = blocks_twice(tables)
+    return tables.to(device), kind != "large"
+
+
+STREAM_TABLES = ("mesh", "one_block", "five_blocks", "twins",
+                 "blocks_twice", "large")
+
+
+@pytest.mark.parametrize("kind", STREAM_TABLES)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 8193])
+def test_mxu_intersect_bits(cuda, kind, n):
+    """#8 (lane records, several rays a thread, a ring of bulk copies)
+    equal to ``intersect_mxu_plain`` to the bit on ray counts around the
+    block's rays and on every table of :func:`_stream_tables`; one launch
+    a call (none for 0 rays, which return empty)."""
+    tables, _ = _stream_tables(kind, cuda)
+    lanes = tables.lanes
+    blocks = lanes.offsets.numel() - 1
+    if kind == "mesh":
+        assert blocks == 19 and lanes.max_lanes == 128
+    if kind == "one_block":
+        assert blocks == 1
+    if kind == "five_blocks":
+        assert blocks == 5
+    o, d = _rays(max(n, 1), cuda, seed=n)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    before = xk.intersect_tile_mxu.launches
+    got = xk.intersect_tile_mxu(tables, o, d)
+    assert xk.intersect_tile_mxu.launches == before + 1
+    want = xk.intersect_mxu_plain(tables, o, d)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    if n >= 255:
+        assert int((got[0] < 1e19).sum()) > 0
+    if kind == "blocks_twice" and n:  # the copies (ids + 8) never win
+        assert int(got[2].max()) < 8
+
+
+def test_mxu_intersect_parallel_rays(cuda):
+    """Rays parallel to axis-aligned triangles (det exactly 0, or
+    |det| <= 1e-12) and rays that hit them, through #8 and its plain
+    version, equal to the bit: the parallel ones miss."""
+    tables = sp.attach_mxu(deep_tree_scene(8)).wide.to(cuda)
+    rng = np.random.default_rng(3)
+    n = 1024
+    o = np.concatenate([rng.uniform(-1.0, 1.0, (n, 2)),
+                        rng.uniform(-5.0, 0.0, (n, 1))], 1)
+    d = np.concatenate([rng.normal(size=(n, 2)), np.zeros((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[: n // 4, 2] = 1e-14  # |det| <= 1e-12 on triangles of unit area
+    d[n // 2:] = [0.0, 0.0, -1.0]  # the other half hits, from above
+    o[n // 2:] = np.concatenate([rng.uniform(-0.3, 0.3, (n // 2, 2)),
+                                 np.ones((n // 2, 1))], 1)
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (o, d))
+    got = xk.intersect_tile_mxu(tables, o, d)
+    want = xk.intersect_mxu_plain(tables, o, d)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[0][: n // 2] == 1e20).all() and (got[0][n // 2:] < 1e19).all()
+
+
+@pytest.mark.parametrize("kind", STREAM_TABLES)
+def test_mxu_render_bits_on_each_route(cuda, kind):
+    """#7 equal to ``render_flat_mxu_fused`` to the bit on a ragged frame
+    at spp 3 and depth 4, on the route its size picks (staged where the
+    records fit, the read-only route for ``large``), one launch counted on
+    that route; on the staged tables the read-only route too, to the same
+    bits."""
+    tables, staged = _stream_tables(kind, cuda)
+    scene = dataclasses.replace(sp.create_mesh_scene(subdivisions=1,
+                                                     device=cuda),
+                                wide=tables)
+    if kind == "blocks_twice":  # the copies' material ids exist
+        scene = dataclasses.replace(scene, materials=sp.make_materials(
+            [dict(albedo=(0.2 + 0.05 * k, 0.5, 0.8 - 0.05 * k))
+             for k in range(16)], device=cuda))
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=3, max_depth=4, seed=5)
+    route = "staged" if staged else "global"
+    lanes = tables.lanes
+    assert xk.choose_route(scene, lanes, lanes.offsets.numel() - 1,
+                           kw["spp"]) == route
+    before = (xk.render_flat_mxu_megakernel.launches,
+              dict(xk.render_flat_mxu_megakernel.routes))
+    got = xk.render_flat_mxu_megakernel(scene, cam, **kw)
+    assert xk.render_flat_mxu_megakernel.launches == before[0] + 1
+    assert xk.render_flat_mxu_megakernel.routes == {
+        r: before[1][r] + (r == route) for r in xk.ROUTES}
+    want = xk.render_flat_mxu_fused(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert got.std() > 1e-3
+    assert torch.equal(got, want)
+    if staged:
+        other = xk._launch_render(scene, cam, tables, "global",
+                                  inclusive_uv=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(other, want)
+
+
+@pytest.mark.parametrize("spp", [1, 3, 17])
+def test_bvh_mxu_render_bits(cuda, spp):
+    """#2b (the packed-BVH walk with superleaf leaves) equal to its plain
+    version to the bit on a ragged frame, one launch a call."""
+    walk = sp.attach_superleaf(_mesh(cuda))
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=spp, max_depth=4, seed=2)
+    before = bk.render_flat_bvh_mxu_megakernel.launches
+    got = bk.render_flat_bvh_mxu_megakernel(walk, cam, **kw)
+    assert bk.render_flat_bvh_mxu_megakernel.launches == before + 1
+    want = bk.render_flat_bvh_fused(walk, cam, mxu_leaf=True, **kw)
+    torch.cuda.synchronize()
+    assert got.std() > 1e-3
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

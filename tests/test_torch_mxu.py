@@ -282,6 +282,74 @@ def test_plain_superleaf_renders_match_row_render(mesh):
             tbk.render_flat_bvh_mxu_megakernel.launches) == before
 
 
+def _records_numpy(coeff_uv, coeff_t):
+    """The lane records and offsets of the tables, by a NumPy loop over
+    blocks and lanes: the lane's coeff_uv rows 0-5 of its det, u_num and
+    v_num columns, coeff_t rows 0-2 and 6, two zeros; a block's lanes up
+    to its last with a non-zero coefficient."""
+    uv = np.asarray(coeff_uv).reshape(-1, 8, 384)
+    tc = np.asarray(coeff_t).reshape(-1, 8, 128)
+    records, offsets = [], [0]
+    for b in range(uv.shape[0]):
+        nonzero = [j for j in range(128)
+                   if uv[b, :, j::128].any() or tc[b, :, j].any()]
+        count = nonzero[-1] + 1 if nonzero else 0
+        for j in range(count):
+            records.append(np.concatenate([
+                uv[b, 0:6, j], uv[b, 0:6, 128 + j], uv[b, 0:6, 256 + j],
+                tc[b, [0, 1, 2, 6], j], np.zeros(2, np.float32)]))
+        offsets.append(offsets[-1] + count)
+    return (np.asarray(records, np.float32).reshape(-1, 24),
+            np.asarray(offsets, np.int32))
+
+
+def _assert_lanes_match(tables, ref):
+    """``tables.lanes`` against :func:`_records_numpy` of ``ref``'s
+    tables, value for value: every record inside its block's range of
+    real lanes, and each block's lanes past that range all zero."""
+    lanes = tables.lanes
+    records, offsets = _records_numpy(ref.coeff_uv, ref.coeff_t)
+    assert lanes.records.dtype == torch.float32
+    assert lanes.offsets.dtype == torch.int32
+    np.testing.assert_array_equal(lanes.records.numpy(), records)
+    np.testing.assert_array_equal(lanes.offsets.numpy(), offsets)
+    counts = np.diff(offsets)
+    assert (counts >= 0).all() and (counts <= tmxu.SUPERLEAF).all()
+    assert lanes.n_lanes == offsets[-1] == records.shape[0]
+    assert lanes.max_lanes == counts.max()
+    uv = np.asarray(ref.coeff_uv).reshape(-1, 8, 3, 128)
+    tc = np.asarray(ref.coeff_t).reshape(-1, 8, 128)
+    for b, count in enumerate(counts):  # no record straddles a block
+        assert not uv[b, :, :, count:].any() and not tc[b, :, count:].any()
+        if count:
+            assert uv[b, :, :, count - 1].any() or tc[b, :, count - 1].any()
+
+
+@pytest.mark.parametrize("packing", ["mxu_128", "mxu_32", "superleaf_128",
+                                     "superleaf_32"])
+def test_lane_records_equal_tables(trees, packing):
+    """The lane records (``lanes``) of a port-packed tree equal the JAX
+    tables' entries, value for value, with each block's real-lane count;
+    the lanes are derived once per tree object."""
+    (jbvh, jtris), (tbvh, ttris) = trees["two_spheres"]
+    jpack, tpack, kw = PACKINGS[packing]
+    port = tpack(tbvh, ttris, **kw)
+    _assert_lanes_match(port, jpack(jbvh, jtris, **kw))
+    assert port.lanes is port.lanes
+    assert (np.diff(port.lanes.offsets.numpy()) < tmxu.SUPERLEAF).any()
+
+
+@pytest.mark.parametrize("kind", ["mxu", "superleaf"])
+def test_converted_scene_has_lane_records(kind):
+    """A scene converted from JAX's arrays (``scene_from_numpy``) derives
+    its lane records from the converted tables: equal to JAX's entries."""
+    attach = dict(mxu=jmxu.attach_mxu, superleaf=jmxu.attach_superleaf)[kind]
+    ref = attach(j_create_mesh_scene(subdivisions=1))
+    conv = sp.scene_from_numpy(jax.tree_util.tree_map(np.asarray, ref),
+                               device="cpu")
+    _assert_lanes_match(conv.wide, ref.wide)
+
+
 @pytest.mark.parametrize("kind", ["wide", "mxu", "superleaf"])
 def test_converter_carries_wide(kind):
     attach = dict(wide=jwide.attach_wide, mxu=jmxu.attach_mxu,

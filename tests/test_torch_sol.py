@@ -74,6 +74,15 @@ def test_ops_of_path_units():
         pop=0, leaf_tri_mt=0, block=2, lane=256)
 
 
+def test_walk_units_count_real_lanes():
+    """A stream that tests only a block's real lanes is priced at the
+    lanes it tests, not 128 a block: 3 blocks, 200 real lanes."""
+    units = sol.walk_units(dict(blocks=3, lanes=200))
+    assert units == dict(pop=0, leaf_tri=0, block=3, lane=200)
+    assert sol.ops_of(units)["alu"] == 3 * 9 + 200 * 50
+    assert sol.ops_of(units)["div"] == 200
+
+
 def test_every_unit_counts_known_classes():
     for unit, ops in sol.OPS.items():
         assert set(ops) <= set(sol.CLASSES), unit

@@ -1,10 +1,12 @@
 """The superleaf kernels' device code (``csrc/superleaf.cuh`` over
 ``bvh.cuh`` and ``trace.cuh``) built as plain host C++ and run ray by ray
-on the CPU, against the plain versions: the block stream of kernels #7
-and #8 against ``intersect_mxu_plain``, and the pair walk with superleaf
-blocks (#2b) or leaf rows (#2, #3) against ``intersect_packed_plain``, on
-the mesh scene and on a tree as deep as the walk's stack allows, through
-a stack accessor that records how deep the walk stacks.
+on the CPU, against the plain versions: the lane-record stream of kernels
+#7 and #8 (``stream_records`` over each block's real lanes, R rays a
+thread as #8 holds them) against ``intersect_mxu_plain``, and the pair
+walk with superleaf blocks (#2b) or leaf rows (#2, #3) against
+``intersect_packed_plain``, on the mesh scene and on a tree as deep as the
+walk's stack allows, through a stack accessor that records how deep the
+walk stacks.
 
 The headers use no intrinsics but ``__ldg``, so with ``__device__`` and
 ``__forceinline__`` defined away and ``float4``/``__ldg`` stubbed a host
@@ -14,6 +16,7 @@ winner slot equal), which the same operations in the same order give.
 Skips where no C++ compiler is installed.
 """
 
+import dataclasses
 import shutil
 import subprocess
 
@@ -47,13 +50,15 @@ inline T __ldg(const T* p) {
 #include "superleaf.cuh"
 using namespace spira;
 
-// in: int32 mode n_rays n_pairs n_blocks root; float32 origins (n, 3),
-// dirs (n, 3), pairs (P, 16), then mode 0-1: coeff_uv (B*8, 384), coeff_t
-// and coeff_pay (B*8, 128); mode 2-5: tri_rows (B, 128).  Modes: 0 the
-// block stream, 1 the pair walk over blocks, 2 and 3 over BW and MT rows,
-// 4 and 5 the same walks counting (WalkCounts, bounce 0), 6 the BW walk
-// over HostStack, 7 and 8 the BW and MT walks loading leaf triangles 4 at
-// a time (kernel #3's RowLeaves<kForm, 4>).
+// in: int32 mode n_rays n_pairs n_blocks root rays n_lanes; float32
+// origins (n, 3), dirs (n, 3), pairs (P, 16), then modes 0 and 1:
+// coeff_pay (B*8, 128), the lane records (L, 24) and int32 offsets (B + 1);
+// modes 2-8: tri_rows (B, 128).  Modes:
+// 0 the lane-record stream (`rays` rays a thread: 1, 2 or 4), 1 the pair
+// walk over blocks (RecordLeaves), 2 and 3 over BW and MT rows, 4 and 5
+// the same walks counting (WalkCounts, bounce 0), 6 the BW walk over
+// HostStack, 7 and 8 the BW and MT walks loading leaf triangles 4 at a
+// time (kernel #3's RowLeaves<kForm, 4>).
 // out: float32 t, normal (n, 3), mat id; int32 slot; modes 4-5: int32
 // pops, pushes, traversals, leaf_visits, leaf_tris, leaf_visits_primary
 // (6, n); mode 6: int32 the deepest stack (n).
@@ -69,32 +74,73 @@ struct HostStack {
   }
   int get(int i) const { return s.at(i); }
 };
+// The lane-record stream of rays i .. i + R - 1 (a ray past n tests
+// zeros, as in kernel #8), each ray's winner payload read after it.
+template <int R>
+void stream_rays(const float4* rec, const int* off, int nb,
+                 const float* cpay, const float* rays, int n, int i,
+                 TriHit* th) {
+  LaneHits<R> h;
+  for (int k = 0; k < R; ++k) {
+    Vec3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+    if (i + k < n) {
+      const float* r = rays + 3 * (i + k);
+      o = {r[0], r[1], r[2]};
+      d = {r[3 * n], r[3 * n + 1], r[3 * n + 2]};
+    }
+    h.ray[k] = lane_ray(o, d);
+    h.t[k] = kInf;
+    h.slot[k] = -1;
+  }
+  stream_records<R>(rec, off, nb, h, SharedLoad{});
+  for (int k = 0; k < R && i + k < n; ++k) {
+    th[k] = {h.t[k], {0.0f, 0.0f, 0.0f}, -1.0f, h.slot[k]};
+    if (h.slot[k] >= 0) lane_payload(cpay, h.slot[k], th[k]);
+  }
+}
+
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
-  int h[5];
-  if (fread(h, 4, 5, f) != 5) return 1;
+  int h[7];
+  if (fread(h, 4, 7, f) != 7) return 1;
   const int mode = h[0], n = h[1], n_pairs = h[2], nb = h[3], root = h[4];
-  const size_t n_tab = mode < 2 ? static_cast<size_t>(nb) * 8 * 640
-                                : static_cast<size_t>(nb) * 128;
+  const int rays_a_thread = h[5], n_lanes = h[6];
+  const bool blocks = mode < 2;
+  const size_t n_tab =
+      blocks ? static_cast<size_t>(nb) * 8 * 128 + n_lanes * 24
+             : static_cast<size_t>(nb) * 128;
   std::vector<float> rays(6 * n), pr(16 * n_pairs), tab(n_tab);
+  std::vector<int> off(blocks ? nb + 1 : 0);
   if (fread(rays.data(), 4, rays.size(), f) != rays.size() ||
       fread(pr.data(), 4, pr.size(), f) != pr.size() ||
-      fread(tab.data(), 4, tab.size(), f) != tab.size()) return 1;
+      fread(tab.data(), 4, tab.size(), f) != tab.size() ||
+      fread(off.data(), 4, off.size(), f) != off.size()) return 1;
   fclose(f);
-  const float* cuv = tab.data();
-  const float* ct = cuv + static_cast<size_t>(nb) * 8 * 384;
-  const float* cpay = ct + static_cast<size_t>(nb) * 8 * 128;
+  const float* cpay = tab.data();
+  const auto* rec = reinterpret_cast<const float4*>(
+      cpay + static_cast<size_t>(nb) * 8 * 128);
   const auto* p4 = reinterpret_cast<const float4*>(pr.data());
   const auto* s4 = reinterpret_cast<const float4*>(tab.data());
   std::vector<float> out(5 * n);
   std::vector<int> slot(n), counts(6 * n);
+  std::vector<TriHit> streamed(n);
+  for (int i = 0; mode == 0 && i < n; i += rays_a_thread) {
+    if (rays_a_thread == 1) stream_rays<1>(rec, off.data(), nb, cpay,
+                                           rays.data(), n, i, &streamed[i]);
+    if (rays_a_thread == 2) stream_rays<2>(rec, off.data(), nb, cpay,
+                                           rays.data(), n, i, &streamed[i]);
+    if (rays_a_thread == 4) stream_rays<4>(rec, off.data(), nb, cpay,
+                                           rays.data(), n, i, &streamed[i]);
+  }
   for (int i = 0; i < n; ++i) {
     const float* r = rays.data() + 3 * i;
     const Vec3 o = {r[0], r[1], r[2]};
     const Vec3 d = {r[3 * n], r[3 * n + 1], r[3 * n + 2]};
     TriHit th{kInf, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
-    if (mode == 0) stream_blocks(cuv, ct, cpay, nb, o, d, th);
-    if (mode == 1) walk_packed(p4, BlockLeaves{cuv, ct, cpay}, root, o, d, th);
+    if (mode == 0) th = streamed[i];
+    if (mode == 1) {
+      walk_packed(p4, RecordLeaves{rec, off.data(), cpay}, root, o, d, th);
+    }
     if (mode == 2) walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th);
     if (mode == 3) walk_packed(p4, RowLeaves<kFormMT>{s4}, root, o, d, th);
     WalkCounts c;
@@ -141,19 +187,25 @@ def host_walk(tmp_path_factory):
                     f"-I{_build.CSRC}", str(work / "driver.cpp"), "-o",
                     str(exe)], check=True, capture_output=True, text=True)
 
-    def run(mode, tree, origins, dirs):
+    def run(mode, tree, origins, dirs, rays=1, lanes=None):
         n = origins.shape[0]
-        rows = (torch.cat([tree.coeff_uv.reshape(-1), tree.coeff_t.reshape(-1),
-                           tree.coeff_pay.reshape(-1)]) if mode < 2
+        blocks = mode in (0, 1)
+        if lanes is None and blocks:
+            lanes = tree.lanes
+        rows = (torch.cat([tree.coeff_pay.reshape(-1),
+                           lanes.records.reshape(-1)]) if blocks
                 else tree.tri_rows.reshape(-1))
         pair_rows = (tree.pairs if mode else torch.zeros((0, 16)))
-        nb = (tree.coeff_uv.shape[0] // 8 if mode < 2
+        nb = (tree.coeff_uv.shape[0] // 8 if blocks
               else tree.tri_rows.shape[0])
         with open(work / "in.bin", "wb") as f:
             np.array([mode, n, pair_rows.shape[0], nb,
-                      tree.root if mode else 0], np.int32).tofile(f)
+                      tree.root if mode else 0, rays,
+                      lanes.n_lanes if blocks else 0], np.int32).tofile(f)
             for x in (origins, dirs, pair_rows, rows):
                 x.numpy().astype(np.float32).tofile(f)
+            if blocks:
+                lanes.offsets.numpy().astype(np.int32).tofile(f)
         subprocess.run([str(exe), str(work / "in.bin"), str(work / "out.bin")],
                        check=True)
         raw = np.fromfile(work / "out.bin", np.float32, count=5 * n)
@@ -251,7 +303,9 @@ def _assert_same(got, want):
 
 @pytest.mark.parametrize("superleaf", [128, 32])
 def test_host_block_stream_matches_plain(host_walk, scene, superleaf):
-    """Kernels #7/#8's block stream against ``stream_blocks``."""
+    """Kernels #7/#8's block stream, one ray a thread over the lane
+    records of each block's real lanes (``stream_records``), against
+    ``stream_blocks`` over the packed tables."""
     tables = mxu.pack_bvh_mxu(scene.bvh, scene.triangles, superleaf)
     o, d = _rays(512, seed=superleaf)
     best = torch.full((512,), 1e20)
@@ -263,7 +317,9 @@ def test_host_block_stream_matches_plain(host_walk, scene, superleaf):
 
 @pytest.mark.parametrize("superleaf", [128, 32])
 def test_host_superleaf_walk_matches_plain(host_walk, scene, superleaf):
-    """#2b: the pair walk with block leaves against ``packed_walk``."""
+    """#2b: the pair walk with block leaves (``RecordLeaves``: a block's
+    real lanes as lane records, the payload read once a visit) against
+    ``packed_walk`` over the packed tables."""
     tree = mxu.pack_bvh_superleaf(scene.bvh, scene.triangles, superleaf)
     o, d = _rays(512, seed=superleaf + 1)
     want = bk.intersect_packed_plain(tree, o, d, with_slot=True)
@@ -320,10 +376,10 @@ def test_host_walk_deep_tree_matches_plain(host_walk):
     assert (deepest[0] == pairs.TRAVERSAL_STACK).all()
 
 
-def twin_scene(form):
+def twin_mesh_scene():
     """An icosphere whose every triangle is there twice, in materials 0
-    and 1: every hit is a tie of two triangles at equal t, which the first
-    in slot order wins."""
+    and 1, on the CPU with its BVH: every hit is a tie of two triangles at
+    equal t, which the first in slot order wins."""
     mesh = icosphere(center=(0.0, 0.1, 0.0), radius=0.6, subdivisions=2,
                      material=0)
     v0 = mesh.v0.numpy()
@@ -334,9 +390,13 @@ def twin_scene(form):
     materials = sp.make_materials([dict(albedo=(0.7, 0.3, 0.3)),
                                    dict(albedo=(0.3, 0.3, 0.7))],
                                   device="cpu")
-    scene = sp.make_scene(triangles=tris, materials=materials,
-                          bvh=bvh.build_bvh_for_triangles(tris))
-    return sp.attach_packed(scene, form=form).packed
+    return sp.make_scene(triangles=tris, materials=materials,
+                         bvh=bvh.build_bvh_for_triangles(tris))
+
+
+def twin_scene(form):
+    """:func:`twin_mesh_scene`'s packed tables in leaf form ``form``."""
+    return sp.attach_packed(twin_mesh_scene(), form=form).packed
 
 
 @pytest.mark.parametrize("tree", ["mesh bw", "mesh mt", "twins bw",
@@ -371,3 +431,92 @@ def test_host_batched_leaf_walk_matches_plain(host_walk, scene, tree):
     if kind == "twins":  # both copies win somewhere
         assert set(want[2][want[0] < 1e19].tolist()) == {0, 1}
     _assert_same(host_walk(7 if form == "bw" else 8, packed, o, d), want)
+
+
+def blocks_twice(tables):
+    """``tables`` followed by a copy of all its blocks, the copies'
+    material ids raised by 8: every triangle in two blocks, a tie the
+    earlier block wins."""
+    pay = tables.coeff_pay.clone().view(-1, mxu.BLOCK_ROWS, mxu.SUPERLEAF)
+    pay[:, 3] = torch.where(pay[:, 3] != 0, pay[:, 3] + 8, 0.0)
+    return dataclasses.replace(
+        tables, coeff_uv=torch.cat([tables.coeff_uv, tables.coeff_uv]),
+        coeff_t=torch.cat([tables.coeff_t, tables.coeff_t]),
+        coeff_pay=torch.cat([tables.coeff_pay, pay.view(-1, mxu.SUPERLEAF)]))
+
+
+def _lane_trees(scene):
+    """Superleaf packings whose blocks are partly filled: the mesh at
+    superleaf 128 (88 of 128 lanes a block) and 32 (cut nodes of at most
+    32 triangles bin-packed); twinned triangles, whose every hit ties two
+    lanes of one block; the mesh's blocks twice (:func:`blocks_twice`),
+    ties across two blocks."""
+    twins = twin_mesh_scene()
+    tables = mxu.pack_bvh_mxu(scene.bvh, scene.triangles)
+    return {
+        "mesh": tables,
+        "mesh_32": mxu.pack_bvh_mxu(scene.bvh, scene.triangles, 32),
+        "twins": mxu.pack_bvh_mxu(twins.bvh, twins.triangles),
+        "blocks_twice": blocks_twice(tables),
+    }
+
+
+@pytest.mark.parametrize("rays", [1, 2, 4])
+@pytest.mark.parametrize("tree", ["mesh", "mesh_32", "twins",
+                                  "blocks_twice"])
+def test_host_lane_stream_matches_plain(host_walk, scene, tree, rays):
+    """The lane-record stream with 1, 2 or 4 rays a thread (#8 holds
+    several, #7 one) against ``intersect_mxu_plain``: t, normal, material
+    id and winner slot bit for bit, on a ray count that is not a multiple
+    of the rays a thread; on the twins both copies win somewhere, and of
+    blocks twice only the first: the lowest lane and the earlier block
+    decide ties as the plain version does."""
+    tables = _lane_trees(scene)[tree]
+    lanes = tables.lanes
+    counts = lanes.offsets[1:] - lanes.offsets[:-1]
+    assert (counts < mxu.SUPERLEAF).any()  # partly filled blocks
+    o, d = _rays(509, seed=21)
+    t, n, mid, slot = mk.stream_blocks(tables, o, d, torch.full((509,), 1e20))
+    assert 100 < int((t < 1e19).sum()) < 509
+    if tree == "twins":
+        assert set(mid[t < 1e19].tolist()) == {0.0, 1.0}
+    if tree == "blocks_twice":
+        assert (slot < (lanes.offsets.numel() - 1) // 2 * mxu.SUPERLEAF).all()
+    _assert_same(host_walk(0, tables, o, d, rays=rays),
+                 (t, n, mid.to(torch.int32), slot))
+
+
+def test_host_zero_lanes_never_hit(host_walk, scene):
+    """A lane whose coefficients are all zero never hits: a block of 128
+    zero lanes (forced real) misses every ray, inf and NaN rays included;
+    and a triangle zeroed inside a block (so its lane stays real) wins no
+    ray, while the stream still equals the plain version."""
+    o, d = _rays(256, seed=22)
+    o[:8] = torch.tensor([float("inf"), float("nan"), 1e30])
+    d[8:16] = torch.tensor([0.0, 0.0, 0.0])
+    zero = mxu.LaneRecords(records=torch.zeros((mxu.SUPERLEAF,
+                                                mxu.LANE_RECORD)),
+                           offsets=torch.tensor([0, mxu.SUPERLEAF],
+                                                dtype=torch.int32),
+                           n_lanes=mxu.SUPERLEAF, max_lanes=mxu.SUPERLEAF)
+    one = mxu.pack_bvh_mxu(scene.bvh, scene.triangles)
+    one = dataclasses.replace(one, coeff_uv=one.coeff_uv[:8],
+                              coeff_t=one.coeff_t[:8],
+                              coeff_pay=one.coeff_pay[:8])
+    for rays in (1, 4):
+        t, n, mid, slot = host_walk(0, one, o, d, rays=rays, lanes=zero)
+        assert (t == 1e20).all() and (slot == -1).all() and (mid == -1).all()
+    tables = mxu.pack_bvh_mxu(scene.bvh, scene.triangles)
+    o, d = _rays(512, seed=23)
+    _, _, _, slot = mk.stream_blocks(tables, o, d, torch.full((512,), 1e20))
+    lane = int(torch.mode(slot[slot >= 0]).values)  # the most hit lane
+    b, j = divmod(lane, mxu.SUPERLEAF)
+    uv, tc = tables.coeff_uv.clone(), tables.coeff_t.clone()
+    uv[8 * b: 8 * b + 8, j::mxu.SUPERLEAF] = 0.0
+    tc[8 * b: 8 * b + 8, j] = 0.0
+    cut = dataclasses.replace(tables, coeff_uv=uv, coeff_t=tc)
+    assert torch.equal(cut.lanes.offsets, tables.lanes.offsets)
+    want = mk.stream_blocks(cut, o, d, torch.full((512,), 1e20))
+    assert not (want[3] == lane).any()
+    got = host_walk(0, cut, o, d, rays=2)
+    _assert_same(got, (want[0], want[1], want[2].to(torch.int32), want[3]))
