@@ -121,6 +121,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    bytes and the gather's and all-reduces' times; each rank's sharded
    calls count as main paths, and join the kernels line under the kernel
    they launch (``sharded_paths``);
+3d. the bunny over an SBVH (``accel/bvh.py:build_sbvh_for_triangles`` at
+   the bunny's leaf size 8: spatial splits duplicate references, so
+   ``prim_idx`` is longer than the triangle count), packed: its build
+   seconds, references a triangle and node count; #2 at 640x360 spp16 d4
+   and #5 at spp 4 equal to their plain versions to the bit, and #2 within
+   the image tolerances of the SAH tree's frame; #3 on the bunny's primary
+   rays equal to its plain walk to the bit, and there and on
+   ``render_flat``'s four recorded calls of a sample the SAH tree's hit
+   set and material ids, t within ``SBVH_T_RTOL``; ``render`` (RGB and
+   spectral, one #2 or #5 launch) and ``render_flat`` (#3 a bounce) over
+   it with the counts set to 0 just before and read just after; #2's
+   counted walk on both trees, and #2, #3 and #5 timed over both trees on
+   the same calls (``[sbvh]`` lines);
+3e. the examples (``spira_tpu_torch/examples``), each through its
+   ``__main__`` with the JAX script's arguments (the inverse loop at
+   ``EXAMPLE_STEPS`` steps) and the counts set to 0 just before and read
+   just after: its image read back (shape, not constant) or its printed
+   losses (finite), its kernel launched, and a reduced frame of its scene
+   through the kernel within 0.5% of the plain version's channel means;
+   ``distributed_render`` as two ranks on this card (gloo), its gathered
+   PNG read back; ``[examples]`` lines with each one's wall seconds;
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card
@@ -1498,6 +1519,333 @@ def sharded_phase(sp, bk, scenes, main_runs, work_dir):
     return paths, checks
 
 
+#: the SBVH's nearest hits against the SAH tree's on the same rays: the
+#: hit sets and material ids equal; t within SBVH_T_RTOL, where the hit is
+#: another duplicate of the same triangle, or another triangle of an edge
+#: two triangles tie on (the walks visit them in another order)
+SBVH_T_RTOL = 1e-6
+#: the bunny's leaf size (scene/bunny.py: create_bunny_scene)
+SBVH_LEAF = 8
+
+
+def compare_hits(name, got, ref):
+    """#3's outputs over the SBVH against the SAH tree's on the same rays
+    (t, normal, mat id, slot each): the hit set and material ids equal, t
+    within SBVH_T_RTOL; the share whose slot names the same triangle."""
+    hit, s_hit = ref[0] < 1e19, got[0] < 1e19
+    same_set = torch.equal(hit, s_hit)
+    same_mid = torch.equal(got[2], ref[2])
+    t_rel = (float(((got[0] - ref[0]).abs() / ref[0].abs())[hit].max())
+             if hit.any() else 0.0)
+    log(f"[sbvh] {name}: {got[0].shape[0]} rays, {int(hit.sum())} hits; "
+        f"hit set equal to the SAH tree's {same_set}, mat ids equal "
+        f"{same_mid}, t max rel {t_rel:.3e} (limit {SBVH_T_RTOL:g})")
+    if not (same_set and same_mid and t_rel <= SBVH_T_RTOL):
+        raise AssertionError(f"{name}: the SBVH's nearest hits differ from "
+                             "the SAH tree's")
+    return dict(case=name, rays=got[0].shape[0], hits=int(hit.sum()),
+                t_max_rel=t_rel, max_abs_err=float(
+                    (got[0] - ref[0]).abs()[hit].max()) if hit.any() else 0.0)
+
+
+def sbvh_phase(sp, bk, sb, card, bunny, bunny_cam, rays, bounce_calls,
+               main_runs):
+    """Phase 3d: the 72,960-triangle bunny over an SBVH (spatial splits,
+    duplicated references) at the bunny's leaf size, packed: #2 at MAIN
+    and #5 at BVH_TIMED bit-equal to their plain versions, #3 on the
+    primary rays and on render_flat's four recorded calls of a sample
+    against the SAH tree's nearest hits, the SBVH's renders through
+    ``render`` and ``render_flat``, the walk's counted work, and #2, #3
+    and #5 timed beside the SAH tree on the same calls (``[sbvh]``
+    lines).  Returns the checks and times by kernel."""
+    from spira_tpu_torch.accel.bvh import build_sbvh_for_triangles
+    from spira_tpu_torch.bench.timing import cuda_ms as time_ms
+
+    device = bunny.packed.pairs.device
+    host = bunny.to("cpu")
+    n = host.triangles.count
+    t0 = time.perf_counter()
+    tree = build_sbvh_for_triangles(host.triangles, leaf_size=SBVH_LEAF)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = sp.attach_packed(dataclasses.replace(host, bvh=tree,
+                                                 packed=None)).to(device)
+    t_pack = time.perf_counter() - t0
+    refs = tree.prim_idx.shape[0]
+    log(f"[sbvh] {card}: bunny {n} triangles, SBVH leaf {SBVH_LEAF}: build "
+        f"{t_build:.3f} s, pack {t_pack:.3f} s; references {refs} "
+        f"(len(prim_idx)/n {refs / n:.4f}), nodes {tree.node_count} (SAH "
+        f"two-level tree {bunny.bvh.node_count}), max leaf {tree.max_leaf}, "
+        f"pair records {scene.packed.n_pairs} (SAH "
+        f"{bunny.packed.n_pairs}), tri rows {scene.packed.n_rows} (SAH "
+        f"{bunny.packed.n_rows}), depth {scene.packed.depth} (SAH "
+        f"{bunny.packed.depth})")
+    if refs <= n or not set(tree.prim_idx.tolist()) == set(range(n)):
+        raise AssertionError("the SBVH duplicated no reference or lost a "
+                             "triangle")
+    checks = {}
+    # #2 and #5 against their plain versions, to the bit
+    kernel = bk.render_flat_bvh_megakernel(scene, bunny_cam, **MAIN)
+    plain = bk.render_flat_bvh_fused(scene, bunny_cam, **MAIN)
+    torch.cuda.synchronize()
+    checks["bvh_megakernel"] = [check_images(
+        f"#2 over the SBVH bunny {MAIN_SHAPE}", kernel, plain, BVH_TOL,
+        exact=True)]
+    checks["bvh_megakernel"].append(check_images(
+        f"#2 over the SBVH bunny against the SAH tree {MAIN_SHAPE}", kernel,
+        bk.render_flat_bvh_megakernel(bunny, bunny_cam, **MAIN), BVH_TOL))
+    kernel = sb.render_flat_spectral_bvh_megakernel(scene, bunny_cam,
+                                                    **BVH_TIMED)
+    plain = sb.render_flat_spectral_bvh_fused(scene, bunny_cam, **BVH_TIMED)
+    torch.cuda.synchronize()
+    checks["spectral_bvh_megakernel"] = [check_images(
+        "#5 over the SBVH bunny 640x360 spp4 d4", kernel, plain, BVH_TOL,
+        exact=True)]
+    # #3: its plain version to the bit, and the SAH tree's hits
+    o, d = rays["primary"]
+    got = bk.intersect_tile(scene.packed, o, d, with_slot=True)
+    want = bk.intersect_packed_plain(scene.packed, o, d, None, True)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"[sbvh] #3 over the SBVH on the bunny's primary rays: t, normal, "
+        f"mat id, slot bit-equal to the plain walk: {equal} (required)")
+    if not equal:
+        raise AssertionError("#3 over the SBVH disagrees with its plain walk")
+    checks["bvh_intersect"] = [compare_hits(
+        "#3 over the SBVH, primary rays", got, bk.intersect_tile(
+            bunny.packed, o, d, with_slot=True))]
+    for bounce, (o_, d_, a_, ref) in enumerate(bounce_calls):
+        checks["bvh_intersect"].append(compare_hits(
+            f"#3 over the SBVH, render_flat's bounce {bounce} (sample 0)",
+            bk.intersect_tile(scene.packed, o_, d_, active=a_,
+                              with_slot=True), ref))
+    # the entry points over the SBVH, counts set to 0 just before each
+    w, h = MAIN["width"], MAIN["height"]
+    for what, kernel_name, fn in (
+            ("render auto: SBVH bunny", "bvh_megakernel",
+             lambda: sp.render(scene, bunny_cam, w, h,
+                               samples_per_pixel=MAIN["spp"],
+                               max_depth=MAIN["max_depth"])),
+            ("render auto: spectral SBVH bunny", "spectral_bvh_megakernel",
+             lambda: sp.render(scene, bunny_cam, w, h, spectral=True,
+                               samples_per_pixel=MAIN["spp"],
+                               max_depth=MAIN["max_depth"])),
+            ("render_flat: SBVH bunny", "bvh_intersect",
+             lambda: sp.render_flat(scene, bunny_cam, **MAIN))):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got_counts = counts()
+        main_runs[what] = got_counts
+        want = dict.fromkeys(got_counts, 0)
+        want[kernel_name] = (MAIN["spp"] * MAIN["max_depth"]
+                             if kernel_name == "bvh_intersect" else 1)
+        finite = bool(np.isfinite(np.asarray(out.cpu() if torch.is_tensor(
+            out) else out, dtype=np.float64)).all())
+        log(f"[sbvh] {what} {MAIN_SHAPE}: shape {tuple(out.shape)}, finite "
+            f"{finite}, launches {got_counts}")
+        if got_counts != want or not finite:
+            raise AssertionError(f"{what}: launches {got_counts}, not {want}")
+    # the walk's counted work on both trees, then the times on one call
+    _, ctr = bk.render_bvh_with_counters(scene, bunny_cam, **MAIN)
+    _, ctr_sah = bk.render_bvh_with_counters(bunny, bunny_cam, **MAIN)
+    log(f"[sbvh] {card}: #2's counted walk {MAIN_SHAPE} over the SBVH "
+        f"{ctr}; over the SAH tree {ctr_sah}")
+    times = {}
+    for name, fn, shape in (
+            ("bvh_megakernel", bk.render_flat_bvh_megakernel, MAIN),
+            ("spectral_bvh_megakernel",
+             sb.render_flat_spectral_bvh_megakernel, MAIN)):
+        times[name] = dict(
+            sbvh_ms=time_ms(lambda fn=fn: fn(scene, bunny_cam, **shape)),
+            sah_ms=time_ms(lambda fn=fn: fn(bunny, bunny_cam, **shape)))
+    times["bvh_intersect"] = dict(
+        sbvh_ms=time_ms(lambda: bk.intersect_tile(scene.packed, o, d)),
+        sah_ms=time_ms(lambda: bk.intersect_tile(bunny.packed, o, d)),
+        sbvh_bounces_ms=sum(time_ms(
+            lambda c=c: bk.intersect_tile(scene.packed, c[0], c[1],
+                                          active=c[2], with_slot=True))
+            for c in bounce_calls),
+        sah_bounces_ms=sum(time_ms(
+            lambda c=c: bk.intersect_tile(bunny.packed, c[0], c[1],
+                                          active=c[2], with_slot=True))
+            for c in bounce_calls))
+    for name, t in times.items():
+        log(f"[sbvh] {card}: {name} over the SBVH bunny "
+            + ("primary rays 640x360" if name == "bvh_intersect"
+               else MAIN_SHAPE)
+            + f": {t['sbvh_ms']:.4f} ms, over the SAH tree on the same call "
+            f"{t['sah_ms']:.4f} ms"
+            + (f"; render_flat's four calls of a sample "
+               f"{t['sbvh_bounces_ms']:.4f} ms against "
+               f"{t['sah_bounces_ms']:.4f}" if name == "bvh_intersect"
+               else ""))
+    if not all(math.isfinite(x) for t in times.values() for x in t.values()):
+        raise AssertionError("SBVH timing failed")
+    summary = dict(build_s=t_build, pack_s=t_pack, refs_per_triangle=refs / n,
+                   nodes=tree.node_count, sah_nodes=bunny.bvh.node_count,
+                   counters=ctr, sah_counters=ctr_sah)
+    return {k: dict(checks=checks[k], times=times[k], **summary)
+            for k in checks}
+
+
+#: the examples the examples phase runs through their __main__, with the
+#: JAX scripts' arguments (the inverse loop at EXAMPLE_STEPS steps), each
+#: with the image it writes ((height, width) or None) and the kernel its
+#: main path launches (None: the wavefront's plain PyTorch, no kernel)
+EXAMPLE_STEPS = 10
+EXAMPLES = (
+    ("basic_render", ["{out}/basic_render.png"], (360, 640), "megakernel"),
+    ("dof_render", ["{out}/dof_render.png"], (360, 640), "megakernel"),
+    ("cornell_spectral", ["{out}/cornell.png"], (512, 512),
+     "spectral_megakernel"),
+    ("mesh_bvh", ["{root}/assets/trefoil.obj", "{out}/mesh_render.png"],
+     (360, 640), "bvh_megakernel"),
+    ("adaptive_render", ["{out}/adaptive.png", "0.05"], (360, 640), None),
+    ("inverse_rendering", [str(EXAMPLE_STEPS)], None, None),
+)
+#: a kernel example's reduced frame against its plain version: channel
+#: means within EXAMPLE_MEAN_REL
+EXAMPLE_REDUCED = dict(width=160, height=90, spp=4)
+EXAMPLE_MEAN_REL = 0.005
+
+
+def example_reduced(sp, name):
+    """The example's scene at EXAMPLE_REDUCED through its kernel and its
+    plain version: (kernel flat, plain flat)."""
+    import importlib
+
+    from spira_tpu_torch.kernels import bvh_megakernel as bk
+    from spira_tpu_torch.kernels import megakernel as mk
+    from spira_tpu_torch.kernels import spectral_fused as sf
+
+    mod = importlib.import_module(f"spira_tpu_torch.examples.{name}")
+    w, h = EXAMPLE_REDUCED["width"], EXAMPLE_REDUCED["height"]
+    kw = dict(EXAMPLE_REDUCED, max_depth=4, seed=0)
+    if name == "mesh_bvh":
+        root = os.path.dirname(os.path.abspath(__file__))
+        scene, cam = mod.scene_and_camera(
+            w / h, os.path.join(root, "assets", "trefoil.obj"), "cuda")
+        pair = bk.render_flat_bvh_megakernel, bk.render_flat_bvh_fused
+    else:
+        scene, cam = mod.scene_and_camera(w / h, "cuda")
+        pair = ((sf.render_flat_spectral_megakernel,
+                 sf.render_flat_fused_spectral) if name == "cornell_spectral"
+                else (mk.render_flat_megakernel, mk.render_flat_fused))
+    if name == "cornell_spectral":
+        kw["max_depth"] = 6
+    return tuple(fn(scene, cam, **kw) for fn in pair)
+
+
+def examples_phase(sp, card, out_dir, main_runs):
+    """Phase 3e: each example of ``spira_tpu_torch.examples`` through its
+    ``__main__`` at the JAX script's sizes (``runpy``, the script's argv),
+    the launch counts set to 0 just before and read just after; its image
+    read back (finite, of its shape, not constant) or the inverse loop's
+    printed losses (finite); a kernel example's reduced frame against its
+    plain version; then ``distributed_render`` as 2 ranks on this card
+    (gloo).  ``[examples]`` lines with each one's wall seconds.  Returns
+    the paths by kernel."""
+    import contextlib
+    import io
+    import runpy
+
+    from spira_tpu_torch.io import image as img_io
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = {}
+    for name, argv, shape, kernel in EXAMPLES:
+        argv = [a.format(out=out_dir, root=root) for a in argv]
+        module = f"spira_tpu_torch.examples.{name}"
+        saved, buf = sys.argv, io.StringIO()
+        sys.argv = [module] + argv
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module(module, run_name="__main__",
+                                 alter_sys=True)
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = saved
+        wall = time.perf_counter() - t0
+        got = counts()
+        main_runs[f"example {name}"] = got
+        text = buf.getvalue()
+        if shape is not None:
+            img = img_io.load_png(argv[-2] if name == "adaptive_render"
+                                  else argv[-1])
+            ok = img.shape == (*shape, 3) and img.std() > 0
+            what = f"image {img.shape}, mean {img.mean():.4f}"
+        else:  # the inverse loop: the losses it printed every 10 steps
+            losses = [float(line.split()[3]) for line in text.splitlines()
+                      if line.startswith("step ")]
+            ok = (len(losses) == -(-EXAMPLE_STEPS // 10)
+                  and all(math.isfinite(x) for x in losses)
+                  and "recovered albedo" in text)
+            what = f"losses every 10 steps {losses}"
+        reduced = ""
+        if kernel is not None:
+            ok = ok and got[kernel] >= 1
+            k_flat, p_flat = example_reduced(sp, name)
+            rel = float(((k_flat.mean(0) / p_flat.mean(0)) - 1).abs().max())
+            reduced = (f"; reduced frame {EXAMPLE_REDUCED}: channel means "
+                       f"within {rel:.2e} of the plain version's (limit "
+                       f"{EXAMPLE_MEAN_REL})")
+            ok = ok and rel <= EXAMPLE_MEAN_REL and bool(
+                torch.isfinite(k_flat).all())
+            paths.setdefault(kernel, {})[f"example {name}"] = got[kernel]
+        log(f"[examples] {card}: {name} {' '.join(argv)}: {wall:.2f} s wall"
+            f" (in this process); {what}; launches "
+            f"{ {k: v for k, v in got.items() if v} }{reduced}; printed "
+            f"{text.strip().splitlines()[0] if text.strip() else ''!r}")
+        if not ok:
+            raise AssertionError(f"example {name} failed its checks:\n{text}")
+    # distributed_render: two ranks on this card, gloo (NCCL refuses two
+    # ranks on one card), each a process from its __main__
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        logs.append(open(os.path.join(out_dir, f"distributed{rank}.log"),
+                         "w+"))
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), PYTHONPATH=root)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "spira_tpu_torch.examples.distributed_render", "--backend",
+             "gloo"], cwd=out_dir, env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=WORLD_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    text = []
+    for f in logs:
+        f.seek(0)
+        text.append(f.read())
+        f.close()
+    png = os.path.join(out_dir, "distributed_render.png")
+    ok = (all(p.returncode == 0 for p in procs) and os.path.exists(png))
+    img = img_io.load_png(png) if ok else None
+    ok = ok and img.shape == (320, 640, 3) and img.std() > 0
+    log(f"[examples] {card}: distributed_render --backend gloo, 2 ranks on "
+        f"one card: {wall:.2f} s wall (2 processes, their imports "
+        f"included); exit codes {[p.returncode for p in procs]}; image "
+        f"{None if img is None else img.shape}; rank 0 printed "
+        f"{text[0].strip().splitlines()[-2:]!r}")
+    if not ok:
+        raise AssertionError("distributed_render failed:\n" + "\n".join(
+            t[-3000:] for t in text))
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save", help="also write the main paths' PNGs "
@@ -2119,6 +2467,19 @@ def main() -> int:
         sharded_paths, offset_checks = sharded_phase(sp, bk, scenes,
                                                      main_runs, tmp)
     log(f"[sharded] phase 3c: {time.perf_counter() - t_shard:.1f} s")
+
+    # ---- 3d. the bunny over an SBVH: #2, #3 and #5 over spatial splits
+    t_sbvh = time.perf_counter()
+    sbvh = sbvh_phase(sp, bk, sb, card, bunny, bunny_cam, rays, bounce_calls,
+                      main_runs)
+    log(f"[sbvh] phase 3d: {time.perf_counter() - t_sbvh:.1f} s")
+
+    # ---- 3e. the examples through their __main__
+    t_examples = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        examples_paths = examples_phase(sp, card, args.save or tmp,
+                                        main_runs)
+    log(f"[examples] phase 3e: {time.perf_counter() - t_examples:.1f} s")
 
     # ---- 4. timing
     def mrays(shape, ms):
@@ -3037,6 +3398,11 @@ def main() -> int:
     for k in kernels:
         k["cli_paths"] = cli_paths.get(k["name"], {})
         k["sharded_paths"] = sharded_paths.get(k["name"], {})
+        k["examples_paths"] = examples_paths.get(k["name"], {})
+        if k["name"] in sbvh:
+            k["sbvh"] = {key: v for key, v in sbvh[k["name"]].items()
+                         if key != "checks"}
+            k["checks"] = k["checks"] + sbvh[k["name"]]["checks"]
         if k["name"] in offset_checks:
             k["checks"] = k["checks"] + [offset_checks[k["name"]]]
         k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])

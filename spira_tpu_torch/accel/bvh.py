@@ -19,6 +19,7 @@ The tables are CPU tensors; :class:`FlatBVH` moves with ``.to(device)``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -183,6 +184,32 @@ def build_bvh_for_triangles(tris, leaf_size: int = LEAF_SIZE,
     tables store leaves in; 0 restores the per-primitive SAH."""
     lo, hi = triangle_bounds(tris)
     return _build_one(lo, hi, leaf_size, use_native, row_size)
+
+
+def build_sbvh_for_triangles(tris, leaf_size: int = LEAF_SIZE,
+                             alpha: float = 1e-5,
+                             max_ref_factor: float = 1.8) -> FlatBVH:
+    """SBVH (spatial-split) build over a triangle soup, the references
+    clipped as polygons from the vertices ``v0``, ``v0 + e1``, ``v0 + e2``;
+    it needs the native library, and falls back to the plain SAH builder
+    with a note in the log where that is missing.  Spatial splits
+    duplicate straddling references, so ``prim_idx`` may be longer than
+    the triangle count and repeat entries; every consumer of the tree
+    (the packers, the walks, the NumPy oracle) takes that, since testing a
+    triangle twice cannot change a nearest hit."""
+    lo, hi = triangle_bounds(tris)
+    from .native import build_sbvh_native
+
+    v0 = tris.v0.detach().cpu().numpy().astype(np.float32)
+    v1 = v0 + tris.e1.detach().cpu().numpy().astype(np.float32)
+    v2 = v0 + tris.e2.detach().cpu().numpy().astype(np.float32)
+    try:
+        return build_sbvh_native(lo, hi, v0, v1, v2, leaf_size=leaf_size,
+                                 alpha=alpha, max_ref_factor=max_ref_factor)
+    except RuntimeError:
+        logging.getLogger(__name__).info(
+            "native SBVH unavailable; using the plain SAH builder")
+        return build_bvh_for_triangles(tris, leaf_size)
 
 
 def build_two_level(mesh_triangle_list, leaf_size: int = LEAF_SIZE,

@@ -75,22 +75,23 @@ def step(sp, scene, cam, target, albedo, seed, grad_spp, shape=SHAPE):
 def kernels_ms(fn, runs=5):
     """Time on the card by kernel name, ms per ``fn()`` call, over
     ``runs`` calls after a warm-up (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from spira_tpu_torch.bench import timing
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with timing.profile_window([ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.split(r"[<(]", e.name.replace(
-                "(anonymous namespace)::", "").removeprefix("void "))[0]
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / runs / 1e3)
+    for e in timing.device_events(prof):
+        name = re.split(r"[<(]", e.name.replace(
+            "(anonymous namespace)::", "").removeprefix("void "))[0]
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.time_range.elapsed_us() / runs / 1e3)
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 

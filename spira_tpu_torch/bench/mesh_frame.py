@@ -115,28 +115,31 @@ def profile_call(fn, runs=5):
     synchronisation), the device operations a call by kind, the host's
     CUDA runtime calls a call, and the grid of each of the repo's kernels
     from the trace."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from spira_tpu_torch.bench import timing
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with timing.profile_window([ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / runs
     by_name, launches, ops, runtime = {}, {}, {}, {}
+    for e in timing.device_events(prof):
+        name = _kernel_name(e.name)
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.time_range.elapsed_us() / runs / 1e3)
+        launches[name] = launches.get(name, 0) + 1 / runs
+        kind = ("memcpy" if name.startswith("Memcpy") else "memset"
+                if name.startswith("Memset") else "kernel")
+        ops[kind] = ops.get(kind, 0) + 1 / runs
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = _kernel_name(e.name)
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / runs / 1e3)
-            launches[name] = launches.get(name, 0) + 1 / runs
-            kind = ("memcpy" if name.startswith("Memcpy") else "memset"
-                    if name.startswith("Memset") else "kernel")
-            ops[kind] = ops.get(kind, 0) + 1 / runs
-        elif e.name.startswith("cuda"):
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                and e.name.startswith("cuda")):
             runtime[e.name] = runtime.get(e.name, 0) + 1 / runs
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")

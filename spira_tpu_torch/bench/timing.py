@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -27,6 +28,38 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+#: the spin kernel (``torch.cuda._sleep``, about 0.5 ms) that opens each
+#: profiled window, and the name it has in a trace
+LEAD_SPIN_CYCLES = 1_000_000
+LEAD_KERNEL = "spin_kernel"
+
+
+@contextlib.contextmanager
+def profile_window(activities=None):
+    """``torch.profiler`` over a window that opens with a throwaway spin
+    kernel.  Once a process has traced a long stream of kernels, a later
+    session loses the record of the first kernel it sees (held by
+    ``tests/test_torch_cuda.py::test_frame_ops_counted_alike_after_a_long_trace``);
+    the spin kernel takes that loss, so the measured calls after it keep
+    every record whatever this process traced before.  Read
+    the records with :func:`device_events`, which leaves the spin kernel
+    out.  ``activities`` defaults to the card's alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(LEAD_SPIN_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_events(prof):
+    """The device records (kernels, copies, sets) of a finished
+    :func:`profile_window`, its opening spin kernel left out."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and LEAD_KERNEL not in e.name]
 
 
 def card_line() -> str:

@@ -1,13 +1,15 @@
-"""One rank of the multi-process tests in ``tests/test_torch_sharded.py``.
+"""One rank of the multi-process tests in ``tests/test_torch_sharded.py``
+(and of ``tests/test_torch_examples.py``).
 
     python tests/_torch_sharded_worker.py JOB RANK WORLD DIR
 
 Joins a gloo world of WORLD ranks through a ``FileStore`` in DIR (a
 collective waits at most ``TIMEOUT``), reads the inputs the test wrote to
 ``DIR/inputs.pt``, runs JOB on the CPU and writes what it measured to
-``DIR/out<RANK>.pt``.  It imports neither JAX nor the JAX package: they
-are blocked before anything is imported.  An exception exits non-zero,
-which fails the test.
+``DIR/out<RANK>.pt``; the ``example`` job runs
+``spira_tpu_torch.examples.distributed_render`` there.  It imports
+neither JAX nor the JAX package: they are blocked before anything is
+imported.  An exception exits non-zero, which fails the test.
 """
 
 import datetime
@@ -133,7 +135,19 @@ def world2(inp, rank, out_dir):
     return dict(img=img, flat=gather_image(tile, mesh))
 
 
-JOBS = dict(world4=world4, world2=world2)
+def example(inp, rank, out_dir):
+    """``spira_tpu_torch.examples.distributed_render`` in this world (its
+    ``initialize`` finds the group up): the gathered frame, the mesh and
+    the PNG rank 0 wrote."""
+    from spira_tpu_torch.examples import distributed_render
+
+    out = os.path.join(out_dir, "distributed_render.png")
+    img, mesh = distributed_render.run(out, device="cpu", log=lambda *a: None,
+                                       **inp["example"])
+    return dict(img=img, shape=mesh.shape, wrote=os.path.exists(out))
+
+
+JOBS = dict(world4=world4, world2=world2, example=example)
 
 
 def main() -> int:

@@ -22,6 +22,7 @@ from spira_tpu_torch.accel import pairs as tpairs
 from spira_tpu_torch.scene import bunny as tbunny
 from spira_tpu_torch.scene import obj as tobj
 from spira_tpu_torch.scene.geometry import triangle_bounds
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -20,6 +20,7 @@ from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
 from spira_tpu_torch.kernels import bvh_megakernel as tbk
 from spira_tpu_torch.kernels import megakernel as tmk
 from spira_tpu_torch.scene.obj import icosphere
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -21,6 +21,7 @@ import spira_tpu_torch as sp
 from spira_tpu_torch import cli
 from spira_tpu_torch.io import image as img_io
 from spira_tpu_torch.utils import checkpoint as ckpt
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

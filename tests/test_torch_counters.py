@@ -31,6 +31,7 @@ from spira_tpu_torch import _build
 from spira_tpu_torch.accel import mxu
 from spira_tpu_torch.kernels import bvh_megakernel as tbk
 from spira_tpu_torch.kernels import megakernel as tmk
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

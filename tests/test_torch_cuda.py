@@ -34,7 +34,8 @@ import spira_tpu_torch as sp
 from spira_tpu_torch.accel import pairs
 from spira_tpu_torch.bench import packet_profile as pp
 from spira_tpu_torch.bench import vpu_peak as vp
-from spira_tpu_torch.accel.bvh import build_bvh_for_triangles
+from spira_tpu_torch.accel.bvh import (build_bvh_for_triangles,
+                                        build_sbvh_for_triangles)
 from spira_tpu_torch.kernels import bvh_megakernel as bk
 from spira_tpu_torch.kernels import grad_megakernel as gk
 from spira_tpu_torch.kernels import megakernel as mk
@@ -442,6 +443,66 @@ def test_mesh_tracer_deep_tree_bit_equal_to_plain(cuda, tracer):
         assert torch.equal(a, b)
 
 
+def _sbvh_mesh(device, form="bw"):
+    """The mesh scene (two icospheres, a mirror) with its two-level SAH
+    tree, and the same scene over an SBVH of its triangles (references
+    duplicated by spatial splits), both packed, on ``device``."""
+    scene = sp.create_mesh_scene(subdivisions=2, device="cpu")
+    sbvh = build_sbvh_for_triangles(scene.triangles, leaf_size=4)
+    assert sbvh.prim_idx.shape[0] > scene.triangles.count
+    return (sp.attach_packed(scene, form=form).to(device),
+            sp.attach_packed(dataclasses.replace(scene, bvh=sbvh),
+                             form=form).to(device))
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+@pytest.mark.parametrize("tracer", sorted(MESH_TRACERS))
+def test_mesh_tracer_over_sbvh_bit_equal_to_plain(cuda, tracer, form):
+    """#2 and #5 over an SBVH at 37x23, spp 3, depth 4: one launch, equal
+    to the plain version to the bit, and over the same triangles' SAH
+    tree within the image tolerance of the kernel tests (the walks find
+    the same triangles in another order)."""
+    kernel_fn, plain_fn = MESH_TRACERS[tracer]
+    sah, sbvh = _sbvh_mesh(cuda, form)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=3, max_depth=4, seed=9)
+    before = kernel_fn.launches
+    kernel = kernel_fn(sbvh, cam, **kw)
+    assert kernel_fn.launches == before + 1
+    plain = plain_fn(sbvh, cam, **kw)
+    torch.cuda.synchronize()
+    assert kernel.shape == (37 * 23, 3) and kernel.std() > 1e-3
+    assert torch.equal(kernel, plain)
+    _assert_close_images(kernel, kernel_fn(sah, cam, **kw), 1e-4, 0.99)
+
+
+@pytest.mark.parametrize("form", ["bw", "mt"])
+def test_bvh_intersect_over_sbvh(cuda, form):
+    """#3 over an SBVH: equal to its plain version to the bit, slot
+    included, and the SAH tree's nearest hits: the same hit set and
+    material ids, t within 1e-6 relative, each slot's triangle
+    (``prim_map``) the same but where two triangles tie."""
+    sah, sbvh = _sbvh_mesh(cuda, form)
+    o, d = _rays(8192, cuda, seed=5)
+    active = _active(8192, 0.5, cuda)
+    before = bk.intersect_tile.launches
+    got = bk.intersect_tile(sbvh.packed, o, d, active=active, with_slot=True)
+    assert bk.intersect_tile.launches == before + 1
+    want = bk.intersect_packed_plain(sbvh.packed, o, d, active, True)
+    ref = bk.intersect_tile(sah.packed, o, d, active=active, with_slot=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "normal", "mat id", "slot"), got, want):
+        assert torch.equal(a, b), name
+    hit = ref[0] < 1e19
+    assert int(hit.sum()) > 1000 and torch.equal(got[0] < 1e19, hit)
+    assert torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=0)
+    tri = [p.prim_map[s.clamp(min=0).long()][hit]
+           for p, s in ((sbvh.packed, got[3]), (sah.packed, ref[3]))]
+    assert (tri[0] == tri[1]).float().mean() >= 0.999
+
+
 # the brute-force path tracers on ragged frames: (kernel, plain version)
 BRUTE_TRACERS = {
     "megakernel": (mk.render_flat_megakernel, mk.render_flat_fused),
@@ -476,21 +537,23 @@ def test_brute_tracer_bit_equal_to_plain_ragged(cuda, tracer, scene_name,
 
 def _device_ops(fn, runs=3):
     """The device operations of one ``fn()`` call by kind (kernel, memcpy,
-    memset), from torch.profiler over ``runs`` calls after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
+    memset), from torch.profiler over ``runs`` calls after a warm-up, in a
+    window that a throwaway kernel opens: once the process has traced a
+    long stream of kernels, a session loses the record of the first
+    kernel it sees (``timing.profile_window``)."""
+    from spira_tpu_torch.bench.timing import device_events, profile_window
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
     ops = dict(kernel=0, memcpy=0, memset=0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kind = ("memcpy" if e.name.startswith("Memcpy") else "memset"
-                    if e.name.startswith("Memset") else "kernel")
-            ops[kind] += 1
+    for e in device_events(prof):
+        kind = ("memcpy" if e.name.startswith("Memcpy") else "memset"
+                if e.name.startswith("Memset") else "kernel")
+        ops[kind] += 1
     return {k: v / runs for k, v in ops.items()}
 
 
@@ -512,6 +575,36 @@ def test_brute_frames_launch_what_the_design_states(cuda):
     ops = _device_ops(lambda: sf.render_flat_spectral_megakernel(
         scene, cam, **kw))
     assert ops["kernel"] <= 6 and ops["memcpy"] == 0 and ops["memset"] == 0
+
+
+def _long_trace(n=50_000):
+    """One profiled session over ``n`` small kernels; the kernel records
+    it kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def test_frame_ops_counted_alike_after_a_long_trace(cuda):
+    """The count of the test above after this process traced 50,000
+    kernels in one session (as a wavefront frame's profile does): a
+    session then loses its first kernel record, which the window's
+    opening kernel takes, so #1's frame still counts its two kernels."""
+    assert _long_trace() == 50_000
+    scene = sp.create_cornell_box(device=cuda)
+    cam = sp.cornell_camera(2.0, device=cuda)
+    kw = dict(width=64, height=32, spp=2, max_depth=3)
+    for _ in range(3):
+        ops = _device_ops(lambda: mk.render_flat_megakernel(scene, cam,
+                                                            **kw))
+        assert ops == dict(kernel=2, memcpy=0, memset=0)
 
 
 def test_frames_do_not_synchronise(cuda):

@@ -28,6 +28,7 @@ import spira_tpu_torch as sp
 from spira_tpu.diff import inverse as jinv
 from spira_tpu_torch.diff import inverse
 from spira_tpu_torch.utils import checkpoint as ckpt
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

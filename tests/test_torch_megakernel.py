@@ -22,6 +22,7 @@ import spira_tpu_torch as sp
 from spira_tpu.kernels import megakernel as jmk
 from spira_tpu.scene.geometry import make_triangles as jax_make_triangles
 from spira_tpu_torch.kernels import megakernel as tmk
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from spira_tpu_torch.kernels import bvh_megakernel as tbk
 
 from .test_torch_grad import FIELDS, GRAD_ATOL_SHARE, GRAD_RTOL, _params, \
     _port, _with
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -32,6 +32,7 @@ from spira_tpu_torch.accel.bvh import build_two_level as t_build_two_level
 from spira_tpu_torch.kernels import bvh_megakernel as tbk
 from spira_tpu_torch.kernels import mxu_megakernel as tmk
 from spira_tpu_torch.scene import obj as tobj
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

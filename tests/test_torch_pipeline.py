@@ -47,6 +47,7 @@ from spira_tpu_torch.render import (
 )
 from spira_tpu_torch.utils import checkpoint as ckpt
 from spira_tpu_torch.utils import config
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -17,6 +17,7 @@ import spira_tpu as st
 import spira_tpu_torch as sp
 from spira_tpu.io import image as jimg
 from spira_tpu_torch.io import image as timg
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

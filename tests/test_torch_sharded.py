@@ -63,6 +63,7 @@ from spira_tpu_torch.parallel import (
 )
 from spira_tpu_torch.parallel.sharded import sample_slot, tile_rows
 from spira_tpu_torch.utils import config
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from spira_tpu_torch.kernels import megakernel as tmk
 from spira_tpu_torch.kernels import spectral_bvh as tsb
 from spira_tpu_torch.kernels import spectral_fused as tsf
 from spira_tpu_torch.scene.geometry import empty_spheres
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from spira_tpu_torch.accel import bvh as tbvh
 from spira_tpu_torch.accel import traverse as ttrav
 from spira_tpu_torch.integrator import intersect as tint
 from spira_tpu_torch.kernels import bvh_megakernel as tbk
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,7 @@ from .reference_impl import (
     default_camera_dict,
     default_scene,
 )
+from ._torch_native import same_native_library  # noqa: F401
 
 torch.set_num_threads(1)
 
