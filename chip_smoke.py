@@ -32,7 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the bit), and the streaming superleaf path tracer and the
    superleaf-leaf BVH path tracer (``MXU_CASES``, to the bit; #7 on both
    of its routes, the staged one by size on the mesh and the read-only
-   one by size on the bunny and forced on the mesh); the counting build
+   one by size on the bunny and forced on the mesh; #2b also on a scene
+   whose every hit is a tie within a block and across two blocks of one
+   walk, ``bench/superleaf.py:tie_scene``); the counting build
    of the packed-BVH path tracer on the bunny: its image bit-equal to the
    uncounted kernel's, its totals equal to the plain counting walk's, and
    pops == traversals + pushes; the wavefront estimator's frame on the
@@ -157,7 +159,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's share of its bound and launches x (time - bound), largest
    first; the superleaf kernels beside ``cuda_bvh`` on the same calls,
    #7's and #8's bounds over the real lanes they test, with the bound had
-   every block's 128 lanes been tested beside them;
+   every block's 128 lanes been tested beside them; #2b's over the lanes
+   it tests (the real lanes of the lane groups the ray enters) and the
+   group boxes, with the bound over every real lane of the blocks it
+   visits and over all 128 beside it; ``[2b]`` lines: #2b's counting
+   build on the bunny at spp 4 and 16 (its image the uncounted kernel's,
+   its walks, pops, blocks, lanes tested and hits the plain count's),
+   blocks visited, boxes tested, lanes tested and skipped per walk, and
+   its time beside both bounds;
    the counting build's time beside the uncounted one; the adjoint
    kernels and the step through ``spira_tpu_torch/bench/grad_step.py``
    (VJP at grad_spp 16 and 4, a zero cotangent, loss mode and its
@@ -345,6 +354,10 @@ MXU_CASES = (
      dict(width=640, height=360, spp=1, max_depth=2)),
     ("u: #2b bunny 640x360 spp4 d4", "bvh_mxu", "bunny_sl", BVH_TIMED),
     ("v: #2b mesh 256x256 spp4 d4", "bvh_mxu", "mesh_sl",
+     dict(width=256, height=256, spp=4, max_depth=4)),
+    # every hit a tie: within a block (the lower lane wins) and across two
+    # blocks of one walk (the block visited first wins)
+    ("w: #2b ties 256x256 spp4 d4", "bvh_mxu", "ties_sl",
      dict(width=256, height=256, spp=4, max_depth=4)),
     # #7's read-only route: forced on the mesh, and where the bunny's
     # 72,960 lanes do not fit a block's shared memory
@@ -547,7 +560,7 @@ def counts():
 
 
 def count_work(module, factory, fn, stream_blocks=0, stream_lanes=0,
-               block_lanes=None):
+               block_lanes=None, block_groups=None):
     """Run ``fn()`` (a plain version) with ``module.factory``'s intersector
     counting the live path segments it is asked for and the hits among
     them, and the packed walk counting its pops, leaf triangles and
@@ -557,7 +570,11 @@ def count_work(module, factory, fn, stream_blocks=0, stream_lanes=0,
     real lanes every segment tests, for the streaming kernels, which have
     no walk and test only a block's real lanes (``lanes`` in the work);
     ``block_lanes``: each block's real lanes, for a walk whose kernel
-    tests only those of a block it visits."""
+    tests only those of a block it visits; with ``block_groups`` too (the
+    tree's group boxes, ``accel/mxu.py:lane_group_bounds``) also the boxes
+    #2b tests first (``groups``) and the real lanes of those the ray
+    enters, which it tests (``lanes_tested``)."""
+    from spira_tpu_torch.accel.mxu import LANE_GROUP
     from spira_tpu_torch.kernels import bvh_megakernel as bk
 
     made = getattr(module, factory) if factory else None
@@ -578,6 +595,22 @@ def count_work(module, factory, fn, stream_blocks=0, stream_lanes=0,
         if block_lanes is not None:
             work["lanes"] = (work.get("lanes", 0)
                              + int(block_lanes[ptr].sum()))
+        if block_groups is not None:
+            real = block_lanes[ptr].long()
+            bk._slab = slab  # the boxes' slab tests are not pops
+            try:
+                enter = bk.block_hits_pruned(views, block_groups, ptr,
+                                             *args)[5]
+            finally:
+                bk._slab = counting_slab
+            lane = torch.arange(enter.shape[1] * LANE_GROUP,
+                                device=ptr.device)
+            work["groups"] = (work.get("groups", 0)
+                              + int(((real + LANE_GROUP - 1)
+                                     // LANE_GROUP).sum()))
+            work["lanes_tested"] = work.get("lanes_tested", 0) + int(
+                (enter.repeat_interleave(LANE_GROUP, 1)
+                 & (lane[None] < real[:, None])).sum())
         return block_hits(views, ptr, *args)
 
     def counting(*args, **kwargs):
@@ -672,7 +705,21 @@ def lane_bytes(tables):
 def all_lanes(work):
     """``work`` priced as if every block's 128 lanes were tested (the
     TPU's contraction), for the bound beside the real-lane one."""
-    return {k: v for k, v in work.items() if k != "lanes"}
+    return {k: v for k, v in real_lanes(work).items() if k != "lanes"}
+
+
+def real_lanes(work):
+    """``work`` priced at every real lane of each visited block, no
+    group box tested (#2b before its groups were pruned)."""
+    return {k: v for k, v in work.items()
+            if k not in ("groups", "lanes_tested")}
+
+
+def tested_lanes(work):
+    """``work`` priced at the lanes #2b tests (``lanes_tested``: the real
+    lanes of the groups entered) and the group boxes it tests first."""
+    return dict(real_lanes(work), lanes=work["lanes_tested"],
+                groups=work["groups"])
 
 
 def rel_l2(kernel, plain):
@@ -1869,6 +1916,7 @@ def main() -> int:
     from spira_tpu_torch.bench import intersect_bounces as ib
     from spira_tpu_torch.bench.mesh_frame import primary_rays
     from spira_tpu_torch.bench import packet_profile as pp
+    from spira_tpu_torch.bench import superleaf as superleaf_bench
     from spira_tpu_torch.bench import timing
     from spira_tpu_torch.bench.timing import card_line
     from spira_tpu_torch.bench.timing import cuda_ms as time_ms
@@ -2002,6 +2050,7 @@ def main() -> int:
         bunny_sl=(bunny_sl, bunny_cam), mesh_sl=(mesh_sl, mesh_cam),
         mesh_mxu=(mesh_mxu, mesh_cam), mesh_mxu_wide=(mesh_mxu, mesh_wide_cam),
         bunny_mxu=(bunny_mxu_scene, bunny_cam),
+        ties_sl=(superleaf_bench.tie_scene(device), mesh_cam),
         demo=(sp.create_scene(device=device),
               sp.default_camera(w / h, device=device)),
         cornell=(sp.create_cornell_box(device=device),
@@ -2869,14 +2918,14 @@ def main() -> int:
     sl_lanes = bunny_sl.wide.lanes.offsets.diff()
     bvh_mxu_work = count_work(bk, "make_packed_intersect", run(
         mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, BVH_TIMED),
-        block_lanes=sl_lanes)
+        block_lanes=sl_lanes, block_groups=bunny_sl.wide.groups)
     mesh_lanes = mesh_mxu.wide.lanes.n_lanes
     mxu_work = count_work(xk, "make_mxu_stream_intersect", run(
         mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, BVH_TIMED),
         stream_blocks=xk.n_blocks(mesh_mxu.wide), stream_lanes=mesh_lanes)
     bvh_mxu16_work = count_work(bk, "make_packed_intersect", run(
         mxu_renders["bvh_mxu"][1], bunny_sl, bunny_cam, MAIN),
-        block_lanes=sl_lanes)
+        block_lanes=sl_lanes, block_groups=bunny_sl.wide.groups)
     mxu16_work = count_work(xk, "make_mxu_stream_intersect", run(
         mxu_renders["mxu"][1], mesh_mxu, mesh_wide_cam, MAIN),
         stream_blocks=xk.n_blocks(mesh_mxu.wide), stream_lanes=mesh_lanes)
@@ -2885,6 +2934,42 @@ def main() -> int:
     mxu_isect_work = dict(segments=w * h, hits=0, pops=0, leaf_tris=0,
                           blocks=w * h * xk.n_blocks(bunny_mxu),
                           lanes=w * h * bunny_mxu.lanes.n_lanes)
+    # #2b's counting build on the same frames: its image the uncounted
+    # kernel's, its counts the plain walk's (count_work: the lanes tested
+    # are the real lanes of the groups entered; the blocks' real lanes
+    # beside them)
+    mxu_counts = {}
+    for label, shape, work in (("spp4", BVH_TIMED, bvh_mxu_work),
+                               ("spp16", MAIN, bvh_mxu16_work)):
+        img_c, ctr = bk.render_bvh_with_counters(bunny_sl, bunny_cam,
+                                                 mxu_leaf=True, **shape)
+        ref = bk.render_flat_bvh_mxu_megakernel(bunny_sl, bunny_cam, **shape)
+        torch.cuda.synchronize()
+        kernel_work = dict(segments=ctr["traversals"], pops=ctr["pops"],
+                           blocks=ctr["leaf_visits"],
+                           lanes_tested=ctr["leaf_tris"], hits=ctr["hits"])
+        plain_work = {k: work[k] for k in kernel_work}
+        mxu_counts[label] = dict(kernel=kernel_work, plain=dict(
+            plain_work, real_lanes=work["lanes"], groups=work["groups"]),
+            image_bit_equal=torch.equal(img_c, ref))
+        walks = kernel_work["segments"]
+        tested = kernel_work["lanes_tested"]
+        log(f"[2b] {card}: #2b bunny 640x360 {label} d4, per walk: "
+            f"{kernel_work['blocks'] / walks:.4f} blocks visited, "
+            f"{work['groups'] / walks:.4f} group boxes tested, "
+            f"{tested / walks:.3f} lanes tested and "
+            f"{(work['lanes'] - tested) / walks:.3f} skipped of "
+            f"{work['lanes'] / walks:.3f} real lanes "
+            f"({tested / kernel_work['blocks']:.3f} of "
+            f"{work['lanes'] / kernel_work['blocks']:.3f} a block), "
+            f"{kernel_work['pops'] / walks:.4f} records popped; the "
+            f"counting kernel {kernel_work}, the plain count (count_work) "
+            f"{mxu_counts[label]['plain']}; its image bit-equal to the "
+            f"uncounted kernel's {mxu_counts[label]['image_bit_equal']}")
+        if kernel_work != plain_work or not mxu_counts[label][
+                "image_bit_equal"]:
+            raise AssertionError(f"#2b's counting build at {label} differs "
+                                 "from the plain count or the kernel")
     log(f"[work] on the timed inputs: demo {sph_work}, bunny spp4 "
         f"{bvh_work}, #3 on a sample's bounces {bounce_work}, spectral "
         f"cornell {spec_work}, spectral bunny spp4 {sbvh_work}, #2b bunny "
@@ -2924,9 +3009,16 @@ def main() -> int:
             sol.path_units(sbvh16_work, n_px * MAIN["spp"], n_bunny_sph, 0,
                            spectral=True, bvh=True, form=bunny.packed.form),
             bvh_tables + out_bytes, rates),
+        # #2b: the lanes it tests (the groups entered) and the boxes;
+        # beside it every real lane of the blocks visited, and all 128
         bvh_mxu_megakernel_16=sol_bound(
-            sol.path_units(bvh_mxu16_work, n_px * MAIN["spp"], n_bunny_sph,
-                           0, bvh=True),
+            sol.path_units(tested_lanes(bvh_mxu16_work), n_px * MAIN["spp"],
+                           n_bunny_sph, 0, bvh=True),
+            table_bytes(bunny_sl.wide.pairs, bunny_sl.wide.groups)
+            + lane_bytes(bunny_sl.wide) + out_bytes, rates),
+        bvh_mxu_megakernel_16_real_lanes=sol_bound(
+            sol.path_units(real_lanes(bvh_mxu16_work), n_px * MAIN["spp"],
+                           n_bunny_sph, 0, bvh=True),
             table_bytes(bunny_sl.wide.pairs) + lane_bytes(bunny_sl.wide)
             + out_bytes, rates),
         bvh_mxu_megakernel_16_all_lanes=sol_bound(
@@ -2962,7 +3054,13 @@ def main() -> int:
         grad_loss_forward=sol_bound(sph_units,
                                     demo_tables + 2 * out_bytes + 8, rates),
         bvh_mxu_megakernel=sol_bound(
-            sol.path_units(bvh_mxu_work, n_px * BVH_TIMED["spp"],
+            sol.path_units(tested_lanes(bvh_mxu_work),
+                           n_px * BVH_TIMED["spp"], n_bunny_sph, 0,
+                           bvh=True),
+            table_bytes(bunny_sl.wide.pairs, bunny_sl.wide.groups)
+            + lane_bytes(bunny_sl.wide) + out_bytes, rates),
+        bvh_mxu_megakernel_real_lanes=sol_bound(
+            sol.path_units(real_lanes(bvh_mxu_work), n_px * BVH_TIMED["spp"],
                            n_bunny_sph, 0, bvh=True),
             table_bytes(bunny_sl.wide.pairs) + lane_bytes(bunny_sl.wide)
             + out_bytes, rates),
@@ -3021,6 +3119,19 @@ def main() -> int:
             f"{b['bound_term']} (terms ms "
             f"{({k: round(v, 5) for k, v in b['bound_terms_ms'].items()})}"
             f"); data-sheet bound {b['datasheet_bound_ms']:.4f} ms")
+    for label, ms, name, real in (
+            ("spp4", mxu_t["bvh_mxu_megakernel"]["ms"], "bvh_mxu_megakernel",
+             bounds["bvh_mxu_megakernel_real_lanes"]),
+            ("spp16", mxu_t["bvh_mxu_megakernel"]["full_ms"],
+             "bvh_mxu_megakernel_16",
+             bounds["bvh_mxu_megakernel_16_real_lanes"])):
+        log(f"[2b] {card}: #2b bunny 640x360 {label} d4: {ms:.4f} ms "
+            f"(wrapper, CUDA events), bound {bounds[name]['bound_ms']:.4f} "
+            f"ms by {bounds[name]['bound_term']} over the lanes it tests "
+            f"({sol.sol_pct(bounds[name]['bound_ms'], ms):.3f}% of it); "
+            f"over every real lane of the blocks it visits "
+            f"{real['bound_ms']:.4f} ms "
+            f"({sol.sol_pct(real['bound_ms'], ms):.3f}%)")
     for b, row in enumerate(bounce_rows):
         bd = bounds[f"bvh_intersect_bounce{b}"]
         log(f"[bounce] {card}: #3 on render_flat's bounce {b} rays, bunny "
@@ -3336,6 +3447,10 @@ def main() -> int:
                 "bound_ms"],
             "bound_ms_128_lanes_640x360_spp16_d4": bounds[
                 "bvh_mxu_megakernel_16_all_lanes"]["bound_ms"],
+            "bound_ms_real_lanes": bounds["bvh_mxu_megakernel_real_lanes"][
+                "bound_ms"],
+            "bound_ms_real_lanes_640x360_spp16_d4": bounds[
+                "bvh_mxu_megakernel_16_real_lanes"]["bound_ms"],
             "superleaf_runs": superleaf_rows("bvh_mxu_megakernel_spp4",
                                              "bvh_mxu_megakernel_spp16"),
             "plain_ms": mxu_t["bvh_mxu_megakernel"]["plain_ms"],
@@ -3349,6 +3464,7 @@ def main() -> int:
             "cuda_bvh_ms_640x360_spp16_d4": (
                 mxu_t["bvh_mxu_megakernel"]["cuda_bvh_full_ms"]),
             "profile_640x360_spp16_d4": mxu_prof["bvh_mxu_megakernel"],
+            "counts": mxu_counts,
             "checks": [c for e, c in mxu_checks if e == "bvh_mxu"]
             + main_mxu_checks[:2],
         },

@@ -55,6 +55,12 @@ BLOCK_ROWS = 8
 #: floats of a lane's record: coeff_uv rows 0-5 of its det, u_num and
 #: v_num columns, coeff_t rows 0-2 and 6, then 2 zeros (six float4s)
 LANE_RECORD = 24
+#: lanes of a group box (:func:`lane_group_bounds`), and groups a block
+LANE_GROUP = 16
+GROUPS = SUPERLEAF // LANE_GROUP
+#: a group box's outward padding, relative to 1 + the largest coordinate
+#: magnitude of its triangles
+GROUP_PAD = 1e-3
 
 
 @tensor_dataclass
@@ -93,6 +99,92 @@ def lane_records(coeff_uv, coeff_t) -> LaneRecords:
                        offsets=offsets.to(torch.int32),
                        n_lanes=int(offsets[-1]),
                        max_lanes=int(counts.max()) if counts.numel() else 0)
+
+
+def lane_vertices(coeff_uv, coeff_t):
+    """The triangles of a packing's lanes, (B, 128, 3, 3) float64 (v0,
+    v0 + e1, v0 + e2), from its coefficients on the host: e1 and e2 are
+    stored as they are; v0 is the least-squares solution, in float64, of
+    v0 . n = kt, v0 x e2 = cu and v0 x e1 = cv.  Also (B, 128) bool: the
+    lanes whose triangle this recovers (a non-degenerate n; the others have
+    NaN vertices)."""
+    uv = coeff_uv.detach().cpu().double().reshape(-1, BLOCK_ROWS, 3,
+                                                   SUPERLEAF)
+    tc = coeff_t.detach().cpu().double().reshape(-1, BLOCK_ROWS, SUPERLEAF)
+    e2 = uv[:, 0:3, 1].transpose(1, 2)  # u_num m part
+    e1 = -uv[:, 0:3, 2].transpose(1, 2)  # v_num m part
+    cu = uv[:, 3:6, 1].transpose(1, 2)  # v0 x e2
+    cv = -uv[:, 3:6, 2].transpose(1, 2)  # v0 x e1
+    n = tc[:, 0:3].transpose(1, 2)
+    kt = -tc[:, 6]
+
+    def skew(a):  # skew(a) @ b == a x b
+        z = torch.zeros_like(a[..., 0])
+        return torch.stack([
+            torch.stack([z, -a[..., 2], a[..., 1]], -1),
+            torch.stack([a[..., 2], z, -a[..., 0]], -1),
+            torch.stack([-a[..., 1], a[..., 0], z], -1)], -2)
+
+    # v0 x e = -skew(e) v0: the rows of the 7x3 system
+    a = torch.cat([n[..., None, :], -skew(e2), -skew(e1)], -2)
+    b = torch.cat([kt[..., None], cu, cv], -1)
+    ata = a.transpose(-1, -2) @ a
+    ok = (n * n).sum(-1) > 0
+    ata = torch.where(ok[..., None, None], ata,
+                      torch.eye(3, dtype=ata.dtype))
+    v0 = torch.linalg.solve(ata, (a.transpose(-1, -2) @ b[..., None]))[..., 0]
+    verts = torch.stack([v0, v0 + e1, v0 + e2], -2)
+    return torch.where(ok[..., None, None], verts, torch.nan), ok
+
+
+def lane_group_bounds(coeff_uv, coeff_t, offsets):
+    """Boxes over groups of :data:`LANE_GROUP` lanes of each block, the
+    table of #2b's pruning visit: (B * 8 * 2, 4) float32 on the tables'
+    device, group g of block b at rows 2 (8 b + g) and 2 (8 b + g) + 1 as a
+    pair record's half: (min.xyz, max.x), (max.yz, 0, count), count 1 for a
+    group with a real lane, -1 for none (a ray never enters it).
+
+    Each box holds its real lanes' triangles (:func:`lane_vertices`),
+    padded outward by :data:`GROUP_PAD` times 1 + their largest coordinate
+    magnitude and rounded outward to float32, so a ray's slab entry is
+    below a hit's distance in t with room for both computations' rounding.
+    A group holding a lane whose triangle is not recovered takes every
+    point (±1e30), and is never skipped."""
+    verts, ok = lane_vertices(coeff_uv, coeff_t)
+    n_blocks = verts.shape[0]
+    real = (torch.arange(SUPERLEAF)[None]
+            < offsets.detach().cpu().diff().long()[:, None])
+    verts = verts.reshape(n_blocks, GROUPS, LANE_GROUP * 3, 3)
+    use = real.reshape(n_blocks, GROUPS, LANE_GROUP)
+    bad = (use & ~ok.reshape(n_blocks, GROUPS, LANE_GROUP)).any(-1)
+    mask = use.repeat_interleave(3, dim=-1)[..., None]
+    lo = torch.where(mask, verts, torch.inf).amin(-2)
+    hi = torch.where(mask, verts, -torch.inf).amax(-2)
+    any_real = use.any(-1)
+    big = torch.where(any_real[..., None], torch.maximum(lo.abs(), hi.abs()),
+                      0.0).amax(-1, keepdim=True)
+    pad = GROUP_PAD * (1.0 + big)
+    lo = torch.where(bad[..., None], -1e30, lo - pad)
+    hi = torch.where(bad[..., None], 1e30, hi + pad)
+    lo = torch.where(any_real[..., None], lo, 0.0)
+    hi = torch.where(any_real[..., None], hi, 0.0)
+    lo32, hi32 = lo.float(), hi.float()
+    # round outward: a float32 box that contains the float64 one
+    lo32 = torch.where(lo32.double() > lo, torch.nextafter(
+        lo32, torch.tensor(-torch.inf)), lo32)
+    hi32 = torch.where(hi32.double() < hi, torch.nextafter(
+        hi32, torch.tensor(torch.inf)), hi32)
+    out = torch.zeros((n_blocks, GROUPS, 2, 4), dtype=torch.float32)
+    out[:, :, 0, 0:3], out[:, :, 0, 3] = lo32, hi32[..., 0]
+    out[:, :, 1, 0:2] = hi32[..., 1:3]
+    out[:, :, 1, 3] = torch.where(any_real, 1.0, -1.0)
+    return out.reshape(-1, 4).to(coeff_uv.device)
+
+
+def _groups(self) -> torch.Tensor:
+    """The tables' group boxes (:func:`lane_group_bounds`), derived on
+    first use and kept with this object."""
+    return lane_group_bounds(self.coeff_uv, self.coeff_t, self.lanes.offsets)
 
 
 def _lanes(self) -> LaneRecords:
@@ -139,6 +231,7 @@ class SuperleafBVH:
     depth: int = 1  # pair records on the longest root->leaf chain
 
     lanes = functools.cached_property(_lanes)
+    groups = functools.cached_property(_groups)
 
 
 def _leaf_blocks(v0, e1, e2, nrm, mat):

@@ -31,7 +31,18 @@ thread); it times each on
 the same inputs, holds its output to the shipped kernel's bits, and
 reports its ``ptxas -v`` registers and spills and, from ``cuobjdump
 -sass``, the instructions of the lane loop (the loop around ``MUFU.RCP``)
-per lane and ray, by opcode.
+per lane and ray, by opcode.  It also builds one that includes
+``csrc/bvh_megakernel.cu`` with other builds of #2b (``WALK_VARIANTS``:
+the warp-wide visit with and without pruning its lane groups, records a
+thread loaded before testing, the stack's entries, blocks an SM; the
+serial visit of one thread, with records loaded 1, 2 or 4 at a
+time), each timed at spp 4 and 16 on the bunny, held to the
+shipped kernel's bits, with the library's ``ptxas -v``.  ``--variants
+stream`` or ``walk`` builds one of the two.
+
+:func:`tie_scene` is a scene whose every hit is a tie (twinned triangles
+in one block, and the whole superleaf tree twice under one root), which
+``chip_smoke.py`` holds #2b to.
 
 ``--root`` imports ``spira_tpu_torch`` from another checkout (a ``git
 archive`` of another commit unpacked into a directory ``.gitignore``
@@ -66,6 +77,21 @@ INTERSECT_VARIANTS = ((64, 2, 2), (64, 4, 2), (128, 1, 2), (128, 2, 2),
 RENDER_VARIANTS = ((1024, 1, 1), (1024, 1, 2), (1024, 1, 4), (768, 1, 4),
                    (768, 1, 8), (640, 1, 8), (512, 1, 8), (128, 0, 1),
                    (128, 0, 4))
+
+
+#: #2b's builds tried by --variants: (visit, lane records a thread loads
+#: before it tests any, the walk's stack entries, blocks an SM).  "warp" is
+#: the warp-wide visit (``csrc/superleaf.cuh:walk_blocks_warp``: every
+#: block served by the whole warp), "warp_prune" the same skipping the lane
+#: groups whose box the ray does not enter before its best (``group_mask``,
+#: ``accel/mxu.py:lane_group_bounds``), the first the shipped build;
+#: "serial" the visit of one thread (``RecordLeaves<kBatch>`` in
+#: ``bvh.cuh:walk_packed``) with a 128-entry stack and 8 blocks an SM.
+WALK_VARIANTS = (("warp_prune", 1, 128, 8), ("warp", 1, 128, 8),
+                 ("warp_prune", 2, 128, 8), ("warp_prune", 2, 128, 4),
+                 ("warp_prune", 4, 128, 4), ("warp_prune", 1, 128, 4),
+                 ("warp_prune", 1, 32, 8), ("serial", 1, 128, 8),
+                 ("serial", 2, 128, 8), ("serial", 4, 128, 8))
 
 
 def digest(*tensors):
@@ -106,6 +132,78 @@ def scenes(device):
         bunny=bunny, bunny_mxu=sp.attach_mxu(bunny),
         bunny_sl=sp.attach_superleaf(bunny), bunny_cam=cam,
         rays=primary_rays(cam, w, h))
+
+
+def tree_twice(tree):
+    """A :class:`~spira_tpu_torch.accel.mxu.SuperleafBVH` holding ``tree``
+    (on the CPU) twice under a new root: the copy's pair records and blocks
+    follow the original's (its record pointers shifted past the original's
+    records, its block pointers past its blocks, its material ids raised
+    by 8), and the new root's two slots hold the old root and its copy
+    under one box.  A ray walks both trees, and each of its hits is a tie
+    across two blocks of one walk; slot 0 goes first on equal entry
+    distances, so the original (the block visited first) wins."""
+    import dataclasses
+
+    import numpy as np
+
+    from spira_tpu_torch.accel import mxu
+    from spira_tpu_torch.accel.pairs import pad8
+
+    pairs = tree.pairs.numpy()
+    n_rows = pairs.shape[0]
+    copy = pairs.copy()
+    for half in (0, 8):
+        cnt = copy[:, half + 7]
+        copy[:, half + 6] += np.where(cnt > 0, tree.n_blocks,
+                                      np.where(cnt == 0, n_rows, 0))
+    root = pairs[tree.root]
+    halves = [root[h: h + 8] for h in (0, 8) if root[h + 7] >= 0]
+    lo = np.min([h[0:3] for h in halves], axis=0)
+    hi = np.max([h[3:6] for h in halves], axis=0)
+    new_root = np.zeros(16, np.float32)
+    for h, ptr in ((0, tree.root), (8, n_rows + tree.root)):
+        new_root[h: h + 3], new_root[h + 3: h + 6] = lo, hi
+        new_root[h + 6], new_root[h + 7] = ptr, 0.0
+    both = pad8(np.concatenate([pairs, copy, new_root[None]]))
+    pay = tree.coeff_pay.clone().view(-1, mxu.BLOCK_ROWS, mxu.SUPERLEAF)
+    pay[:, 3] = torch.where(pay[:, 3] != 0, pay[:, 3] + 8, 0.0)
+    return dataclasses.replace(
+        tree, pairs=torch.from_numpy(both),
+        coeff_uv=torch.cat([tree.coeff_uv, tree.coeff_uv]),
+        coeff_t=torch.cat([tree.coeff_t, tree.coeff_t]),
+        coeff_pay=torch.cat([tree.coeff_pay, pay.view(-1, mxu.SUPERLEAF)]),
+        root=2 * n_rows, n_pairs=2 * n_rows + 1, n_blocks=2 * tree.n_blocks,
+        depth=tree.depth + 1)
+
+
+def tie_scene(device):
+    """A scene of ties for #2b: an icosphere (subdivision 2) whose every
+    triangle is there twice, in materials 0 and 1 (so twins share a block
+    and the lower lane wins), on its superleaf tree held twice under one
+    root (:func:`tree_twice`: the earlier-visited block wins), with 16
+    materials; on ``device``."""
+    import numpy as np
+
+    import spira_tpu_torch as sp
+    from spira_tpu_torch.accel import bvh, mxu
+    from spira_tpu_torch.scene.obj import icosphere
+
+    mesh = icosphere(center=(0.0, 0.1, 0.0), radius=0.6, subdivisions=2,
+                     material=0)
+    v0 = mesh.v0.numpy()
+    verts = np.stack([v0, v0 + mesh.e1.numpy(), v0 + mesh.e2.numpy()], 1)
+    faces = np.repeat(np.arange(3 * mesh.count).reshape(-1, 3), 2, axis=0)
+    tris = sp.make_triangles(verts.reshape(-1, 3), faces,
+                             np.tile([0, 1], mesh.count), device="cpu")
+    materials = sp.make_materials(
+        [dict(albedo=(0.2 + 0.05 * k, 0.5, 0.8 - 0.05 * k))
+         for k in range(16)], device="cpu")
+    scene = mxu.attach_superleaf(sp.make_scene(
+        triangles=tris, materials=materials,
+        bvh=bvh.build_bvh_for_triangles(tris)))
+    import dataclasses
+    return dataclasses.replace(scene, wide=tree_twice(scene.wide)).to(device)
 
 
 def calls(s):
@@ -229,6 +327,60 @@ extern "C" int spira_variant_budget(int v, int n_spheres, int n_mats,
     return mxu
 
 
+def _walk_variant_source():
+    """The source of #2b's variant library."""
+    from spira_tpu_torch import _build
+
+    launch = dict(
+        warp="launch_bvh_mxu<{b}, {st}, {mb}>(ARGS);",
+        warp_prune="launch_bvh_mxu<{b}, {st}, {mb}, true>(ARGS, groups);",
+        serial="launch_serial<{b}>(ARGS);")
+    cases = "\n".join(
+        f"    case {k}: return " + launch[visit].format(b=b, st=st, mb=mb)
+        for k, (visit, b, st, mb) in enumerate(WALK_VARIANTS))
+    return f'''#include "{_build.CSRC}/bvh_megakernel.cu"
+using namespace spira;
+// the serial visit: one thread tests a block's lanes for its own ray
+template <int kBatch>
+int launch_serial(const float* cam, const float* spheres, int n_spheres,
+                  const float* mats, int n_mats, const float* pairs,
+                  const float* records, const int* offsets,
+                  const float* coeff_pay, int root, float* out, int width,
+                  int n_rows, int row_start, int sample_offset, int spp,
+                  int max_depth, uint32_t seed, float du, float dv,
+                  float inv_spp, int has_lens, void* stream) {{
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * n_rows);
+  bvh_megakernel<RecordLeaves<kBatch>><<<blocks, kSplitThreads,
+      mesh_smem_bytes(n_spheres, n_mats),
+      static_cast<cudaStream_t>(stream)>>>(
+      cam, spheres, n_spheres, mats, n_mats,
+      reinterpret_cast<const float4*>(pairs),
+      RecordLeaves<kBatch>{{reinterpret_cast<const float4*>(records),
+                            offsets, coeff_pay}},
+      root, out, width, n_rows, row_start, sample_offset, split, max_depth,
+      seed, du, dv, inv_spp, has_lens);
+  return static_cast<int>(cudaGetLastError());
+}}
+#define ARGS cam, spheres, n_spheres, mats, n_mats, pairs, records, \\
+    offsets, coeff_pay, root, out, width, n_rows, row_start, \\
+    sample_offset, spp, max_depth, seed, du, dv, inv_spp, has_lens, stream
+extern "C" int spira_variant_bvh_mxu(
+    int v, const float* cam, const float* spheres, int n_spheres,
+    const float* mats, int n_mats, const float* pairs, const float* records,
+    const int* offsets, const float* coeff_pay, int root, float* out,
+    int width, int n_rows, int row_start, int sample_offset, int spp,
+    int max_depth, uint32_t seed, float du, float dv, float inv_spp,
+    int has_lens, void* stream, const float* groups) {{
+  switch (v) {{
+{cases}
+  }}
+  return -1;
+}}
+'''
+
+
 def _build_variant(name, source):
     """nvcc the variant library (the package's flags): (CDLL, ptxas log,
     path)."""
@@ -301,6 +453,51 @@ def lane_loop_sass(path):
                          opcodes=dict(sorted(ops.items(),
                                              key=lambda kv: -kv[1])))
     return out
+
+
+def walk_variants(s):
+    """Each build of WALK_VARIANTS on the bunny's superleaf tree at SPPS,
+    timed on the inputs of the shipped #2b and held to its bits, and the
+    ``ptxas -v`` lines of the library."""
+    from spira_tpu_torch.bench.timing import cuda_ms
+    from spira_tpu_torch.kernels import bvh_megakernel as bk
+    from spira_tpu_torch.kernels import megakernel as mk
+
+    lib, log, _ = _build_variant("variants_bvh_mxu", _walk_variant_source())
+    vp, vi, vf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.spira_variant_bvh_mxu
+    fn.argtypes = (vi, vp, vp, vi, vp, vi, vp, vp, vp, vp, vi, vp, vi, vi,
+                   vi, vi, vi, vi, ctypes.c_uint32, vf, vf, vf, vi, vp, vp)
+    stream = torch.cuda.current_stream().cuda_stream
+    scene, cam = s["bunny_sl"], s["bunny_cam"]
+    tree = scene.wide
+    lanes = tree.lanes
+    groups = tree.groups
+    cam_t = mk.pack_camera(cam).contiguous()
+    sph = mk.pack_scene(scene).contiguous()
+    mat = bk.pack_materials(scene.materials).contiguous()
+    w, h, depth = SHAPE["width"], SHAPE["height"], SHAPE["max_depth"]
+    du, dv = mk._uv_scale(w, h, True)
+    rows = dict(ptxas=ptxas_lines(log))
+    for spp in SPPS:
+        want = digest(bk.render_flat_bvh_mxu_megakernel(scene, cam, spp=spp,
+                                                        **SHAPE))
+        for k, shape in enumerate(WALK_VARIANTS):
+            out = torch.empty((w * h, 3), device=cam_t.device)
+
+            def call(k=k, out=out, spp=spp):
+                err = fn(k, cam_t.data_ptr(), sph.data_ptr(), sph.shape[0],
+                         mat.data_ptr(), mat.shape[0], tree.pairs.data_ptr(),
+                         lanes.records.data_ptr(), lanes.offsets.data_ptr(),
+                         tree.coeff_pay.data_ptr(), tree.root,
+                         out.data_ptr(), w, h, 0, 0, spp, depth, 0, du, dv,
+                         mk._inv_spp(spp), int(cam.has_lens), stream,
+                         groups.data_ptr())
+                mk._launch_error(f"#2b variant {shape}", err)
+            ms = cuda_ms(call)
+            rows[f"{shape} spp{spp}"] = dict(ms=ms,
+                                             same_bits=digest(out) == want)
+    return rows
 
 
 def variants(s):
@@ -397,9 +594,11 @@ def main(argv=None) -> int:
                                           .parents[2]),
                     help="the checkout whose spira_tpu_torch to time "
                     "(default: this one)")
-    ap.add_argument("--variants", action="store_true",
-                    help="also time other launch shapes of this "
-                    "checkout's kernels")
+    ap.add_argument("--variants", nargs="?", const="all",
+                    choices=("all", "stream", "walk"),
+                    help="also time other builds of this checkout's "
+                    "kernels: #7's and #8's launch shapes (stream), #2b's "
+                    "(walk) or both (all, the default)")
     ap.add_argument("--out", help="also append the JSON line to this file")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -414,8 +613,10 @@ def main(argv=None) -> int:
     s = scenes(device)
     frames = time_calls(calls(s))
     row = dict(frames=frames, routes=routes(s, frames))
-    if args.variants:
+    if args.variants in ("all", "stream"):
         row["variants"] = variants(s)
+    if args.variants in ("all", "walk"):
+        row["walk_variants"] = walk_variants(s)
     h = hashlib.sha256()
     for path in sorted((root / "spira_tpu_torch" / "csrc").glob("*.cu*")):
         h.update(path.read_bytes())

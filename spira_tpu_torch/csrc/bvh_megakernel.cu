@@ -7,13 +7,24 @@
 // samples in one launch.  spira_bvh_intersect replaces
 // _intersect_only_kernel: the nearest hit of a batch of rays.
 // spira_bvh_mxu_render replaces the same Pallas kernel with mxu_leaf=True
-// (its leaf visit _make_mxu_leaf_visit): the same walk over a pair tree
-// whose leaves are 128-triangle superleaf blocks (superleaf.cuh).  All three
-// share one walk, bvh.cuh:walk_packed, templated on its leaf visitor.
+// (its leaf visit _make_mxu_leaf_visit), kernel #2b: the same steps over a
+// pair tree whose leaves are 128-triangle superleaf blocks, each block
+// visit served by the whole warp and its lane groups pruned
+// (superleaf.cuh:walk_blocks_warp); every thread of a warp traces its
+// (pixel, sample) together with the others (mesh_render.cuh:
+// trace_sample_warp), those without a path serving.  The first two share
+// one walk, bvh.cuh:walk_packed, templated on its leaf visitor.
 // spira_bvh_megakernel_render_counted is the counting build of the first
 // (_kernel with counters=True): the same kernel over CountingIntersect,
 // each thread counting its walks (bvh.cuh:WalkCounts), the block summing
-// them once at the end.
+// them once at the end; spira_bvh_mxu_render_counted the same for #2b.
+//
+// #2b on the H100 (PERF.md's kernel table): a block visited by one thread
+// alone (RecordLeaves) holds the warp's other threads idle for up to 128
+// lanes; served by the warp it ran about 5 times faster, and skipping the
+// lane groups a ray does not enter took another quarter to a third off.
+// Loading 2 or 4 records before testing lost (spills at 64 registers,
+// fewer warps at 120-128), 4 blocks an SM lost, a 32-entry stack tied.
 //
 // Work split: the render kernels run one thread per (pixel, sample) path
 // (mesh_render.cuh: a pixel's samples on consecutive threads of one block,
@@ -61,7 +72,9 @@
 
 namespace spira {
 
-// Leaves: RowLeaves<kForm> (leaf rows) or RecordLeaves (superleaf blocks).
+// Leaves: RowLeaves<kForm> (leaf rows) or RecordLeaves<kBatch> (superleaf
+// blocks, each visited by one thread: #2b's serial visit, a variant of
+// bench/superleaf.py).
 template <class Leaves>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     bvh_megakernel(const float* __restrict__ cam_g,
@@ -132,6 +145,95 @@ __global__ void __launch_bounds__(128)
               height, 0, 0, split, max_depth, seed, du, dv, inv_spp,
               has_lens);
   add_block_counts(counts, totals);
+}
+
+// Kernel #2b: the walk over superleaf blocks, each block visit served by
+// the whole warp (superleaf.cuh:walk_blocks_warp), every thread of the
+// warp tracing together (mesh_render.cuh:trace_sample_warp); kBatch
+// records a thread loaded before any is tested, a stack of kStack entries,
+// __launch_bounds__(kSplitThreads, kMinBlocks); kPrune skips the lane
+// groups whose box the ray does not enter before its best (a variant of
+// bench/superleaf.py, over leaves.groups).
+template <int kBatch, int kStack, int kMinBlocks, bool kPrune = false>
+__global__ void __launch_bounds__(kSplitThreads, kMinBlocks)
+    bvh_mxu_megakernel(const float* __restrict__ cam_g,
+                       const float* __restrict__ sph_g, int n_spheres,
+                       const float* __restrict__ mat_g, int n_mats,
+                       const float4* __restrict__ pairs,
+                       RecordLeaves<> leaves, int root,
+                       float* __restrict__ out, int width, int n_rows,
+                       int row_start, int sample_offset, SampleSplit split,
+                       int max_depth, uint32_t seed, float du, float dv,
+                       float inv_spp, int has_lens) {
+  const auto make = [&](const float* sph, const float* mat) {
+    return WarpBlockIntersect<kBatch, kStack, kPrune>{
+        sph, n_spheres, mat, pairs, leaves, root};
+  };
+  render_mesh<true>(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+                    n_rows, row_start, sample_offset, split, max_depth, seed,
+                    du, dv, inv_spp, has_lens);
+}
+
+// Kernel #2b counting its work (WarpCountingIntersect) into totals: the
+// whole frame.
+template <int kBatch, int kStack, bool kPrune>
+__global__ void __launch_bounds__(kSplitThreads)
+    bvh_mxu_megakernel_counted(const float* __restrict__ cam_g,
+                               const float* __restrict__ sph_g, int n_spheres,
+                               const float* __restrict__ mat_g, int n_mats,
+                               const float4* __restrict__ pairs,
+                               RecordLeaves<> leaves, int root,
+                               unsigned long long* __restrict__ totals,
+                               float* __restrict__ out, int width,
+                               int height, SampleSplit split, int max_depth,
+                               uint32_t seed, float du, float dv,
+                               float inv_spp, int has_lens) {
+  WalkCounts counts;
+  const auto make = [&](const float* sph, const float* mat) {
+    return WarpCountingIntersect<kBatch, kStack, kPrune>{
+        WarpBlockIntersect<kBatch, kStack, kPrune>{sph, n_spheres, mat,
+                                                   pairs, leaves, root},
+        &counts};
+  };
+  render_mesh<true>(cam_g, sph_g, n_spheres, mat_g, n_mats, make, out, width,
+                    height, 0, 0, split, max_depth, seed, du, dv, inv_spp,
+                    has_lens);
+  add_block_counts(counts, totals);
+}
+
+// #2b's shipped build: records a thread loaded at a time, the walk's
+// stack, blocks an SM, the lane groups pruned (bench/superleaf.py
+// --variants measured the others; PERF.md).
+constexpr int kMxuBatch = 1;
+constexpr int kMxuStack = kStackSize;
+constexpr int kMxuMinBlocks = kSplitMinBlocks;
+constexpr bool kMxuPrune = true;
+
+// Launch #2b's build <kBatch, kStack, kMinBlocks, kPrune> over rows and
+// samples as spira_bvh_mxu_render takes them; `groups`: the group boxes
+// (accel/mxu.py:lane_group_bounds), read with kPrune only.
+template <int kBatch, int kStack, int kMinBlocks, bool kPrune = false>
+int launch_bvh_mxu(const float* cam, const float* spheres, int n_spheres,
+                   const float* mats, int n_mats, const float* pairs,
+                   const float* records, const int* offsets,
+                   const float* coeff_pay, int root, float* out, int width,
+                   int n_rows, int row_start, int sample_offset, int spp,
+                   int max_depth, uint32_t seed, float du, float dv,
+                   float inv_spp, int has_lens, void* stream,
+                   const float* groups = nullptr) {
+  const SampleSplit split = sample_split(spp);
+  const unsigned blocks =
+      split_blocks(split, static_cast<int64_t>(width) * n_rows);
+  bvh_mxu_megakernel<kBatch, kStack, kMinBlocks, kPrune>
+      <<<blocks, kSplitThreads, mesh_smem_bytes(n_spheres, n_mats),
+         static_cast<cudaStream_t>(stream)>>>(
+          cam, spheres, n_spheres, mats, n_mats,
+          reinterpret_cast<const float4*>(pairs),
+          RecordLeaves<>{reinterpret_cast<const float4*>(records), offsets,
+                         coeff_pay, reinterpret_cast<const float4*>(groups)},
+          root, out, width, n_rows, row_start, sample_offset, split,
+          max_depth, seed, du, dv, inv_spp, has_lens);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kThreads = 128;
@@ -239,29 +341,49 @@ extern "C" int spira_bvh_megakernel_render_counted(
 }
 
 // The same path tracer over a pair tree whose leaves are superleaf blocks
-// (accel/mxu.py:SuperleafBVH): pairs (P, 16); the blocks' lane records
-// (n_lanes, 24) and offsets (n_blocks + 1) of accel/mxu.py:LaneRecords;
-// coeff_pay (B*8, 128), float32 row-major; the rows and samples as
-// spira_bvh_megakernel_render takes them.
+// (accel/mxu.py:SuperleafBVH), kernel #2b: pairs (P, 16); the blocks' lane
+// records (n_lanes, 24) and offsets (n_blocks + 1) of accel/mxu.py:
+// LaneRecords; coeff_pay (B*8, 128); the blocks' group boxes (B*16, 4) of
+// accel/mxu.py:lane_group_bounds; all float32 row-major; the rows and
+// samples as spira_bvh_megakernel_render takes them.  The tree's depth is
+// at most kMxuStack (the wrapper checks).
 extern "C" int spira_bvh_mxu_render(
     const float* cam, const float* spheres, int n_spheres, const float* mats,
     int n_mats, const float* pairs, const float* records, const int* offsets,
-    const float* coeff_pay, int root, float* out, int width, int n_rows,
-    int row_start, int sample_offset, int spp, int max_depth, uint32_t seed,
+    const float* coeff_pay, const float* groups, int root, float* out,
+    int width, int n_rows, int row_start, int sample_offset, int spp,
+    int max_depth, uint32_t seed, float du, float dv, float inv_spp,
+    int has_lens, void* stream) {
+  using namespace spira;
+  return launch_bvh_mxu<kMxuBatch, kMxuStack, kMxuMinBlocks, kMxuPrune>(
+      cam, spheres, n_spheres, mats, n_mats, pairs, records, offsets,
+      coeff_pay, root, out, width, n_rows, row_start, sample_offset, spp,
+      max_depth, seed, du, dv, inv_spp, has_lens, stream, groups);
+}
+
+// spira_bvh_mxu_render of the whole frame counting its work: adds the
+// frame's totals (bvh.cuh:WalkCounts; leaf_visits the blocks visited,
+// leaf_tris the lanes tested: the real lanes of the groups entered) to
+// totals[7], int64, which the caller zeroes.
+extern "C" int spira_bvh_mxu_render_counted(
+    const float* cam, const float* spheres, int n_spheres, const float* mats,
+    int n_mats, const float* pairs, const float* records, const int* offsets,
+    const float* coeff_pay, const float* groups, int root, long long* totals,
+    float* out, int width, int height, int spp, int max_depth, uint32_t seed,
     float du, float dv, float inv_spp, int has_lens, void* stream) {
   using namespace spira;
   const SampleSplit split = sample_split(spp);
   const unsigned blocks =
-      split_blocks(split, static_cast<int64_t>(width) * n_rows);
-  bvh_megakernel<RecordLeaves><<<blocks, kSplitThreads,
-                                mesh_smem_bytes(n_spheres, n_mats),
-                                static_cast<cudaStream_t>(stream)>>>(
-      cam, spheres, n_spheres, mats, n_mats,
-      reinterpret_cast<const float4*>(pairs),
-      RecordLeaves{reinterpret_cast<const float4*>(records), offsets,
-                   coeff_pay},
-      root, out, width, n_rows, row_start, sample_offset, split, max_depth,
-      seed, du, dv, inv_spp, has_lens);
+      split_blocks(split, static_cast<int64_t>(width) * height);
+  bvh_mxu_megakernel_counted<kMxuBatch, kMxuStack, kMxuPrune>
+      <<<blocks, kSplitThreads, mesh_smem_bytes(n_spheres, n_mats),
+         static_cast<cudaStream_t>(stream)>>>(
+          cam, spheres, n_spheres, mats, n_mats,
+          reinterpret_cast<const float4*>(pairs),
+          RecordLeaves<>{reinterpret_cast<const float4*>(records), offsets,
+                         coeff_pay, reinterpret_cast<const float4*>(groups)},
+          root, reinterpret_cast<unsigned long long*>(totals), out, width,
+          height, split, max_depth, seed, du, dv, inv_spp, has_lens);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -100,8 +100,11 @@ __device__ __forceinline__ Vec3 fold_samples(const float* x, const float* y,
 
 // The split over n_px pixels: `sample(pixel, s)` traces sample s of a
 // pixel and returns its value; the mean over samples (sum * inv_spp) goes
-// to out[3 * pixel ...].  Every thread of the block calls it.
-template <class Sample>
+// to out[3 * pixel ...].  Every thread of the block calls it.  With
+// kWarpWide every thread calls `sample(pixel, s, has)` in every round,
+// `has` saying whether it has a sample there (trace_sample_warp's
+// contract); the values of those that have one are summed as before.
+template <bool kWarpWide = false, class Sample>
 __device__ __forceinline__ void render_samples(const SampleSplit& split,
                                                int64_t n_px,
                                                const Sample& sample,
@@ -113,7 +116,15 @@ __device__ __forceinline__ void render_samples(const SampleSplit& split,
   Vec3 acc = {0.0f, 0.0f, 0.0f};
   for (int r = 0; r < split.rounds; ++r) {
     const int s = r * split.chunk + u.j;
-    if (u.live && s < split.spp) {
+    const bool has = u.live && s < split.spp;
+    if constexpr (kWarpWide) {
+      const Vec3 l = sample(u.pixel, s, has);
+      if (has) {
+        buf[0][t] = l.x;
+        buf[1][t] = l.y;
+        buf[2][t] = l.z;
+      }
+    } else if (has) {
       const Vec3 l = sample(u.pixel, s);
       buf[0][t] = l.x;
       buf[1][t] = l.y;
@@ -172,6 +183,32 @@ __device__ __forceinline__ void trace_samples(const Intersect& intersect,
   }
 }
 
+// trace_sample for every thread of a warp together, for an intersector
+// that the whole warp calls at once (superleaf.cuh:WarpBlockIntersect):
+// each bounce, every thread calls intersect(o, d, live) until no thread of
+// the warp has a live path; a thread whose path ended, or that has no
+// sample (`has` false), passes live = false.  A live path runs
+// trace_sample's operations: the same start, the same bounces, the same
+// value.
+template <class Intersect>
+__device__ __forceinline__ Vec3 trace_sample_warp(
+    const Intersect& intersect, const float* cam, bool has_lens,
+    uint32_t pixel, float row_f, float col_f, uint32_t seed, int s,
+    bool has, int max_depth, float du, float dv) {
+  Path p{};
+  if (has) {
+    p = start_path(cam, has_lens, pixel, row_f, col_f, seed, s, max_depth,
+                   du, dv);
+  }
+  bool live = has && max_depth > 0;
+  for (int b = 0; __any_sync(0xffffffffu, live); ++b) {
+    if constexpr (WantsBounce<Intersect>::value) intersect.begin_bounce(b);
+    const SurfaceHit h = intersect(p.o, p.d, live);
+    if (live) live = shade_path(p, h, b, pixel, seed) && b + 1 < max_depth;
+  }
+  return {p.lr, p.lg, p.lb};
+}
+
 // Copy the camera, sphere and material tables to the start of the dynamic
 // shared memory, one after another; the caller's barrier follows.
 __device__ __forceinline__ void stage_mesh_tables(
@@ -206,7 +243,7 @@ __device__ __forceinline__ void stage_mesh_tables(
 // draws, so a shard of rows or samples draws what the whole frame draws
 // there (the Pallas kernel's off_ref).  The output is indexed by the
 // local pixel.  At offsets 0 this is the whole frame, to the bit.
-template <class MakeIntersect>
+template <bool kWarpWide = false, class MakeIntersect>
 __device__ __forceinline__ void render_mesh(
     const float* __restrict__ cam_g, const float* __restrict__ sph_g,
     int n_spheres, const float* __restrict__ mat_g, int n_mats,
@@ -223,17 +260,32 @@ __device__ __forceinline__ void render_mesh(
 
   const auto intersect = make(sph, mat);
   const int64_t first = static_cast<int64_t>(row_start) * width;
-  const auto sample = [&](int64_t pixel, int s) {
-    const int64_t global = first + pixel;
-    const int row = static_cast<int>(global / width);  // from the bottom
-    const int col = static_cast<int>(global % width);
-    return trace_sample(intersect, cam, has_lens != 0,
-                        static_cast<uint32_t>(global),
-                        static_cast<float>(row), static_cast<float>(col),
-                        seed, sample_offset + s, max_depth, du, dv);
-  };
-  render_samples(split, static_cast<int64_t>(width) * n_rows, sample, out,
-                 inv_spp);
+  const int64_t n_px = static_cast<int64_t>(width) * n_rows;
+  if constexpr (kWarpWide) {
+    // every thread of the warp traces together (trace_sample_warp)
+    const auto sample = [&](int64_t pixel, int s, bool has) {
+      const int64_t global = first + pixel;
+      const int row = static_cast<int>(global / width);  // from the bottom
+      const int col = static_cast<int>(global % width);
+      return trace_sample_warp(intersect, cam, has_lens != 0,
+                               static_cast<uint32_t>(global),
+                               static_cast<float>(row),
+                               static_cast<float>(col), seed,
+                               sample_offset + s, has, max_depth, du, dv);
+    };
+    render_samples<true>(split, n_px, sample, out, inv_spp);
+  } else {
+    const auto sample = [&](int64_t pixel, int s) {
+      const int64_t global = first + pixel;
+      const int row = static_cast<int>(global / width);  // from the bottom
+      const int col = static_cast<int>(global % width);
+      return trace_sample(intersect, cam, has_lens != 0,
+                          static_cast<uint32_t>(global),
+                          static_cast<float>(row), static_cast<float>(col),
+                          seed, sample_offset + s, max_depth, du, dv);
+    };
+    render_samples(split, n_px, sample, out, inv_spp);
+  }
 }
 
 // The body of kernel #7: render_mesh's tables, intersector and output

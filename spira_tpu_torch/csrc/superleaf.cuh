@@ -32,6 +32,10 @@
 // in lane order keeps the lowest lane of equal hits, the JAX kernel's
 // argmin rule; across blocks the same strict `<` holds.
 //
+// Kernel #2b visits a block with the whole warp, each thread testing a
+// share of its lanes for one ray at a time, and skips the lane groups the
+// ray does not enter (walk_blocks_warp, below).
+//
 // What bounds it: the lane test's ALU work, 50 float instructions and an
 // IEEE division a lane and ray (utils/sol.py), which the TPU ran on its
 // matrix unit.  A record is six 16-byte loads (a broadcast from shared
@@ -52,6 +56,8 @@ namespace spira {
 constexpr int kSuperleaf = 128;  // SUPERLEAF: lanes (triangles) of a block
 constexpr int kBlockRows = 8;    // BLOCK_ROWS: rows of a block in each table
 constexpr int kRecVecs = 6;      // float4s of a lane record (LANE_RECORD = 24)
+constexpr int kLaneGroup = 16;   // LANE_GROUP: lanes a group box bounds
+constexpr int kGroups = kSuperleaf / kLaneGroup;  // group boxes a block
 
 // A ray's lane features: m = o x d, then d and o.
 struct LaneRay {
@@ -175,27 +181,380 @@ __device__ __forceinline__ void lane_payload(const float* __restrict__ cpay,
   h.mid = __ldg(p + 3 * kSuperleaf);
 }
 
-// Superleaf leaves of a pair tree (accel/mxu.py:SuperleafBVH), the leaves
-// of #2b: a leaf child's ptr is a block index (its count is not needed),
-// whose real lanes are read through the read-only path; the payload is
-// read once a visit, for its winner.
+// Superleaf leaves of a pair tree (accel/mxu.py:SuperleafBVH): a leaf
+// child's ptr is a block index (its count is not needed), whose real lanes
+// are read through the read-only path.  The tables of #2b's block visit;
+// called as a leaf visitor of bvh.cuh:walk_packed, one thread tests the
+// block's lanes for its own ray (the serial visit, which the host tests
+// and the variants of bench/superleaf.py run beside #2b's warp-wide one),
+// kBatch records loaded before any is tested, and the payload is read once
+// a visit, for its winner.
+template <int kBatch = 1>
 struct RecordLeaves {
   const float4* rec;
   const int* off;
   const float* cpay;
+  // the blocks' group boxes (accel/mxu.py:lane_group_bounds), read by the
+  // warp-wide visit when it prunes (kPrune, as #2b ships)
+  const float4* groups = nullptr;
 
   __device__ void operator()(int ptr, int /*cnt*/, Vec3 o, Vec3 d,
                              TriHit& h) const {
     LaneHits<1> lh{{lane_ray(o, d)}, {h.t}, {-1}};
     const int begin = __ldg(off + ptr);
-    visit_lanes<1>(rec + begin * kRecVecs, __ldg(off + ptr + 1) - begin, ptr,
-                   lh, GlobalLoad{});
+    const int n = __ldg(off + ptr + 1) - begin;
+    const float4* r0 = rec + begin * kRecVecs;
+    if (kBatch == 1) {
+      visit_lanes<1>(r0, n, ptr, lh, GlobalLoad{});
+    } else {
+      for (int j0 = 0; j0 < n; j0 += kBatch) {
+        float4 r[kBatch][kRecVecs];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (j0 + k < n) {
+#pragma unroll
+            for (int v = 0; v < kRecVecs; ++v) {
+              r[k][v] = __ldg(r0 + (j0 + k) * kRecVecs + v);
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          float t;
+          if (j0 + k < n && lane_hit(r[k], lh.ray[0], lh.t[0], t)) {
+            lh.t[0] = t;
+            lh.slot[0] = ptr * kSuperleaf + j0 + k;
+          }
+        }
+      }
+    }
     if (lh.slot[0] >= 0) {
       h.t = lh.t[0];
       h.slot = lh.slot[0];
       lane_payload(cpay, h.slot, h);
     }
   }
+};
+
+// ---------------------------------------------------------------------------
+// Kernel #2b's warp-wide block visit
+//
+// Each thread walks the pair tree for its own ray (bvh.cuh:walk_packed's
+// steps, in its order), but a leaf child it reaches is not visited by the
+// thread alone: it waits as the thread's pending block (at most two a pop,
+// the nearer first), and the whole warp serves the pending blocks one at a
+// time.  A serve takes the lowest thread with a block pending (a ballot)
+// and sends its ray's features, its best t and the block to every thread
+// (11 shuffles).  Threads 0-7 slab-test the block's group boxes (16 lanes
+// a box) against that ray and best, and a ballot keeps the groups the ray
+// enters before its best (group_mask).  The lanes of those groups are
+// dealt out in lane order: thread i tests the kept lanes i, i + 32, ...
+// against the ray and best, keeping its own nearest hit (strict <: its
+// lowest lane of equal t).  Two warp reductions pick the serve's winner:
+// the least t, as the bits of a positive float order as unsigned integers
+// (a hit has t > kTMin > 0), then the least lane among the threads holding
+// that t.  That is the lane the serial loop keeps, the lowest of equal
+// hits, and its t to the bit: the tester computes lane_hit on the same
+// record and features.  The owner takes it, then its next pending block.
+// Blocks are served in each ray's own order, each with the best t its
+// earlier blocks left, so a ray's hits, ties across blocks included (the
+// earlier block wins), are the serial walk's.  The winner's payload is
+// read once, after the walk.
+//
+// A skipped group cannot hold the winner: its box bounds its triangles
+// padded outward (accel/mxu.py:lane_group_bounds, GROUP_PAD), so a ray
+// that first meets it past its best meets every triangle in it past its
+// best, by more than the rounding of either distance; a float lane t below
+// the exact one by more than the padding (a ray within about 0.01 degrees
+// of a triangle's plane) is the one case the padding does not cover.
+// Bit-equal to the plain version on every frame the tests and
+// chip_smoke.py hold.
+//
+// Why: one thread per (pixel, sample) path, a warp's rays diverge after
+// the first bounce, and a serial visit of up to 128 lanes held the other
+// 31 threads of the warp idle, at 2% of its bound (PERF.md).  Served
+// by the warp, a visit is ceil(kept lanes / 32) rounds of coalesced record
+// loads, whoever asks for it; threads whose path ended serve too.  A block
+// packs several cut nodes (first fit), so a ray entering one of them
+// enters few of the block's groups: on the bunny the lanes tested fall to
+// about a third (PERF.md).
+//
+// Every thread of the warp calls the walk together (`live`: whether the
+// thread has a ray), so the warp's primitives run over all 32 lanes.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarp = 32;
+
+#ifdef __CUDACC__
+// The warp's primitives over all of its 32 threads (the host tests supply
+// their own with the same methods).
+struct FullWarp {
+  __device__ __forceinline__ int lane() const { return threadIdx.x & 31; }
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return __ballot_sync(0xffffffffu, p);
+  }
+  __device__ __forceinline__ bool any(bool p) const {
+    return __any_sync(0xffffffffu, p);
+  }
+  template <class T>
+  __device__ __forceinline__ T shfl(T v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src);
+  }
+  __device__ __forceinline__ unsigned min(unsigned v) const {
+    return __reduce_min_sync(0xffffffffu, v);
+  }
+};
+#endif
+
+// The walk's stack of records to visit, `N` entries in the thread's local
+// memory (bvh.cuh:LocalStack has kStackSize): a tree at most N pair
+// records deep.  #2b ships N = kStackSize, which the wrappers' depth check
+// covers; bench/superleaf.py also times a 32-entry stack.
+template <int N>
+struct SizedStack {
+  int s[N];
+
+  __device__ __forceinline__ void put(int i, int v) { s[i] = v; }
+  __device__ __forceinline__ int get(int i) const { return s[i]; }
+};
+
+// The position of the k-th set bit of mask (k counted from 0).
+__device__ __forceinline__ int nth_bit(unsigned mask, int k) {
+  for (int q = 0; q < k; ++q) mask &= mask - 1;
+  return __ffs(mask) - 1;
+}
+
+// This thread's share of one serve: lanes lane(), lane() + 32, ... below n
+// of the records at rec against f, below t (which it lowers; `lane` takes
+// the block lane of its nearest hit, -1: none), kBatch records loaded
+// before any of them is tested.  With kPrune the shares run over the
+// lanes of the groups whose bit is set in `groups` (16 lanes a group, in
+// lane order), the others skipped.
+template <int kBatch, bool kPrune, class Warp>
+__device__ __forceinline__ void serve_share(const float4* rec, int n,
+                                            unsigned groups,
+                                            const LaneRay& f, float& t,
+                                            int& lane, const Warp& w) {
+  const int m = kPrune ? __popc(groups) * kLaneGroup : n;
+  const auto lane_of = [&](int i) {
+    if constexpr (kPrune) {
+      return nth_bit(groups, i / kLaneGroup) * kLaneGroup + i % kLaneGroup;
+    } else {
+      return i;
+    }
+  };
+  for (int i0 = w.lane(); i0 < m; i0 += kWarp * kBatch) {
+    float4 r[kBatch][kRecVecs];
+    int j[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      j[k] = i0 + kWarp * k < m ? lane_of(i0 + kWarp * k) : n;
+      if (j[k] < n) {
+#pragma unroll
+        for (int v = 0; v < kRecVecs; ++v) {
+          r[k][v] = __ldg(rec + j[k] * kRecVecs + v);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      float tt;
+      if (j[k] < n && lane_hit(r[k], f, t, tt)) {
+        t = tt;
+        lane = j[k];
+      }
+    }
+  }
+}
+
+// The lanes below n of the groups whose bit is set in `groups` (the last
+// group holds the lanes past its first below n).
+__device__ __forceinline__ int lanes_in(unsigned groups, int n) {
+  const int last = n > 0 ? (n - 1) / kLaneGroup : 0;
+  const int past = (groups >> last) & 1u ? (last + 1) * kLaneGroup - n : 0;
+  return __popc(groups) * kLaneGroup - past;
+}
+
+// Which group boxes of block `block` the ray o, d (inv: its reciprocal
+// direction, as the walk takes it) enters at a distance not past best,
+// one bit a group: thread g < the block's groups slab-tests box g
+// (bvh.cuh:slab_child, as the walk tests a child), then a ballot.  A
+// box holds its 16 lanes' triangles padded outward, so a group whose bit
+// is clear has no lane that could pass t < best.
+template <class Warp>
+__device__ __forceinline__ unsigned group_mask(const float4* groups,
+                                               int block, int n, Vec3 o,
+                                               Vec3 inv, float best,
+                                               const Warp& w) {
+  bool enter = false;
+  if (w.lane() < (n + kLaneGroup - 1) / kLaneGroup) {
+    const float4* g =
+        groups + (static_cast<int64_t>(block) * kGroups + w.lane()) * 2;
+    enter = slab_child(__ldg(g), __ldg(g + 1), o, inv, best).hit;
+  }
+  return w.ballot(enter);
+}
+
+// Serve every pending block of the warp's threads (pend0, then pend1),
+// one block at a time with the whole warp, each against its owner's ray
+// features f and best h.t; the owner takes the nearest hit below its best
+// (h.t, h.slot = block * 128 + lane) and counts the visit and the lanes it
+// tested.
+// With kPrune a block's lanes are tested only in the groups whose box the
+// owner's ray enters before its best (group_mask).
+template <int kBatch, bool kPrune, class Warp, class Count>
+__device__ __forceinline__ void serve_blocks(const RecordLeaves<>& leaves,
+                                             const LaneRay& f, int& pend0,
+                                             int& pend1, TriHit& h,
+                                             Count& count, const Warp& w) {
+  for (unsigned want = w.ballot(pend0 >= 0); want != 0;
+       want = w.ballot(pend0 >= 0)) {
+    const int owner = __ffs(want) - 1;
+    const int block = w.shfl(pend0, owner);
+    const LaneRay g = {w.shfl(f.mx, owner), w.shfl(f.my, owner),
+                       w.shfl(f.mz, owner), w.shfl(f.dx, owner),
+                       w.shfl(f.dy, owner), w.shfl(f.dz, owner),
+                       w.shfl(f.ox, owner), w.shfl(f.oy, owner),
+                       w.shfl(f.oz, owner)};
+    float t = w.shfl(h.t, owner);
+    const int begin = __ldg(leaves.off + block);
+    const int n = __ldg(leaves.off + block + 1) - begin;
+    unsigned groups = 0xffffffffu;
+    if constexpr (kPrune) {
+      const Vec3 o = {g.ox, g.oy, g.oz};
+      const Vec3 inv = {fabsf(g.dx) > 1e-12f ? 1.0f / g.dx : 1e12f,
+                        fabsf(g.dy) > 1e-12f ? 1.0f / g.dy : 1e12f,
+                        fabsf(g.dz) > 1e-12f ? 1.0f / g.dz : 1e12f};
+      groups = group_mask(leaves.groups, block, n, o, inv, t, w);
+    }
+    int lane = -1;
+    serve_share<kBatch, kPrune>(leaves.rec + begin * kRecVecs, n, groups, g,
+                                t, lane, w);
+    const unsigned key = lane >= 0 ? __float_as_uint(t) : 0xffffffffu;
+    const unsigned least = w.min(key);
+    const unsigned first =
+        w.min(key == least ? static_cast<unsigned>(lane) : 0xffffffffu);
+    if (w.lane() == owner) {
+      count.leaf(kPrune ? lanes_in(groups, n) : n);
+      if (least != 0xffffffffu) {
+        h.t = __uint_as_float(least);
+        h.slot = block * kSuperleaf + static_cast<int>(first);
+      }
+      pend0 = pend1;
+      pend1 = -1;
+    }
+  }
+}
+
+// The nearest block hit below h.t over the whole superleaf tree, every
+// thread of the warp together (`live`: the thread has a ray o, d; the
+// others serve): walk_packed's pops, slab tests, order and pushes, each
+// leaf child served by the warp (serve_blocks) before the thread's next
+// pop.  h.slot comes in as -1; the winner's payload (normal, material id)
+// is read once, at the end.
+template <int kBatch, bool kPrune = false, class Warp, class Count,
+          class Stack>
+__device__ __forceinline__ void walk_blocks_warp(
+    const float4* __restrict__ pairs, const RecordLeaves<>& leaves, int root,
+    Vec3 o, Vec3 d, bool live, TriHit& h, Count& count, Stack& stack,
+    const Warp& w) {
+  const Vec3 inv = {fabsf(d.x) > 1e-12f ? 1.0f / d.x : 1e12f,
+                    fabsf(d.y) > 1e-12f ? 1.0f / d.y : 1e12f,
+                    fabsf(d.z) > 1e-12f ? 1.0f / d.z : 1e12f};
+  const LaneRay f = lane_ray(o, d);
+  int sp = 0;
+  if (live) {
+    stack.put(sp++, root);
+    count.walk();
+  }
+  int pend0 = -1, pend1 = -1;
+  while (w.any(sp > 0)) {
+    if (sp > 0) {
+      const float4* r = pairs + static_cast<int64_t>(stack.get(--sp)) * 4;
+      count.pop();
+      const float best = h.t;
+      const Child c0 = slab_child(__ldg(r), __ldg(r + 1), o, inv, best);
+      const Child c1 = slab_child(__ldg(r + 2), __ldg(r + 3), o, inv, best);
+      const bool near0 = c0.tn <= c1.tn;
+      const Child cn = near0 ? c0 : c1;
+      const Child cf = near0 ? c1 : c0;
+      if (cn.hit && cn.cnt > 0) pend0 = cn.ptr;
+      if (cf.hit && cf.cnt > 0) (pend0 < 0 ? pend0 : pend1) = cf.ptr;
+      if (cf.hit && cf.cnt == 0) {
+        count.push();
+        stack.put(sp++, cf.ptr);
+      }
+      if (cn.hit && cn.cnt == 0) {
+        count.push();
+        stack.put(sp++, cn.ptr);
+      }
+    }
+    serve_blocks<kBatch, kPrune>(leaves, f, pend0, pend1, h, count, w);
+  }
+  if (h.slot >= 0) lane_payload(leaves.cpay, h.slot, h);
+}
+
+// The intersector of #2b: spheres first (their nearest hit seeds best_t),
+// then walk_blocks_warp over the superleaf tree, kBatch records a thread
+// loaded before any is tested, the walk's stack kStack entries.  Every
+// thread of the warp calls it together; `live` says whether the thread's
+// ray o, d is asked for (a thread without one gets a miss and serves the
+// others).  `intersect` counts the walk into `count` (NoCount or
+// WalkCounts).
+template <int kBatch, int kStack, bool kPrune = false>
+struct WarpBlockIntersect {
+  const float* spheres;
+  int n_spheres;
+  const float* mats;
+  const float4* pairs;
+  RecordLeaves<> leaves;
+  int root;
+
+#ifdef __CUDACC__
+  template <class Count>
+  __device__ SurfaceHit intersect(Vec3 o, Vec3 d, bool live,
+                                  Count& count) const {
+    float best_t = kInf;
+    int sphere = -1;
+    if (live) sphere = nearest_sphere(spheres, n_spheres, o, d, best_t);
+    TriHit th{best_t, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
+    SizedStack<kStack> stack;
+    walk_blocks_warp<kBatch, kPrune>(pairs, leaves, root, o, d, live, th,
+                                     count, stack, FullWarp{});
+    if (!live) {
+      SurfaceHit miss;
+      miss.hit = false;
+      return miss;
+    }
+    return resolve_hit<kSphereFields, kMatFields>(spheres, sphere, mats, th,
+                                                  o, d);
+  }
+
+  __device__ SurfaceHit operator()(Vec3 o, Vec3 d, bool live) const {
+    NoCount none;
+    return intersect(o, d, live, none);
+  }
+#endif
+};
+
+// WarpBlockIntersect counting its walks into *counts (bvh.cuh:WalkCounts:
+// leaf_visits the blocks served for this thread, leaf_tris the lanes
+// tested for it: with kPrune the real lanes of the groups its ray enters),
+// and the segments that hit a surface; takes the bounce index.
+template <int kBatch, int kStack, bool kPrune>
+struct WarpCountingIntersect {
+  WarpBlockIntersect<kBatch, kStack, kPrune> tree;
+  WalkCounts* counts;
+
+#ifdef __CUDACC__
+  __device__ void begin_bounce(int b) const { counts->bounce = b; }
+
+  __device__ SurfaceHit operator()(Vec3 o, Vec3 d, bool live) const {
+    const SurfaceHit h = tree.intersect(o, d, live, *counts);
+    if (live && h.hit) ++counts->hits;
+    return h;
+  }
+#endif
 };
 
 // Spheres first (their nearest hit seeds best_t), then every block's real

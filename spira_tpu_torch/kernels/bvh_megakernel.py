@@ -21,9 +21,10 @@ at equal distance.
   frame's work counters; on the CPU, :func:`render_bvh_counters_fused`.
 * :func:`render_flat_bvh_mxu_megakernel` — the same tracer and walk over
   a :class:`~spira_tpu_torch.accel.mxu.SuperleafBVH` whose leaves are
-  128-triangle Plücker blocks (``spira_bvh_mxu_render``, the leaf visit
-  of ``csrc/superleaf.cuh``); ``render_flat_bvh_megakernel(...,
-  mxu_leaf=True)`` runs it.
+  128-triangle Plücker blocks (``spira_bvh_mxu_render``, kernel #2b:
+  each block visit served by the whole warp, its lane groups pruned by
+  their boxes, ``csrc/superleaf.cuh:walk_blocks_warp``);
+  ``render_flat_bvh_megakernel(..., mxu_leaf=True)`` runs it.
 * The plain version: :func:`packed_walk`, a per-ray depth-first stack walk
   vectorised over all rays in lockstep, with a leaf visitor for row leaves
   (:func:`_leaf_hits`) or superleaf blocks (:func:`_block_hits`), and
@@ -51,7 +52,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..accel.mxu import BLOCK_ROWS, LANE_RECORD, SUPERLEAF, SuperleafBVH
+from ..accel.mxu import (BLOCK_ROWS, GROUPS, LANE_GROUP, LANE_RECORD,
+                         SUPERLEAF, SuperleafBVH)
 from ..accel.pairs import TRI_STRIDE, TRIS_PER_ROW, check_stack_depth
 from ..accel.traverse import _winner_triangle_hit
 from ..core.vecmath import INF
@@ -198,7 +200,7 @@ def block_views(tables):
             tables.coeff_pay.view(-1, BLOCK_ROWS, SUPERLEAF))
 
 
-def lane_hits(uv, tc, o, d, best):
+def lane_hits(uv, tc, o, d, best, keep=None):
     """The superleaf lane test of ``csrc/superleaf.cuh:lane_hit``: the
     nearest of a block's 128 lanes that beats ``best``, for each ray.
 
@@ -210,7 +212,8 @@ def lane_hits(uv, tc, o, d, best):
     and t, and the hit test of ``spira_tpu/kernels/mxu_megakernel.py:
     129-135``.  Returns (won (L,) bool, t (L,), lane (L,) long): the
     lowest lane of equal t, as a strict-``<`` scan in lane order finds
-    it."""
+    it.  ``keep`` (L, 128) bool, if given, leaves the lanes it clears
+    out."""
     ox, oy, oz = (o[:, k, None] for k in range(3))
     dx, dy, dz = (d[:, k, None] for k in range(3))
     feats = (oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
@@ -228,6 +231,8 @@ def lane_hits(uv, tc, o, d, best):
     tt = tn * idet
     hit = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > mk.T_MIN)
            & (tt < best[:, None]) & (det.abs() > 1e-12))
+    if keep is not None:
+        hit = hit & keep
     tt = torch.where(hit, tt, torch.inf)
     lane = torch.argmin(tt, dim=1)
     t = tt.gather(1, lane[:, None])[:, 0]
@@ -241,6 +246,44 @@ def _block_hits(views, ptr, o, d, best):
     won, t, lane = lane_hits(uv[ptr], tc[ptr], o, d, best)
     rows = pay[ptr, 0:4].gather(2, lane[:, None, None].expand(-1, 4, 1))
     return won, t, rows[:, 0:3, 0], rows[:, 3, 0], ptr * SUPERLEAF + lane
+
+
+def block_hits_pruned(views, groups, ptr, o, d, best):
+    """:func:`_block_hits` leaving out the lanes of each group whose box
+    (``groups``: :func:`~spira_tpu_torch.accel.mxu.lane_group_bounds`) the
+    ray does not enter at a distance up to ``best`` (the walk's slab test,
+    :func:`_slab`): the plain version of #2b's pruning visit
+    (``csrc/superleaf.cuh:group_mask``), which gives the same hits because
+    the boxes are padded.  Also returns the (L, 8) groups entered."""
+    uv, tc, pay = views
+    inv = torch.where(d.abs() > 1e-12, 1.0 / d, 1e12)
+    boxes = groups.view(-1, GROUPS, 8)[ptr]
+    enter = torch.stack([_slab(boxes[:, g], 0, o, inv, best)[0]
+                         for g in range(GROUPS)], 1)
+    won, t, lane = lane_hits(uv[ptr], tc[ptr], o, d, best,
+                             keep=enter.repeat_interleave(LANE_GROUP, 1))
+    rows = pay[ptr, 0:4].gather(2, lane[:, None, None].expand(-1, 4, 1))
+    return (won, t, rows[:, 0:3, 0], rows[:, 3, 0], ptr * SUPERLEAF + lane,
+            enter)
+
+
+def _pruned_visitor(packed):
+    """``visit(ptr, cnt, o, d, best) -> (won, t, normal, mat, slot,
+    lanes tested)`` over the blocks of a SuperleafBVH, as #2b visits them:
+    :func:`block_hits_pruned`, and the real lanes of the groups it
+    enters."""
+    views = block_views(packed)
+    real = packed.lanes.offsets.diff().long()
+    lane = torch.arange(SUPERLEAF, device=real.device)
+
+    def visit(ptr, cnt, o, d, best):
+        *hits, enter = block_hits_pruned(views, packed.groups, ptr, o, d,
+                                         best)
+        tested = (enter.repeat_interleave(LANE_GROUP, 1)
+                  & (lane[None] < real[ptr][:, None])).sum(1)
+        return (*hits, tested)
+
+    return visit
 
 
 def _leaf_visitor(packed):
@@ -274,17 +317,20 @@ def packed_walk(packed, o, d, best, active=None, counts=None,
     lockstep, one record per ray and step, and a ray leaves the step set
     when its stack empties.
 
-    ``counts`` (:func:`new_counts`, row leaves only) adds each ray's work
-    to its entries, as the counting kernel counts it per thread
-    (``csrc/bvh.cuh:WalkCounts``): ``traversals`` (this walk), ``pops``,
-    ``pushes``, ``leaf_visits``, ``leaf_tris`` and, with ``primary`` (the
-    walk of bounce 0), ``leaf_visits_primary``."""
-    if counts is not None and isinstance(packed, SuperleafBVH):
-        raise ValueError("counts: the counting walk takes row leaves")
+    ``counts`` (:func:`new_counts`) adds each ray's work to its entries,
+    as the counting kernels count it per thread (``csrc/bvh.cuh:
+    WalkCounts``): ``traversals`` (this walk), ``pops``, ``pushes``,
+    ``leaf_visits``, ``leaf_tris`` and, with ``primary`` (the walk of
+    bounce 0), ``leaf_visits_primary``.  Over superleaf blocks the
+    counting walk visits them as kernel #2b does, through
+    :func:`block_hits_pruned` (the same hits), and ``leaf_tris`` counts
+    the lanes it tests: the real lanes of the groups entered."""
     n_rays = o.shape[0]
     dev = o.device
     pairs = packed.pairs
     visit = _leaf_visitor(packed)
+    if counts is not None and isinstance(packed, SuperleafBVH):
+        visit = _pruned_visitor(packed)
     inv = torch.where(d.abs() > 1e-12, 1.0 / d, 1e12)
     t = best.clone()
     nrm = torch.zeros_like(o)
@@ -317,13 +363,14 @@ def packed_walk(packed, o, d, best, active=None, counts=None,
             sel = (hit & (cnt > 0.5)).nonzero()[:, 0]
             if sel.numel():
                 g = live[sel]
+                won, tw, nw, mw, sw, *tested = visit(
+                    ptr[sel], cnt[sel], o_l[sel], d_l[sel], t[g])
                 if counts is not None:
                     counts["leaf_visits"][g] += 1
-                    counts["leaf_tris"][g] += cnt[sel].long()
+                    counts["leaf_tris"][g] += (tested[0] if tested
+                                               else cnt[sel].long())
                     if primary:
                         counts["leaf_visits_primary"][g] += 1
-                won, tw, nw, mw, sw = visit(ptr[sel], cnt[sel], o_l[sel],
-                                            d_l[sel], t[g])
                 g = g[won]
                 t[g] = tw[won]
                 nrm[g] = nw[won]
@@ -486,11 +533,13 @@ def render_bvh_counters_fused(
     max_depth: int = 4,
     seed: int = 0,
     inclusive_uv: bool = True,
+    mxu_leaf: bool = False,
 ):
     """The plain version of :func:`render_bvh_with_counters`: the render
     of :func:`render_flat_bvh_fused` with the walk counting each pixel's
-    work; returns (flat (H*W, 3), per-pixel counts {name: (H*W,) int64})."""
-    packed = _require_tree(scene)
+    work; returns (flat (H*W, 3), per-pixel counts {name: (H*W,) int64}).
+    ``mxu_leaf`` walks the superleaf tree on ``scene.wide``."""
+    packed = _require_tree(scene, mxu_leaf)
     counts = new_counts(width * height, scene.device)
     intersect = make_packed_intersect(sphere_tuples(scene), packed,
                                       pack_materials(scene.materials),
@@ -593,6 +642,34 @@ def check_lane_records(tables, device, n_blocks):
     return lanes
 
 
+def check_group_bounds(tree, device):
+    """The group boxes of a superleaf tree (``tree.groups``, derived on
+    ``device`` at first use) as #2b reads them; returns them."""
+    groups = tree.groups
+    _check_aligned("superleaf group boxes", groups, device, 4)
+    if groups.shape[0] != tree.n_blocks * GROUPS * 2:
+        raise ValueError(f"superleaf group boxes have {groups.shape[0]} "
+                         f"rows, not {GROUPS * 2} for each of "
+                         f"{tree.n_blocks} blocks")
+    return groups
+
+
+def _mxu_tree_args(tree, device):
+    """#2b's tree arguments (pairs, lane records, offsets, payload, group
+    boxes, root), checked."""
+    _check_aligned("superleaf pairs", tree.pairs, device, 16)
+    _check_root(tree)
+    lanes = check_lane_records(tree, device, tree.n_blocks)
+    groups = check_group_bounds(tree, device)
+    return (tree.pairs.data_ptr(), lanes.records.data_ptr(),
+            lanes.offsets.data_ptr(), tree.coeff_pay.data_ptr(),
+            groups.data_ptr(), tree.root)
+
+
+#: #2b's tree argument types (:func:`_mxu_tree_args`)
+_MXU_TREE = (_VP, _VP, _VP, _VP, _VP, _I)
+
+
 def launch_render(what, library, symbol, tree_argtypes, tree_args, scene,
                   camera, *, width, height, spp, max_depth, seed,
                   inclusive_uv, rows=None, normalize=True):
@@ -681,17 +758,10 @@ def _launch_bvh(scene, camera, *, mxu_leaf=False, rows=None, normalize=True,
     ``render_flat_bvh_mxu_megakernel.launches``."""
     tree = _require_tree(scene, mxu_leaf)
     if mxu_leaf:
-        device = scene.device
-        _check_aligned("superleaf pairs", tree.pairs, device, 16)
-        _check_root(tree)
-        lanes = check_lane_records(tree, device, tree.n_blocks)
         out = launch_render(
             "bvh_mxu_megakernel", "bvh_megakernel", "spira_bvh_mxu_render",
-            (_VP, _VP, _VP, _VP, _I),  # pairs, records, offsets, pay, root
-            (tree.pairs.data_ptr(), lanes.records.data_ptr(),
-             lanes.offsets.data_ptr(), tree.coeff_pay.data_ptr(), tree.root),
-            scene, camera, rows=rows or (kw["height"], 0, 0),
-            normalize=normalize, **kw)
+            _MXU_TREE, _mxu_tree_args(tree, scene.device), scene, camera,
+            rows=rows or (kw["height"], 0, 0), normalize=normalize, **kw)
         render_flat_bvh_mxu_megakernel.launches += 1
         return out
     _check_tree_tables(tree, scene.device)
@@ -744,6 +814,7 @@ def render_bvh_with_counters(
     max_depth: int = 4,
     seed: int = 0,
     inclusive_uv: bool = True,
+    mxu_leaf: bool = False,
 ):
     """The packed-BVH render and its work counters: (flat (H*W, 3)
     bottom-up HDR buffer, {counter: total over the frame}), the
@@ -764,17 +835,31 @@ def render_bvh_with_counters(
     (``spira_bvh_megakernel_render_counted``: the same image as
     :func:`render_flat_bvh_megakernel` on the same seed) and adds one to
     ``render_bvh_with_counters.launches``; a scene on the CPU runs
-    :func:`render_bvh_counters_fused`.  Row leaves only (``scene.packed``).
+    :func:`render_bvh_counters_fused`.  ``mxu_leaf`` counts kernel #2b
+    over the superleaf tree on ``scene.wide`` instead
+    (``spira_bvh_mxu_render_counted``, the image of
+    :func:`render_flat_bvh_mxu_megakernel`): ``leaf_visits`` are the
+    blocks visited and ``leaf_tris`` their real lanes, all of which it
+    tests.
     """
-    packed = _require_tree(scene)
+    packed = _require_tree(scene, mxu_leaf)
     kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
               seed=seed, inclusive_uv=inclusive_uv)
     if scene.device.type == "cpu":
-        flat, counts = render_bvh_counters_fused(scene, camera, **kw)
+        flat, counts = render_bvh_counters_fused(scene, camera,
+                                                 mxu_leaf=mxu_leaf, **kw)
         return flat, {k: int(v.sum()) for k, v in counts.items()}
-    _check_tree_tables(packed, scene.device)
     totals = torch.zeros(len(COUNTERS), dtype=torch.int64,
                          device=scene.device)
+    if mxu_leaf:
+        out = launch_render(
+            "bvh_mxu_megakernel_counted", "bvh_megakernel",
+            "spira_bvh_mxu_render_counted", _MXU_TREE + (_VP,),  # totals
+            _mxu_tree_args(packed, scene.device) + (totals.data_ptr(),),
+            scene, camera, **kw)
+        render_bvh_with_counters.launches += 1
+        return out, dict(zip(COUNTERS, totals.tolist()))
+    _check_tree_tables(packed, scene.device)
     out = launch_render(
         "bvh_megakernel_counted", "bvh_megakernel",
         "spira_bvh_megakernel_render_counted",
@@ -806,12 +891,15 @@ def render_flat_bvh_mxu_megakernel(
 
     Requires a :class:`~spira_tpu_torch.accel.mxu.SuperleafBVH` on
     ``scene.wide`` (:func:`spira_tpu_torch.accel.mxu.attach_superleaf`).
-    A scene on a CUDA device launches ``spira_bvh_mxu_render`` (the walk
-    of kernel #2 with the block visit of ``csrc/superleaf.cuh``) and adds
-    one to ``render_flat_bvh_mxu_megakernel.launches``; a scene on the
-    CPU runs :func:`render_flat_bvh_fused` with ``mxu_leaf=True``.  The
-    fp32 result is the JAX kernel's ``mxu_precision="highest"``; that TPU
-    knob is not taken.
+    A scene on a CUDA device launches ``spira_bvh_mxu_render`` (kernel
+    #2b: the walk of kernel #2, each block visit served by the whole warp
+    and skipping the lane groups whose box the ray does not enter before
+    its best, ``csrc/superleaf.cuh:walk_blocks_warp``, over the tree's
+    ``lanes`` and ``groups``) and adds one to
+    ``render_flat_bvh_mxu_megakernel.launches``; a scene on the CPU runs
+    :func:`render_flat_bvh_fused` with ``mxu_leaf=True``.  The fp32
+    result is the JAX kernel's ``mxu_precision="highest"``; that TPU knob
+    is not taken.
     """
     kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
               seed=seed, inclusive_uv=inclusive_uv, mxu_leaf=True)

@@ -104,6 +104,9 @@ class Rates:
 #:                o x d, and per lane tested (lane_hit) det/u/v (18
 #:                products, 15 sums), t, 1/det, 3 products, u + v, 6
 #:                compares, |det|; the kernels test a block's real lanes
+#:   group        a lane group's box tested before a block's lanes
+#:                (superleaf.cuh:group_mask, #2b): bvh.cuh:slab_child's 6
+#:                differences, 6 products, 12 min/max and 3 compares
 OPS = dict(
     sphere_test=dict(alu=18),
     tri_test=dict(alu=50, div=1),
@@ -120,6 +123,7 @@ OPS = dict(
     adjoint_hit=dict(alu=198, sqrt=6, div=4, sin=1, cos=1),
     block=dict(alu=9),
     lane=dict(alu=50, div=1),
+    group=dict(alu=27),
 )
 
 
@@ -136,11 +140,14 @@ def walk_units(work: dict, form: str = "bw") -> dict:
     """Units of a BVH walk's inventory (``pops``, ``leaf_tris``,
     ``blocks``: superleaf blocks visited; ``lanes``: the lanes those visits
     test, where a kernel tests only a block's real lanes, else all 128 of
-    each block)."""
+    each block; ``groups``: the lane groups' boxes they test first)."""
     leaf = "leaf_tri" if form == "bw" else "leaf_tri_mt"
     blocks = work.get("blocks", 0)
-    return {"pop": work.get("pops", 0), leaf: work.get("leaf_tris", 0),
-            "block": blocks, "lane": work.get("lanes", blocks * SUPERLEAF)}
+    units = {"pop": work.get("pops", 0), leaf: work.get("leaf_tris", 0),
+             "block": blocks, "lane": work.get("lanes", blocks * SUPERLEAF)}
+    if "groups" in work:
+        units["group"] = work["groups"]
+    return units
 
 
 def path_units(work: dict, samples: int, n_spheres: int, n_tris: int, *,

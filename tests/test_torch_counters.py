@@ -118,18 +118,45 @@ def test_counters_image_matches_jax(mesh):
 
 
 def test_counters_refusals(mesh):
-    """The counting walk takes row leaves only; a scene without packed
-    tables raises."""
+    """A scene without packed tables raises, and so does one without a
+    superleaf tree when the superleaf walk (#2b) is asked for."""
     _, (scene, cam) = mesh
-    tree = mxu.pack_bvh_superleaf(scene.bvh, scene.triangles, 128)
-    o = torch.zeros((4, 3))
-    d = torch.tensor([[0.0, 0.0, -1.0]]).expand(4, 3).contiguous()
-    with pytest.raises(ValueError):
-        tbk.packed_walk(tree, o, d, torch.full((4,), 1e20),
-                        counts=tbk.new_counts(4, "cpu"))
     bare = sp.create_mesh_scene(subdivisions=0, device="cpu")
     with pytest.raises(ValueError):
         tbk.render_bvh_with_counters(bare, cam, width=4, height=4, spp=1)
+    with pytest.raises(ValueError, match="attach_superleaf"):
+        tbk.render_bvh_with_counters(scene, cam, width=4, height=4, spp=1,
+                                     mxu_leaf=True)
+
+
+def test_superleaf_counters_match_count_work(mesh):
+    """#2b's counts (``mxu_leaf=True``) on the CPU: the image bit-equal to
+    ``render_flat_bvh_fused(mxu_leaf=True)``'s; traversals, pops and hits
+    ``count_work``'s on the same render; leaf_visits its blocks visited and
+    leaf_tris the lanes the kernel tests, the real lanes of the groups the
+    ray enters (``block_groups``), fewer than the blocks' real lanes
+    (``block_lanes``); pops == traversals + pushes."""
+    _, (scene, cam) = mesh
+    scene = mxu.attach_superleaf(scene)
+    kw = dict(width=64, height=16, spp=2, max_depth=3, seed=2)
+    before = tbk.render_bvh_with_counters.launches
+    img, c = tbk.render_bvh_with_counters(scene, cam, mxu_leaf=True, **kw)
+    assert tbk.render_bvh_with_counters.launches == before
+    assert torch.equal(img, tbk.render_flat_bvh_fused(scene, cam,
+                                                      mxu_leaf=True, **kw))
+    assert c["pops"] == c["traversals"] + c["pushes"]
+    work = chip_smoke.count_work(
+        tbk, "make_packed_intersect",
+        lambda: tbk.render_flat_bvh_fused(scene, cam, mxu_leaf=True, **kw),
+        block_lanes=scene.wide.lanes.offsets.diff(),
+        block_groups=scene.wide.groups)
+    assert c["traversals"] == work["segments"]
+    assert c["pops"] == work["pops"]
+    assert c["hits"] == work["hits"]
+    assert c["leaf_visits"] == work["blocks"] > c["leaf_visits_primary"] > 0
+    assert c["leaf_tris"] == work["lanes_tested"] < work["lanes"]
+    assert work["lanes"] < mxu.SUPERLEAF * work["blocks"]  # real lanes only
+    assert work["blocks"] <= work["groups"] <= mxu.GROUPS * work["blocks"]
 
 
 TRACE_MAIN = r"""

@@ -45,7 +45,10 @@ from spira_tpu_torch.kernels import spectral_fused as sf
 from spira_tpu_torch.render import mesh_replay_launches
 from spira_tpu_torch.scene.geometry import empty_spheres
 from spira_tpu_torch.scene.obj import icosphere
-from tests.test_torch_superleaf_host import (blocks_twice, deep_tree_scene,
+from tests.test_torch_superleaf_host import (blocks_twice,
+                                             chain_twice_scene,
+                                             deep_tree_scene, one_block_scene,
+                                             twin_block_scene,
                                              twin_mesh_scene, twin_scene)
 
 pytestmark = pytest.mark.cuda
@@ -1129,6 +1132,57 @@ def test_bvh_mxu_render_bits(cuda, spp):
     torch.cuda.synchronize()
     assert got.std() > 1e-3
     assert torch.equal(got, want)
+
+
+#: #2b's scenes of ties and block sizes (tests/test_torch_superleaf_host.py)
+TIE_SCENES = dict(
+    twins=twin_block_scene,  # every triangle twice in one block
+    # one block twice in one leaf chain, slot 0's or slot 1's first
+    chain=lambda device: chain_twice_scene(device=device),
+    chain_swapped=lambda device: chain_twice_scene(swap=True, device=device),
+    one_lane=lambda device: one_block_scene(1, device),
+    full_block=lambda device: one_block_scene(128, device))
+
+
+@pytest.mark.parametrize("kind", TIE_SCENES)
+def test_bvh_mxu_render_bits_on_ties(cuda, kind):
+    """#2b equal to ``render_flat_bvh_fused(mxu_leaf=True)`` to the bit on
+    a ragged frame at spp 3, depth 4, where every hit is a tie within a
+    block (the lower lane wins) or across the two blocks of one leaf chain
+    (the block visited first wins: slot 0's, block 0 or, swapped, block
+    1), and on a block of one real lane and one of 128; one launch."""
+    scene = TIE_SCENES[kind](cuda)
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=3, max_depth=4, seed=5)
+    before = bk.render_flat_bvh_mxu_megakernel.launches
+    got = bk.render_flat_bvh_mxu_megakernel(scene, cam, **kw)
+    assert bk.render_flat_bvh_mxu_megakernel.launches == before + 1
+    want = bk.render_flat_bvh_fused(scene, cam, mxu_leaf=True, **kw)
+    torch.cuda.synchronize()
+    assert got.std() > 1e-3
+    assert torch.equal(got, want)
+
+
+def test_bvh_mxu_counting_build_matches_plain(cuda):
+    """#2b's counting build (``render_bvh_with_counters(mxu_leaf=True)``):
+    its image the uncounted kernel's to the bit, its totals the plain
+    counting walk's (blocks visited, their real lanes, pops, pushes,
+    hits), one launch."""
+    walk = sp.attach_superleaf(_mesh(cuda))
+    cam = sp.make_camera((0.0, 1.0, 3.0), (0.0, 0.0, 0.0),
+                         aspect_ratio=37 / 23, device=cuda)
+    kw = dict(width=37, height=23, spp=3, max_depth=4, seed=2)
+    before = bk.render_bvh_with_counters.launches
+    img, ctr = bk.render_bvh_with_counters(walk, cam, mxu_leaf=True, **kw)
+    assert bk.render_bvh_with_counters.launches == before + 1
+    ref = bk.render_flat_bvh_mxu_megakernel(walk, cam, **kw)
+    plain_img, plain = bk.render_bvh_counters_fused(walk, cam, mxu_leaf=True,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(img, ref) and torch.equal(img, plain_img)
+    assert ctr == {k: int(v.sum()) for k, v in plain.items()}
+    assert ctr["leaf_tris"] > ctr["leaf_visits"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -83,6 +83,16 @@ def test_walk_units_count_real_lanes():
     assert sol.ops_of(units)["div"] == 200
 
 
+def test_walk_units_price_group_boxes():
+    """A visit that tests lane groups' boxes before their lanes (#2b) is
+    priced at the lanes it tests and 27 ALU instructions a box: 3 blocks,
+    20 boxes, 90 lanes."""
+    units = sol.walk_units(dict(blocks=3, lanes=90, groups=20))
+    assert units == dict(pop=0, leaf_tri=0, block=3, lane=90, group=20)
+    assert sol.ops_of(units)["alu"] == 3 * 9 + 90 * 50 + 20 * 27
+    assert sol.ops_of(units)["div"] == 90
+
+
 def test_every_unit_counts_known_classes():
     for unit, ops in sol.OPS.items():
         assert set(ops) <= set(sol.CLASSES), unit

@@ -6,11 +6,16 @@ thread as #8 holds them) against ``intersect_mxu_plain``, and the pair
 walk with superleaf blocks (#2b) or leaf rows (#2, #3) against
 ``intersect_packed_plain``, on the mesh scene and on a tree as deep as the
 walk's stack allows, through a stack accessor that records how deep the
-walk stacks.
+walk stacks; and kernel #2b's warp-wide walk (``walk_blocks_warp``) on 32
+host threads a warp that post each warp primitive's values and meet at a
+barrier (``HostWarp``), with and without its lane groups pruned by their
+boxes (``accel/mxu.py:lane_group_bounds``, held here against the scene's
+triangles).
 
-The headers use no intrinsics but ``__ldg``, so with ``__device__`` and
-``__forceinline__`` defined away and ``float4``/``__ldg`` stubbed a host
-compiler builds them; built with ``-ffp-contract=off`` as the kernels are
+The headers use no intrinsics but ``__ldg``, ``__ffs``, ``__popc`` and
+the float/bit casts outside the device-only warp primitives, so with
+``__device__`` and ``__forceinline__`` defined away and those stubbed a
+host compiler builds them; built with ``-ffp-contract=off`` as the kernels are
 with ``-fmad=false``.  Limit: bit for bit (t, normal, material id and
 winner slot equal), which the same operations in the same order give.
 Skips where no C++ compiler is installed.
@@ -35,8 +40,11 @@ torch.set_num_threads(1)
 
 DRIVER = r"""
 #include <math.h>
+#include <barrier>
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
+#include <thread>
 #include <vector>
 #define __device__
 #define __forceinline__ inline
@@ -47,6 +55,18 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
 #include "superleaf.cuh"
 using namespace spira;
 
@@ -55,13 +75,18 @@ using namespace spira;
 // coeff_pay (B*8, 128), the lane records (L, 24) and int32 offsets (B + 1);
 // modes 2-8: tri_rows (B, 128).  Modes:
 // 0 the lane-record stream (`rays` rays a thread: 1, 2 or 4), 1 the pair
-// walk over blocks (RecordLeaves), 2 and 3 over BW and MT rows, 4 and 5
-// the same walks counting (WalkCounts, bounce 0), 6 the BW walk over
-// HostStack, 7 and 8 the BW and MT walks loading leaf triangles 4 at a
-// time (kernel #3's RowLeaves<kForm, 4>).
-// out: float32 t, normal (n, 3), mat id; int32 slot; modes 4-5: int32
-// pops, pushes, traversals, leaf_visits, leaf_tris, leaf_visits_primary
-// (6, n); mode 6: int32 the deepest stack (n).
+// walk over blocks (RecordLeaves, one thread a visit; `rays` records
+// loaded at a time), 2 and 3 over BW and MT rows, 4 and 5 the same walks
+// counting (WalkCounts, bounce 0), 6 the BW walk over HostStack, 7 and 8
+// the BW and MT walks loading leaf triangles 4 at a time (kernel #3's
+// RowLeaves<kForm, 4>), 9 kernel #2b's warp-wide walk over blocks
+// (walk_blocks_warp, `rays` records a thread loaded at a time), 32 threads
+// of HostWarp a warp, ray i without a ray (live false) where i % 7 == 3;
+// it counts (WalkCounts); 10 the same pruning groups by their boxes (then
+// float32 group boxes (B*8*2, 4) follow the offsets).
+// out: float32 t, normal (n, 3), mat id; int32 slot; modes 4-5 and 9:
+// int32 pops, pushes, traversals, leaf_visits, leaf_tris,
+// leaf_visits_primary (6, n); mode 6: int32 the deepest stack (n).
 
 // The walk's stack as a bounds-checked vector that records the most
 // entries it held.
@@ -74,6 +99,83 @@ struct HostStack {
   }
   int get(int i) const { return s.at(i); }
 };
+// A warp of 32 host threads: each primitive posts the thread's value,
+// waits for the other 31, reads, and waits again before the slots are
+// reused.
+struct WarpSlots {
+  std::barrier<> bar{kWarp};
+  unsigned u[kWarp];
+  float f[kWarp];
+  int i[kWarp];
+};
+struct HostWarp {
+  WarpSlots* w;
+  int id;
+  int lane() const { return id; }
+  unsigned ballot(bool p) const {
+    w->u[id] = p;
+    w->bar.arrive_and_wait();
+    unsigned m = 0;
+    for (int k = 0; k < kWarp; ++k) m |= (w->u[k] ? 1u : 0u) << k;
+    w->bar.arrive_and_wait();
+    return m;
+  }
+  bool any(bool p) const { return ballot(p) != 0; }
+  float shfl(float v, int src) const {
+    w->f[id] = v;
+    w->bar.arrive_and_wait();
+    const float r = w->f[src];
+    w->bar.arrive_and_wait();
+    return r;
+  }
+  int shfl(int v, int src) const {
+    w->i[id] = v;
+    w->bar.arrive_and_wait();
+    const int r = w->i[src];
+    w->bar.arrive_and_wait();
+    return r;
+  }
+  unsigned min(unsigned v) const {
+    w->u[id] = v;
+    w->bar.arrive_and_wait();
+    unsigned m = w->u[0];
+    for (int k = 1; k < kWarp; ++k) m = w->u[k] < m ? w->u[k] : m;
+    w->bar.arrive_and_wait();
+    return m;
+  }
+};
+// Kernel #2b's warp-wide walk of rays 0 .. n - 1, 32 threads a warp, each
+// its own ray; th and c take each ray's result and counts.
+template <int kBatch, bool kPrune = false>
+void warp_walks(const float4* p4, const RecordLeaves<>& leaves, int root,
+                const float* rays, int n, TriHit* th, WalkCounts* c) {
+  for (int w0 = 0; w0 < n; w0 += kWarp) {
+    WarpSlots slots;
+    std::vector<std::thread> warp;
+    for (int l = 0; l < kWarp; ++l) {
+      warp.emplace_back([&, l] {
+        const int i = w0 + l;
+        const bool live = i < n && i % 7 != 3;
+        Vec3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+        if (i < n) {
+          const float* r = rays + 3 * i;
+          o = {r[0], r[1], r[2]};
+          d = {r[3 * n], r[3 * n + 1], r[3 * n + 2]};
+        }
+        TriHit h{kInf, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
+        WalkCounts counts;
+        HostStack stack;
+        walk_blocks_warp<kBatch, kPrune>(p4, leaves, root, o, d, live, h,
+                                         counts, stack, HostWarp{&slots, l});
+        if (i < n) {
+          th[i] = h;
+          c[i] = counts;
+        }
+      });
+    }
+    for (auto& t : warp) t.join();
+  }
+}
 // The lane-record stream of rays i .. i + R - 1 (a ray past n tests
 // zeros, as in kernel #8), each ray's winner payload read after it.
 template <int R>
@@ -105,16 +207,18 @@ int main(int argc, char** argv) {
   if (fread(h, 4, 7, f) != 7) return 1;
   const int mode = h[0], n = h[1], n_pairs = h[2], nb = h[3], root = h[4];
   const int rays_a_thread = h[5], n_lanes = h[6];
-  const bool blocks = mode < 2;
+  const bool blocks = mode < 2 || mode == 9 || mode == 10;
   const size_t n_tab =
       blocks ? static_cast<size_t>(nb) * 8 * 128 + n_lanes * 24
              : static_cast<size_t>(nb) * 128;
   std::vector<float> rays(6 * n), pr(16 * n_pairs), tab(n_tab);
   std::vector<int> off(blocks ? nb + 1 : 0);
+  std::vector<float> groups(mode == 10 ? static_cast<size_t>(nb) * 64 : 0);
   if (fread(rays.data(), 4, rays.size(), f) != rays.size() ||
       fread(pr.data(), 4, pr.size(), f) != pr.size() ||
       fread(tab.data(), 4, tab.size(), f) != tab.size() ||
-      fread(off.data(), 4, off.size(), f) != off.size()) return 1;
+      fread(off.data(), 4, off.size(), f) != off.size() ||
+      fread(groups.data(), 4, groups.size(), f) != groups.size()) return 1;
   fclose(f);
   const float* cpay = tab.data();
   const auto* rec = reinterpret_cast<const float4*>(
@@ -124,6 +228,17 @@ int main(int argc, char** argv) {
   std::vector<float> out(5 * n);
   std::vector<int> slot(n), counts(6 * n);
   std::vector<TriHit> streamed(n);
+  std::vector<WalkCounts> warp_counts(n);
+  const RecordLeaves<> leaves{
+      rec, off.data(), cpay, reinterpret_cast<const float4*>(groups.data())};
+  if (mode == 10) warp_walks<1, true>(
+      p4, leaves, root, rays.data(), n, streamed.data(), warp_counts.data());
+  if (mode == 9 && rays_a_thread == 1) warp_walks<1>(
+      p4, leaves, root, rays.data(), n, streamed.data(), warp_counts.data());
+  if (mode == 9 && rays_a_thread == 2) warp_walks<2>(
+      p4, leaves, root, rays.data(), n, streamed.data(), warp_counts.data());
+  if (mode == 9 && rays_a_thread == 4) warp_walks<4>(
+      p4, leaves, root, rays.data(), n, streamed.data(), warp_counts.data());
   for (int i = 0; mode == 0 && i < n; i += rays_a_thread) {
     if (rays_a_thread == 1) stream_rays<1>(rec, off.data(), nb, cpay,
                                            rays.data(), n, i, &streamed[i]);
@@ -137,13 +252,18 @@ int main(int argc, char** argv) {
     const Vec3 o = {r[0], r[1], r[2]};
     const Vec3 d = {r[3 * n], r[3 * n + 1], r[3 * n + 2]};
     TriHit th{kInf, {0.0f, 0.0f, 0.0f}, -1.0f, -1};
-    if (mode == 0) th = streamed[i];
-    if (mode == 1) {
-      walk_packed(p4, RecordLeaves{rec, off.data(), cpay}, root, o, d, th);
+    if (mode == 0 || mode == 9 || mode == 10) th = streamed[i];
+    if (mode == 1 && rays_a_thread == 1) walk_packed(p4, leaves, root, o, d,
+                                                     th);
+    if (mode == 1 && rays_a_thread == 2) {
+      walk_packed(p4, RecordLeaves<2>{rec, off.data(), cpay}, root, o, d, th);
+    }
+    if (mode == 1 && rays_a_thread == 4) {
+      walk_packed(p4, RecordLeaves<4>{rec, off.data(), cpay}, root, o, d, th);
     }
     if (mode == 2) walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th);
     if (mode == 3) walk_packed(p4, RowLeaves<kFormMT>{s4}, root, o, d, th);
-    WalkCounts c;
+    WalkCounts c = warp_counts[i];
     if (mode == 4) walk_packed(p4, RowLeaves<kFormBW>{s4}, root, o, d, th, c);
     if (mode == 5) walk_packed(p4, RowLeaves<kFormMT>{s4}, root, o, d, th, c);
     const uint32_t v[6] = {c.pops, c.pushes, c.traversals, c.leaf_visits,
@@ -168,7 +288,9 @@ int main(int argc, char** argv) {
   fwrite(out.data(), 4, out.size(), g);
   fwrite(slot.data(), 4, slot.size(), g);
   if (mode == 6) fwrite(counts.data(), 4, n, g);
-  if (mode == 4 || mode == 5) fwrite(counts.data(), 4, counts.size(), g);
+  if (mode == 4 || mode == 5 || mode == 9 || mode == 10) {
+    fwrite(counts.data(), 4, counts.size(), g);
+  }
   fclose(g);
   return 0;
 }
@@ -183,13 +305,14 @@ def host_walk(tmp_path_factory):
     work = tmp_path_factory.mktemp("superleaf_host")
     (work / "driver.cpp").write_text(DRIVER)
     exe = work / "driver"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off",
-                    f"-I{_build.CSRC}", str(work / "driver.cpp"), "-o",
-                    str(exe)], check=True, capture_output=True, text=True)
+    subprocess.run([cxx, "-O2", "-std=c++20", "-pthread",
+                    "-ffp-contract=off", f"-I{_build.CSRC}",
+                    str(work / "driver.cpp"), "-o", str(exe)], check=True,
+                   capture_output=True, text=True)
 
     def run(mode, tree, origins, dirs, rays=1, lanes=None):
         n = origins.shape[0]
-        blocks = mode in (0, 1)
+        blocks = mode in (0, 1, 9, 10)
         if lanes is None and blocks:
             lanes = tree.lanes
         rows = (torch.cat([tree.coeff_pay.reshape(-1),
@@ -206,6 +329,8 @@ def host_walk(tmp_path_factory):
                 x.numpy().astype(np.float32).tofile(f)
             if blocks:
                 lanes.offsets.numpy().astype(np.int32).tofile(f)
+            if mode == 10:
+                tree.groups.numpy().astype(np.float32).tofile(f)
         subprocess.run([str(exe), str(work / "in.bin"), str(work / "out.bin")],
                        check=True)
         raw = np.fromfile(work / "out.bin", np.float32, count=5 * n)
@@ -215,7 +340,7 @@ def host_walk(tmp_path_factory):
                torch.from_numpy(raw[n:4 * n].reshape(n, 3).copy()),
                torch.from_numpy(raw[4 * n:].astype(np.int32)),
                torch.from_numpy(slot.copy()))
-        if mode < 4 or mode > 6:
+        if mode in (0, 1, 2, 3, 7, 8):
             return out
         counts = np.fromfile(work / "out.bin", np.int32, offset=24 * n)
         return out, torch.from_numpy(counts.reshape(-1, n).copy())
@@ -520,3 +645,267 @@ def test_host_zero_lanes_never_hit(host_walk, scene):
     assert not (want[3] == lane).any()
     got = host_walk(0, cut, o, d, rays=2)
     _assert_same(got, (want[0], want[1], want[2].to(torch.int32), want[3]))
+
+
+# ---------------------------------------------------------------------------
+# Kernel #2b's warp-wide walk (superleaf.cuh:walk_blocks_warp)
+# ---------------------------------------------------------------------------
+
+def one_block_scene(n_tris, device="cpu"):
+    """A scene of ``n_tris`` (1..128) triangles of a wavy grid around the
+    origin, the nearest to (0, 0.1) first, in materials 0 and 1, its
+    superleaf tree on ``wide``: one cut, so one block whose real lanes are
+    the ``n_tris`` triangles."""
+    k = 8
+    x, y = np.meshgrid(np.linspace(-1.15, 1.25, k + 1),
+                       np.linspace(-0.95, 1.25, k + 1))
+    z = 0.3 * np.sin(2.0 * x) * np.cos(2.0 * y)
+    verts = np.stack([x, y, z], -1).reshape(-1, 3)
+    quads = [(r * (k + 1) + c, r * (k + 1) + c + 1, (r + 1) * (k + 1) + c,
+              (r + 1) * (k + 1) + c + 1) for r in range(k) for c in range(k)]
+    faces = np.array([f for a, b, c, d in quads
+                      for f in ((a, b, d), (a, d, c))])
+    mid = verts[faces].mean(axis=1)[:, :2] - np.array([0.0, 0.1])
+    faces = faces[np.argsort((mid ** 2).sum(axis=1), kind="stable")][:n_tris]
+    tris = sp.make_triangles(verts, faces, np.arange(n_tris) % 2,
+                             device="cpu")
+    scene = sp.make_scene(triangles=tris, materials=tie_materials(),
+                          bvh=bvh.build_bvh_for_triangles(tris))
+    scene = mxu.attach_superleaf(scene)
+    assert scene.wide.n_blocks == 1
+    assert scene.wide.lanes.n_lanes == n_tris
+    return scene.to(device)
+
+
+def tie_materials(device="cpu"):
+    """16 materials: room for :func:`blocks_twice`'s raised ids."""
+    return sp.make_materials(
+        [dict(albedo=(0.2 + 0.05 * k, 0.5, 0.8 - 0.05 * k))
+         for k in range(16)], device=device)
+
+
+def twin_block_scene(device="cpu"):
+    """:func:`twin_mesh_scene` on its superleaf tree: every triangle twice
+    in adjacent lanes of one block, every hit a tie the lower lane wins."""
+    scene = mxu.attach_superleaf(dataclasses.replace(
+        twin_mesh_scene(), materials=tie_materials()))
+    return scene.to(device)
+
+
+def chain_twice_scene(swap=False, device="cpu"):
+    """:func:`one_block_scene` of 80 triangles whose block is there twice
+    (:func:`blocks_twice`: the copy's material ids raised by 8), the root
+    pair record holding both under the same box: one leaf chain through two
+    blocks whose every hit is a tie.  Equal entry distances put slot 0
+    first, so slot 0's block wins every tie: block 0, or with ``swap`` the
+    copy (block 1)."""
+    scene = one_block_scene(80)
+    tree = scene.wide
+    pairs_ = tree.pairs.clone()
+    root = pairs_[tree.root]
+    assert float(root[15]) == -1.0  # the second slot is empty
+    root[8:16] = root[0:8]
+    root[6], root[14] = (1.0, 0.0) if swap else (0.0, 1.0)
+    twice = dataclasses.replace(blocks_twice(tree), pairs=pairs_, n_blocks=2)
+    return dataclasses.replace(scene, wide=twice).to(device)
+
+
+WARP_TREES = ("mesh", "mesh_32", "twins", "chain", "chain_swapped",
+              "one_lane", "full_block")
+
+
+def _warp_tree(name, scene):
+    if name.startswith("mesh"):
+        return mxu.pack_bvh_superleaf(scene.bvh, scene.triangles,
+                                      32 if name == "mesh_32" else 128)
+    if name == "twins":
+        return twin_block_scene().wide
+    if name.startswith("chain"):
+        return chain_twice_scene(swap=name == "chain_swapped").wide
+    return one_block_scene(1 if name == "one_lane" else 128).wide
+
+
+def _plain_walk_totals(tree, o, d):
+    """The plain walk's hits and its totals: records popped, blocks
+    visited and their real lanes (the kernel tests those)."""
+    real = tree.lanes.offsets.diff()
+    work = dict(pops=0, blocks=0, lanes=0)
+    slab, block_hits = bk._slab, bk._block_hits
+
+    def counting_slab(rec, half, *args):
+        if half == 0:
+            work["pops"] += rec.shape[0]
+        return slab(rec, half, *args)
+
+    def counting_block_hits(views, ptr, *args):
+        work["blocks"] += ptr.numel()
+        work["lanes"] += int(real[ptr].sum())
+        return block_hits(views, ptr, *args)
+
+    bk._slab, bk._block_hits = counting_slab, counting_block_hits
+    try:
+        want = bk.intersect_packed_plain(tree, o, d, with_slot=True)
+    finally:
+        bk._slab, bk._block_hits = slab, block_hits
+    return want, work
+
+
+@pytest.mark.parametrize("tree", WARP_TREES)
+def test_host_warp_walk_matches_plain(host_walk, scene, tree):
+    """#2b's warp-wide walk (``walk_blocks_warp`` on 32 host threads a
+    warp, every seventh thread without a ray of its own) against the plain
+    walk: t, normal, material id and winner slot bit for bit on each ray,
+    a miss without a ray; ties within a block (twins: the lower lane),
+    across the two blocks of one leaf chain (the earlier visited: block 0,
+    swapped block 1), a block of one real lane and one of 128; and the
+    walk's counts: records popped, blocks visited and their real lanes
+    the plain walk's."""
+    t_ = _warp_tree(tree, scene)
+    o, d = _rays(509, seed=31)
+    (t, n, mid, slot), work = _plain_walk_totals(t_, o, d)
+    assert int((t < 1e19).sum()) > 20
+    if tree == "twins":  # both copies win somewhere: lane order decides
+        assert set(mid[t < 1e19].tolist()) == {0.0, 1.0}
+    if tree.startswith("chain"):
+        first = 1 if tree == "chain_swapped" else 0
+        assert (slot[t < 1e19] // mxu.SUPERLEAF == first).all()
+    dead = torch.arange(509) % 7 == 3
+    t, n, mid, slot = t.clone(), n.clone(), mid.clone(), slot.clone()
+    t[dead], n[dead], mid[dead], slot[dead] = 1e20, 0.0, -1.0, -1
+    got, counts = host_walk(9, t_, o, d)
+    _assert_same(got, (t, n, mid.to(torch.int32), slot))
+    live = ~dead
+    dead_work = _plain_walk_totals(t_, o[dead], d[dead])[1]
+    assert int(counts[2][dead].sum()) == 0  # no walk without a ray
+    assert int(counts[0].sum()) == work["pops"] - dead_work["pops"]
+    assert int(counts[3].sum()) == work["blocks"] - dead_work["blocks"]
+    assert int(counts[4].sum()) == work["lanes"] - dead_work["lanes"]
+    assert int(counts[2][live].min()) == 1
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("walk", ["warp", "serial"])
+def test_host_block_visit_batches_match_plain(host_walk, scene, walk, batch):
+    """#2b's variants that load 2 or 4 lane records before testing any,
+    the warp-wide walk and the serial one (``RecordLeaves<kBatch>``): the
+    plain walk's hits to the bit on the mesh and on twinned triangles."""
+    for tree in ("mesh", "twins"):
+        t_ = _warp_tree(tree, scene)
+        o, d = _rays(300, seed=32)
+        want = bk.intersect_packed_plain(t_, o, d, with_slot=True)
+        if walk == "warp":
+            dead = torch.arange(300) % 7 == 3
+            want = tuple(x.clone() for x in want)
+            for x, v in zip(want, (1e20, 0.0, -1.0, -1)):
+                x[dead] = v
+            got = host_walk(9, t_, o, d, rays=batch)[0]
+        else:
+            got = host_walk(1, t_, o, d, rays=batch)
+        _assert_same(got, (want[0], want[1], want[2].to(torch.int32),
+                           want[3]))
+
+
+# ---------------------------------------------------------------------------
+# The group boxes of #2b's pruning variant (accel/mxu.py:lane_group_bounds)
+# ---------------------------------------------------------------------------
+
+def _pruned_walk(tree, o, d):
+    """The plain walk with each block visit through
+    ``block_hits_pruned``: its hits and the real lanes of the groups it
+    entered, over all visits."""
+    real = tree.lanes.offsets.diff().long()
+    lanes = [0]
+
+    def pruned(views, ptr, o_, d_, best):
+        out = bk.block_hits_pruned(views, tree.groups, ptr, o_, d_, best)
+        enter = out[5].repeat_interleave(mxu.LANE_GROUP, 1)
+        inside = torch.arange(mxu.SUPERLEAF)[None] < real[ptr][:, None]
+        lanes[0] += int((enter & inside).sum())
+        return out[:5]
+
+    block_hits = bk._block_hits
+    bk._block_hits = pruned
+    try:
+        got = bk.intersect_packed_plain(tree, o, d, with_slot=True)
+    finally:
+        bk._block_hits = block_hits
+    return got, lanes[0]
+
+
+@pytest.mark.parametrize("tree", ["mesh", "mesh_32", "twins", "full_block"])
+def test_group_bounds_contain_lane_triangles(scene, tree):
+    """Each group box holds the triangles of its real lanes, as the scene
+    has them (v0, v0 + e1, v0 + e2 of the triangle whose edges the lane's
+    coefficients store, the nearest of those with the same edges): the
+    lanes' vertices recovered from the coefficients are the scene's within
+    1e-5, and a group without a real lane is marked empty (count -1)."""
+    t_ = _warp_tree(tree, scene)
+    src = (twin_mesh_scene().triangles if tree == "twins" else
+           one_block_scene(128).triangles if tree == "full_block"
+           else scene.triangles)
+    uv = t_.coeff_uv.view(-1, mxu.BLOCK_ROWS, 3, mxu.SUPERLEAF)
+    real = t_.lanes.offsets.diff().long()
+    key = {}  # (e1, e2) -> the triangles with those edges
+    for k, e in enumerate(zip(src.e1.tolist(), src.e2.tolist())):
+        key.setdefault(tuple(map(tuple, e)), []).append(k)
+    verts, ok = mxu.lane_vertices(t_.coeff_uv, t_.coeff_t)
+    boxes = t_.groups.view(-1, mxu.GROUPS, 2, 4)
+    lo, hi = boxes[:, :, 0, 0:3], torch.cat([boxes[:, :, 0, 3:4],
+                                             boxes[:, :, 1, 0:2]], -1)
+    checked = 0
+    for b in range(real.numel()):
+        for j in range(int(real[b])):
+            e2 = tuple(uv[b, 0:3, 1, j].tolist())
+            e1 = tuple((-uv[b, 0:3, 2, j]).tolist())
+            k = min(key[(e1, e2)], key=lambda k: float(
+                (src.v0[k].double() - verts[b, j, 0]).abs().max()))
+            v0 = src.v0[k].double()
+            tri = torch.stack([v0, v0 + src.e1[k].double(),
+                               v0 + src.e2[k].double()])
+            assert ok[b, j]
+            assert torch.allclose(verts[b, j], tri, atol=1e-5, rtol=0)
+            g = j // mxu.LANE_GROUP
+            assert (tri >= lo[b, g].double()).all()
+            assert (tri <= hi[b, g].double()).all()
+            checked += 1
+        for g in range(mxu.GROUPS):
+            used = g * mxu.LANE_GROUP < int(real[b])
+            assert float(boxes[b, g, 1, 3]) == (1.0 if used else -1.0)
+    assert checked == t_.lanes.n_lanes
+
+
+@pytest.mark.parametrize("tree", ["mesh", "mesh_32", "twins", "chain",
+                                  "full_block"])
+def test_pruned_visits_match_block_hits(host_walk, scene, tree):
+    """A block visit that skips the groups whose box the ray does not
+    enter before its best (``block_hits_pruned``, and #2b's pruning
+    variant of the warp-wide walk on host threads) gives ``_block_hits``'
+    hits, t and slot for slot: per visit on random rays, blocks and bests,
+    and over whole walks, where it tests fewer lanes than the visit of
+    every lane; the variant's count of lanes tested is the plain pruned
+    walk's."""
+    t_ = _warp_tree(tree, scene)
+    views = bk.block_views(t_)
+    rng = np.random.default_rng(33)
+    o, d = _rays(2048, seed=34)
+    ptr = torch.from_numpy(rng.integers(0, t_.n_blocks, 2048))
+    best = torch.from_numpy(rng.uniform(0.5, 4.0, 2048).astype(np.float32))
+    best[::3] = 1e20
+    want = bk._block_hits(views, ptr, o, d, best)
+    got = bk.block_hits_pruned(views, t_.groups, ptr, o, d, best)
+    assert int(want[0].sum()) > 50
+    for a, b in zip(got[:5], want):
+        assert torch.equal(a, b)
+    assert got[5].float().mean() < 0.9  # groups were skipped
+    o, d = _rays(509, seed=35)
+    (t, n, mid, slot), work = _plain_walk_totals(t_, o, d)
+    pruned, lanes = _pruned_walk(t_, o, d)
+    _assert_same(pruned, (t, n, mid, slot))
+    assert lanes < work["lanes"]
+    dead = torch.arange(509) % 7 == 3
+    for x, v in zip((t, n, mid, slot), (1e20, 0.0, -1.0, -1)):
+        x[dead] = v
+    got, counts = host_walk(10, t_, o, d)
+    _assert_same(got, (t, n, mid.to(torch.int32), slot))
+    dead_lanes = _pruned_walk(t_, o[dead], d[dead])[1]
+    assert int(counts[4].sum()) == lanes - dead_lanes
