@@ -1,0 +1,9 @@
+"""``bwd_ms.mesh_step``: ``bwd_ms.step`` in the mesh step's cells, where
+it moves ``step_ms.mesh``: the mean over the traced window's steps of the
+step's backward (``torch.autograd.grad`` of the loss), between two CUDA
+events."""
+
+
+def read(run):
+    layer_ms = run.readings.get("layer_ms")
+    return None if layer_ms is None else layer_ms[1]

@@ -1,0 +1,8 @@
+"""``idle_share.frame``: one less the union of the card's busy intervals
+over the traced window's wall time, in a frames cell."""
+
+
+def read(run):
+    if run.trace is None or run.traffic.kind != "frames":
+        return None
+    return 1.0 - run.trace.busy_s() / run.trace.window_s()
