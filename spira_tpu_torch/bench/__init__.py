@@ -6,4 +6,5 @@ differentiable step's times (:mod:`.grad_step`), and the mesh path
 tracers' (#2, #5, with #2b and #3; :mod:`.mesh_frame`), each for this
 checkout or another.  They run on the card, print JSON lines to stdout (or append
 them to a path the caller gives) and write nothing under
-``benchmarks/``."""
+``benchmarks/``.  :mod:`.spans` reduces a profile of the program's own
+spans: each device record and each idle gap put down to a span."""

@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import vecmath as vm
 from .device import resolve_device
 
@@ -105,9 +106,11 @@ def random_bits(k, shape, device=None) -> torch.Tensor:
     if n >= 1 << 32:
         raise ValueError(f"{n} elements: the counter's high word is not "
                          "ported")
-    lo = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
-    y0, y1 = threefry2x32(k[0], k[1], 0, lo)
-    return (y0 ^ y1).reshape(shape)
+    with annotate("spira.rng.threefry"):
+        lo = torch.arange(n, dtype=torch.int64,
+                          device=resolve_device(device))
+        y0, y1 = threefry2x32(k[0], k[1], 0, lo)
+        return (y0 ^ y1).reshape(shape)
 
 
 def uniform(k, shape=(), device=None) -> torch.Tensor:

@@ -28,6 +28,7 @@ import torch
 from ..core import rng as srng
 from ..core import vecmath as vm
 from ..core.vecmath import SCATTER_EPS
+from ..utils.profiling import annotate
 from . import bsdf
 from .intersect import intersect_scene
 
@@ -57,10 +58,11 @@ def trace(scene, origins, directions, sample_key, *, max_depth: int,
     alive = torch.ones(origins.shape[0], dtype=torch.bool,
                        device=origins.device)
     for b in range(max_depth):
-        o, d, throughput, radiance, alive = _bounce(
-            (o, d, throughput, radiance, alive), b, scene=scene,
-            sample_key=sample_key, semantics=semantics,
-            russian_roulette=russian_roulette, intersect_fn=intersect_fn)
+        with annotate("spira.trace.bounce"):
+            o, d, throughput, radiance, alive = _bounce(
+                (o, d, throughput, radiance, alive), b, scene=scene,
+                sample_key=sample_key, semantics=semantics,
+                russian_roulette=russian_roulette, intersect_fn=intersect_fn)
     return radiance
 
 

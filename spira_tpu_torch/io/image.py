@@ -14,6 +14,8 @@ import zlib
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 
 # ----------------------------------------------------------------------------
 # Assembly
@@ -49,15 +51,20 @@ TONEMAPS = {"gamma": tonemap_gamma, "aces": tonemap_aces, "none": lambda x: x}
 
 def _numpy(x) -> np.ndarray:
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
+        with annotate("spira.image.to_host"):
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
 def to_uint8(ldr) -> np.ndarray:
     """[0, 1] image (tensor or array) → host uint8 array."""
-    return np.asarray(
-        np.clip(_numpy(ldr) * 255.0 + 0.5, 0.0, 255.0), dtype=np.uint8
-    )
+    # one expression, so that the host copy is freed once it is scaled: a
+    # copy held by a name keeps a third frame-sized buffer live, which
+    # made this a fifth slower on an H100 machine's host (PERF.md)
+    with annotate("spira.image.quantize"):
+        return np.asarray(
+            np.clip(_numpy(ldr) * 255.0 + 0.5, 0.0, 255.0), dtype=np.uint8
+        )
 
 
 # ----------------------------------------------------------------------------

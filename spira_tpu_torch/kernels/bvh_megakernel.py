@@ -58,6 +58,7 @@ from ..accel.pairs import TRI_STRIDE, TRIS_PER_ROW, check_stack_depth
 from ..accel.traverse import _winner_triangle_hit
 from ..core.vecmath import INF
 from ..integrator.intersect import Hit, intersect_spheres, merge_hits
+from ..utils.profiling import annotate
 from . import megakernel as mk
 
 #: width of the material table (:func:`pack_materials`).
@@ -765,12 +766,13 @@ def _launch_bvh(scene, camera, *, mxu_leaf=False, rows=None, normalize=True,
         render_flat_bvh_mxu_megakernel.launches += 1
         return out
     _check_tree_tables(tree, scene.device)
-    out = launch_render(
-        "bvh_megakernel", "bvh_megakernel", "spira_bvh_megakernel_render",
-        (_VP, _VP, _I, _I),  # pairs, tri_rows, root, form_bw
-        (tree.pairs.data_ptr(), tree.tri_rows.data_ptr(), tree.root,
-         int(tree.form == "bw")), scene, camera,
-        rows=rows or (kw["height"], 0, 0), normalize=normalize, **kw)
+    with annotate("spira.kernel.render_flat_bvh_megakernel"):
+        out = launch_render(
+            "bvh_megakernel", "bvh_megakernel", "spira_bvh_megakernel_render",
+            (_VP, _VP, _I, _I),  # pairs, tri_rows, root, form_bw
+            (tree.pairs.data_ptr(), tree.tri_rows.data_ptr(), tree.root,
+             int(tree.form == "bw")), scene, camera,
+            rows=rows or (kw["height"], 0, 0), normalize=normalize, **kw)
     render_flat_bvh_megakernel.launches += 1
     return out
 
@@ -948,7 +950,7 @@ def intersect_tile(packed, origins, dirs, *, active=None, with_slot=False):
         else None
     fn = _build.entry("bvh_megakernel", "spira_bvh_intersect",
                       _INTERSECT_ARGTYPES)
-    with torch.cuda.device(device):
+    with annotate("spira.kernel.intersect_tile"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             origins.data_ptr(), dirs.data_ptr(),

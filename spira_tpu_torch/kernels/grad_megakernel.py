@@ -29,6 +29,7 @@ import types
 import torch
 
 from .. import _build
+from ..utils.profiling import annotate
 from . import megakernel as mk
 
 MAX_SPHERES = 16  # the JAX kernel's gradient-table rows
@@ -143,32 +144,35 @@ def render_grad_megakernel(scene, camera, tables, pix, *, loss_mode, width,
     if max_depth > MAX_TAPE_DEPTH:
         raise ValueError(f"max_depth {max_depth} is over the adjoint's "
                          f"{MAX_TAPE_DEPTH}-bounce tape")
-    cam, sph, tri = (t.detach() for t in tables)
-    mk._check_table("camera table", cam, device, mk.N_CAM_FIELDS)
-    mk._check_table("sphere table", sph, device, mk.N_SPHERE_FIELDS)
-    mk._check_table("triangle table", tri, device, mk.N_TRI_FIELDS)
-    n = width * height
-    _check_pix(pix, device, n)
-    # the kernel's own count of a block's bytes: tables, one copy of their
-    # cotangent accumulators (it keeps more only where they fit), the tape
-    smem = _build.entry("grad_megakernel", "spira_grad_smem",
-                        (ctypes.c_int,) * 3)(sph.shape[0], tri.shape[0],
-                                             max_depth)
-    if smem > _GRAD_SMEM_LIMIT:
-        raise ValueError(
-            f"scene tables, their gradients and the depth-{max_depth} tape "
-            f"take {smem} bytes, over the adjoint kernel's "
-            f"{_GRAD_SMEM_LIMIT}-byte shared-memory budget (_GRAD_SMEM_LIMIT)"
-        )
-    loss = torch.zeros(1, dtype=torch.float64, device=device)
-    dcam, dsph, dtri = (torch.zeros_like(t) for t in (cam, sph, tri))
-    scratch = (torch.empty((n, 3), dtype=torch.float32, device=device)
-               if loss_mode else None)
+    with annotate("spira.pack"):
+        cam, sph, tri = (t.detach() for t in tables)
+        mk._check_table("camera table", cam, device, mk.N_CAM_FIELDS)
+        mk._check_table("sphere table", sph, device, mk.N_SPHERE_FIELDS)
+        mk._check_table("triangle table", tri, device, mk.N_TRI_FIELDS)
+        n = width * height
+        _check_pix(pix, device, n)
+        # the kernel's own count of a block's bytes: tables, one copy of
+        # their cotangent accumulators (it keeps more only where they
+        # fit), the tape
+        smem = _build.entry("grad_megakernel", "spira_grad_smem",
+                            (ctypes.c_int,) * 3)(sph.shape[0], tri.shape[0],
+                                                 max_depth)
+        if smem > _GRAD_SMEM_LIMIT:
+            raise ValueError(
+                f"scene tables, their gradients and the depth-{max_depth} "
+                f"tape take {smem} bytes, over the adjoint kernel's "
+                f"{_GRAD_SMEM_LIMIT}-byte shared-memory budget "
+                "(_GRAD_SMEM_LIMIT)")
+        loss = torch.zeros(1, dtype=torch.float64, device=device)
+        dcam, dsph, dtri = (torch.zeros_like(t) for t in (cam, sph, tri))
+        scratch = (torch.empty((n, 3), dtype=torch.float32, device=device)
+                   if loss_mode else None)
     du, dv = mk._uv_scale(width, height, inclusive_uv)
     cot_scale = (1.0 / (3 * n * grad_spp) if loss_mode
                  else mk._inv_spp(grad_spp))
     fn = _build.entry("grad_megakernel", "spira_grad_render", _ARGTYPES)
-    with torch.cuda.device(device):
+    with annotate("spira.kernel.render_grad_megakernel"), \
+            torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             cam.data_ptr(), sph.data_ptr(), sph.shape[0], tri.data_ptr(),

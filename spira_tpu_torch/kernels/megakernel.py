@@ -39,6 +39,7 @@ from ..core import pcg
 from ..core.vecmath import INF, SCATTER_EPS, T_MIN
 from ..integrator.path_trace import RR_CAP, RR_START
 from ..integrator.path_trace import THROUGHPUT_CUTOFF as CUTOFF
+from ..utils.profiling import annotate
 
 # Per-bounce PCG stream ids (stream 0 = ray generation).
 _S_LOBE = 1  # lobe select / RR / diffuse disk (4 uniforms)
@@ -549,7 +550,8 @@ def pack_camera(camera):
 def pack_tables(scene, camera):
     """The (1, 20) camera, (S, 16) sphere and (T, 24) triangle tables the
     tracers read, differentiable in every float field they carry."""
-    return pack_camera(camera), pack_scene(scene), pack_triangles(scene)
+    with annotate("spira.pack"):
+        return pack_camera(camera), pack_scene(scene), pack_triangles(scene)
 
 
 def cam_tuple(cam_arr, has_lens: bool):
@@ -793,16 +795,18 @@ def geometry_fields(scene, device, keep):
 def _rgb_tables(scene, camera, device, keep):
     """The ``RgbTables`` that ``csrc/megakernel.cu:gather_tables`` reads:
     the scene's and camera's arrays (held in ``keep``)."""
-    m = scene.materials
-    n = m.count
-    mats = _RgbMaterialFields(
-        _field("material albedo", m.albedo, device, (n, 3), keep),
-        _field("material emission", m.emission, device, (n, 3), keep),
-        *(_field(f"material {name}", getattr(m, name), device, (n,), keep)
-          for name in ("metallic", "roughness", "ior", "transmission")),
-        n)
-    return _RgbTables(camera=camera_fields(camera, device, keep),
-                      geo=geometry_fields(scene, device, keep), mats=mats)
+    with annotate("spira.pack"):
+        m = scene.materials
+        n = m.count
+        mats = _RgbMaterialFields(
+            _field("material albedo", m.albedo, device, (n, 3), keep),
+            _field("material emission", m.emission, device, (n, 3), keep),
+            *(_field(f"material {name}", getattr(m, name), device, (n,),
+                     keep)
+              for name in ("metallic", "roughness", "ior", "transmission")),
+            n)
+        return _RgbTables(camera=camera_fields(camera, device, keep),
+                          geo=geometry_fields(scene, device, keep), mats=mats)
 
 
 @functools.cache
@@ -912,7 +916,8 @@ def render_flat_megakernel(
     out = torch.empty((height * width, 3), dtype=torch.float32, device=device)
     fn = _entry("megakernel", "spira_megakernel_render", _ARGTYPES,
                 _RgbTables, "spira_megakernel_tables_bytes")
-    with torch.cuda.device(device):
+    with annotate("spira.kernel.render_flat_megakernel"), \
+            torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             None if gather is None else ctypes.byref(gather),
@@ -942,21 +947,24 @@ class _HybridGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cam, sph, tri, scene, camera, kw):
-        ctx.save_for_backward(cam, sph, tri)
-        ctx.scene, ctx.camera, ctx.kw = scene, camera, kw
-        return render_flat_megakernel(
-            scene, camera, tables=(cam, sph, tri), width=kw["width"],
-            height=kw["height"], spp=kw["spp"], max_depth=kw["max_depth"],
-            seed=kw["seed"], inclusive_uv=kw["inclusive_uv"],
-        )
+        with annotate("spira.step.forward"):
+            ctx.save_for_backward(cam, sph, tri)
+            ctx.scene, ctx.camera, ctx.kw = scene, camera, kw
+            return render_flat_megakernel(
+                scene, camera, tables=(cam, sph, tri), width=kw["width"],
+                height=kw["height"], spp=kw["spp"],
+                max_depth=kw["max_depth"], seed=kw["seed"],
+                inclusive_uv=kw["inclusive_uv"],
+            )
 
     @staticmethod
     def backward(ctx, g):
         from .grad_megakernel import render_grad_megakernel
 
-        _, dcam, dsph, dtri = render_grad_megakernel(
-            ctx.scene, ctx.camera, ctx.saved_tensors,
-            g.to(torch.float32).contiguous(), loss_mode=False, **ctx.kw)
+        with annotate("spira.step.backward"):
+            _, dcam, dsph, dtri = render_grad_megakernel(
+                ctx.scene, ctx.camera, ctx.saved_tensors,
+                g.to(torch.float32).contiguous(), loss_mode=False, **ctx.kw)
         return dcam, dsph, dtri, None, None, None
 
 

@@ -74,6 +74,7 @@ from .kernels.spectral_fused import (
     render_flat_spectral_megakernel,
 )
 from .scene.camera import generate_rays
+from .utils.profiling import annotate
 
 
 def render_flat(scene, camera, *, width: int, height: int, spp: int = 16,
@@ -357,25 +358,28 @@ def render_flat_engine(
     RGB, or with ``spectral`` linear sRGB from the spectral XYZ film.  The
     fused engines draw from the PCG4D stream, the wavefront engine from
     threefry: their images agree statistically, not bitwise."""
-    engine = select_engine(scene, semantics, spectral, engine, camera=camera)
-    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
-              seed=seed, inclusive_uv=inclusive_uv)
-    if engine == "wavefront":
-        return render_flat(scene, camera, semantics=semantics,
-                           spectral=spectral, **kw)
-    if semantics != "physical":
-        raise ValueError(
-            f"engine {engine!r} renders physical semantics only; use "
-            "engine='wavefront' (or 'auto') for reference semantics")
-    if engine == "bvh_sorted":
-        return render_flat_bvh_sorted(scene, camera, spectral=spectral, **kw)
-    fn = _ENGINE_FNS[engine][bool(spectral)]
-    if fn is None:
-        raise ValueError(
-            f"engine {engine!r} renders RGB only; use "
-            "engine='cuda_spectral_bvh' (or 'auto') for spectral mesh scenes"
-        )
-    return fn(scene, camera, **kw)
+    with annotate("spira.render.engine"):
+        engine = select_engine(scene, semantics, spectral, engine,
+                               camera=camera)
+        kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+                  seed=seed, inclusive_uv=inclusive_uv)
+        if engine == "wavefront":
+            return render_flat(scene, camera, semantics=semantics,
+                               spectral=spectral, **kw)
+        if semantics != "physical":
+            raise ValueError(
+                f"engine {engine!r} renders physical semantics only; use "
+                "engine='wavefront' (or 'auto') for reference semantics")
+        if engine == "bvh_sorted":
+            return render_flat_bvh_sorted(scene, camera, spectral=spectral,
+                                          **kw)
+        fn = _ENGINE_FNS[engine][bool(spectral)]
+        if fn is None:
+            raise ValueError(
+                f"engine {engine!r} renders RGB only; use "
+                "engine='cuda_spectral_bvh' (or 'auto') for spectral mesh "
+                "scenes")
+        return fn(scene, camera, **kw)
 
 
 def render_hdr(scene, camera, width, height, **kw):
@@ -409,35 +413,38 @@ def render(
     arguments.  ``output_path`` ending in ``.exr`` saves the HDR image,
     ``.ppm`` a PPM, anything else a PNG.
     """
-    if shading != "full":
-        from .integrator.preview import render_flat_preview
+    with annotate("spira.render"):
+        if shading != "full":
+            from .integrator.preview import render_flat_preview
 
-        hdr = img_io.assemble_image(render_flat_preview(
-            scene, camera, width=width, height=height, seed=seed,
-            shading=shading, inclusive_uv=inclusive_uv), width, height)
-    else:
-        hdr = render_hdr(
-            scene,
-            camera,
-            width,
-            height,
-            spp=samples_per_pixel,
-            max_depth=max_depth,
-            seed=seed,
-            semantics=semantics,
-            inclusive_uv=inclusive_uv,
-            spectral=spectral,
-            engine=engine,
-        )
-    out = img_io.to_uint8(img_io.TONEMAPS[tonemap](hdr))
-    if output_path is not None:
-        if output_path.endswith(".exr"):
-            img_io.save_exr(output_path, hdr)
-        elif output_path.endswith(".ppm"):
-            img_io.save_ppm(output_path, out)
+            hdr = img_io.assemble_image(render_flat_preview(
+                scene, camera, width=width, height=height, seed=seed,
+                shading=shading, inclusive_uv=inclusive_uv), width, height)
         else:
-            img_io.save_png(output_path, out)
-    return out
+            hdr = render_hdr(
+                scene,
+                camera,
+                width,
+                height,
+                spp=samples_per_pixel,
+                max_depth=max_depth,
+                seed=seed,
+                semantics=semantics,
+                inclusive_uv=inclusive_uv,
+                spectral=spectral,
+                engine=engine,
+            )
+        with annotate("spira.image.tonemap"):
+            ldr = img_io.TONEMAPS[tonemap](hdr)
+        out = img_io.to_uint8(ldr)
+        if output_path is not None:
+            if output_path.endswith(".exr"):
+                img_io.save_exr(output_path, hdr)
+            elif output_path.endswith(".ppm"):
+                img_io.save_ppm(output_path, out)
+            else:
+                img_io.save_png(output_path, out)
+        return out
 
 
 def render_hybrid_gpu(scene, camera, width, height, **kw):
@@ -481,13 +488,14 @@ def _float_fields(scene, camera):
 def with_fields(scene, camera, values):
     """(scene, camera) with ``values``, ``{(group, field): tensor}``, put
     in; the group is ``"camera"`` or one of the scene's."""
-    new = {}
-    for (g, f), v in values.items():
-        new.setdefault(g, {})[f] = v
-    camera = dataclasses.replace(camera, **new.pop("camera", {}))
-    return dataclasses.replace(scene, **{
-        g: dataclasses.replace(getattr(scene, g), **fv)
-        for g, fv in new.items()}), camera
+    with annotate("spira.with_fields"):
+        new = {}
+        for (g, f), v in values.items():
+            new.setdefault(g, {})[f] = v
+        camera = dataclasses.replace(camera, **new.pop("camera", {}))
+        return dataclasses.replace(scene, **{
+            g: dataclasses.replace(getattr(scene, g), **fv)
+            for g, fv in new.items()}), camera
 
 
 def _mesh_forward(scene, camera, cfg):
@@ -554,29 +562,34 @@ class _HybridMeshGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, scene, camera, *leaves):
-        ctx.cfg, ctx.scene, ctx.camera = cfg, scene, camera
-        ctx.save_for_backward(*leaves)
-        return _mesh_forward(scene, camera, cfg)
+        with annotate("spira.step.forward"):
+            ctx.cfg, ctx.scene, ctx.camera = cfg, scene, camera
+            ctx.save_for_backward(*leaves)
+            return _mesh_forward(scene, camera, cfg)
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad[3:]
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, need)]
-        wanted = [t for t in inputs if t.requires_grad]
-        scene, camera = with_fields(ctx.scene, ctx.camera,
-                                    dict(zip(ctx.cfg["fields"], inputs)))
-        with torch.enable_grad():
-            out = mesh_replay(scene, camera,
-                              **{k: ctx.cfg[k] for k in _REPLAY_KEYS})
-            grads = (torch.autograd.grad(out, wanted, g, allow_unused=True)
-                     if out.requires_grad else [None] * len(wanted))
-        grads = iter(grads)
-        result = []
-        for t, n in zip(inputs, need):
-            d = next(grads) if n else None
-            result.append(torch.zeros_like(t) if n and d is None else d)
-        return (None, None, None, *result)
+        with annotate("spira.step.backward"):
+            need = ctx.needs_input_grad[3:]
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            wanted = [t for t in inputs if t.requires_grad]
+            scene, camera = with_fields(ctx.scene, ctx.camera,
+                                        dict(zip(ctx.cfg["fields"], inputs)))
+            with torch.enable_grad():
+                with annotate("spira.replay"):
+                    out = mesh_replay(scene, camera,
+                                      **{k: ctx.cfg[k] for k in _REPLAY_KEYS})
+                with annotate("spira.replay.vjp"):
+                    grads = (torch.autograd.grad(out, wanted, g,
+                                                 allow_unused=True)
+                             if out.requires_grad else [None] * len(wanted))
+            grads = iter(grads)
+            result = []
+            for t, n in zip(inputs, need):
+                d = next(grads) if n else None
+                result.append(torch.zeros_like(t) if n and d is None else d)
+            return (None, None, None, *result)
 
 
 def render_flat_hybrid_grad_mesh(

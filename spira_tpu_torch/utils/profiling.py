@@ -1,51 +1,36 @@
-"""Profiling hooks on ``torch.profiler``.
+"""The port's one span helper on ``torch.profiler``.
 
-Counterpart of :mod:`spira_tpu.utils.profiling`: a trace of a region, a
-named sub-region inside it, and each device's memory statistics.
+:func:`annotate` names a region of the program (``spira.render``,
+``spira.replay``, ``spira.rng.threefry``, ...) in a profiler's trace.
+With no profiler recording it returns one shared null context, so an
+untraced run pays a flag check a span and records nothing.
+
+An operator sees the spans by running the calls under any
+``torch.profiler.profile(activities=[ProfilerActivity.CPU,
+ProfilerActivity.CUDA])`` profile and exporting it with
+``prof.export_chrome_trace("trace.json")`` (viewable in Perfetto or
+``chrome://tracing``).  Each span is a ``record_function`` range on the
+profiler's own clock, beside the card's records; a span opened in a
+backward pass lies on autograd's thread.  ``spira_tpu_torch/bench/
+spans.py`` reduces such a trace: the spans by thread, each device record
+put down to the span it was launched in, and the card's idle time by
+span.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
+from torch.autograd import profiler as _profiler
 
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """Record the host's and (when there is one) the card's activity in
-    the region and write it as a Chrome trace, ``log_dir/trace.json``
-    (viewable in Perfetto or ``chrome://tracing``)::
-
-        with profile_trace("traces"):
-            render(...)
-
-    Yields the ``torch.profiler.profile`` object (for ``key_averages``).
-    """
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+_OFF = contextlib.nullcontext()
 
 
 def annotate(name: str):
-    """A named sub-region inside a profile trace."""
-    return torch.profiler.record_function(name)
-
-
-def device_memory_stats() -> dict:
-    """Memory statistics of each device, keyed by device: each card's
-    ``torch.cuda.memory_stats``, ``None`` for a device that gives none
-    (the CPU)."""
-    out = {"cpu": None}
-    if torch.cuda.is_available():
-        for i in range(torch.cuda.device_count()):
-            try:
-                out[f"cuda:{i}"] = torch.cuda.memory_stats(i)
-            except RuntimeError:
-                out[f"cuda:{i}"] = None
-    return out
+    """A context naming its region ``name`` in the trace of the profiler
+    that is recording, and :data:`_OFF`, one shared null context, when
+    none is."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF

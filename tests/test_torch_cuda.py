@@ -1450,6 +1450,34 @@ def test_mesh_step_does_not_sync(cuda, bunny):
     torch.cuda.synchronize()
 
 
+def test_bvh_frame_records_put_down_to_their_spans(cuda, bunny):
+    """A profiled bunny frame through ``render()``: kernel #2's record is
+    put down to ``spira.kernel.render_flat_bvh_megakernel`` through its
+    launch record (``bench/spans.py``), the tone map's to
+    ``spira.image.tonemap``, the copy to the host to
+    ``spira.image.to_host``, and every record of the frame to a span."""
+    from torch.profiler import ProfilerActivity
+
+    from spira_tpu_torch.bench import spans
+    from spira_tpu_torch.bench.timing import profile_window
+
+    scene, cam = bunny
+    args = (scene, cam, MESH_STEP["width"], MESH_STEP["height"])
+    kw = dict(samples_per_pixel=4, max_depth=4, seed=3)
+    sp.render(*args, **kw)  # builds, fills the constants
+    torch.cuda.synchronize()
+    with profile_window([ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+        sp.render(*args, **kw)
+        torch.cuda.synchronize()
+    put = [(n, s) for n, _, _, s in spans.reduce(prof).device]
+    walk = {s for n, s in put if "bvh_megakernel" in n}
+    assert walk == {"spira.kernel.render_flat_bvh_megakernel"}, put
+    assert {s for n, s in put if "DtoH" in n} == {"spira.image.to_host"}
+    assert "spira.image.tonemap" in {s for _, s in put}
+    assert all(s is not None for _, s in put), put
+
+
 def test_bvh_sorted_is_render_flat_without_grad_hook(cuda):
     scene, cam = _packed_mesh(cuda)
     shape = dict(width=48, height=24, spp=2, max_depth=3, seed=4)
