@@ -83,6 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradient; spectrally the SPD albedo's): one launch of #2 (#5) whose
    image equals ``render_flat_engine``'s to the bit, #3's launches in the
    backward (``render.mesh_replay_launches``) and nothing else, the
+   gathers' backward (``row_gather_backward``) one launch a bounce of each
+   replayed sample but the last (whose albedo reaches nothing), the
    gradient finite and nonzero on the bunny's material;
 3b. the command line, through ``cli.main`` at the demo preset (640x360,
    depth 4), each path with the launch counts set to 0 just before it and
@@ -144,6 +146,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the kernel within 0.5% of the plain version's channel means;
    ``distributed_render`` as two ranks on this card (gloo), its gathered
    PNG read back; ``[examples]`` lines with each one's wall seconds;
+3f. the material gathers' backward (``kernels/row_gather.py``,
+   ``row_gather_phase``): on ``ROW_GATHER_CASES`` the kernel bit-equal
+   over three launches and to ``index_put_(accumulate=True)``, whose order
+   it keeps, and within ``ROW_GATHER_SUM_RTOL`` of its plain version
+   (``index_add_`` into zeros); then timed at the bunny step's shape
+   beside both (``index_put_`` its ``library_ms``), with its time on the
+   card, its byte bound and the bound of its chain of adds
+   (``[row_gather]`` lines);
 4. timing with CUDA events (one warm-up, median of 10, of
    ``PLAIN_REPEATS`` for the plain versions), and a
    torch.profiler breakdown of the main-path wrappers' time on the card
@@ -385,9 +395,9 @@ STEP_LR, STEP_SEEDS = 2.0, range(5)
 #: leaves of its gradient, RGB and spectral.  Its backward through #3 is
 #: held to the bit against the same replay through the plain hook: #3's
 #: outputs are the plain walk's bits, so both run the same operations on
-#: the same values, and the gathers' backward on the card (index_put_
-#: with accumulate) sorts the indices and sums each row in order, so the
-#: sums do not depend on the scheduler
+#: the same values, and the gathers' backward on the card
+#: (kernels/row_gather.py) sums each row's rays in ray order, so the sums
+#: do not depend on the scheduler
 MESH_FIELDS = {False: (("materials", "albedo"), ("camera", "origin"),
                        ("triangles", "v0")),
                True: (("materials", "albedo_spd"),)}
@@ -1893,6 +1903,137 @@ def examples_phase(sp, card, out_dir, main_runs):
     return paths
 
 
+#: the material gathers' backward (kernels/row_gather.py): the kernel
+#: against its plain version, each value within this share of the sum of
+#: its rays' cotangents' magnitudes (index_add_ on the card adds in any
+#: order); against index_put_ (autograd's backward of table[idx]), whose
+#: order it keeps, to the bit
+ROW_GATHER_SUM_RTOL = 1e-6
+#: an H100's latency of one float add on the result of the last
+ROW_GATHER_ADD_CYCLES = 4
+#: (rays, rows, each table's trailing shape, row 0's share): the bunny
+#: step's gathers at 640x360 (albedo and emission of three materials, most
+#: rays on the bunny's row 0, which misses carry too), every ray on row 0,
+#: a ray count no multiple of the kernel's tile, the spectral step's SPD
+#: tables, one ray, and tables at the caps of row_gather.MAX_COLUMNS (53
+#: columns) and MAX_SLOTS (1,024 values)
+ROW_GATHER_CASES = {
+    "bunny_step": (230_400, 3, ((3,), (3,)), 0.9),
+    "all_row0": (230_400, 3, ((3,), (3,)), 1.0),
+    "ragged": (100_003, 3, ((3,), (3,), (2,)), 0.7),
+    "spectral_spd": (230_400, 3, ((24,), (24,)), 0.9),
+    "one_ray": (1, 3, ((3,),), 0.0),
+    "columns_cap": (50_000, 18, ((53,),), 0.5),
+    "values_cap": (50_000, 256, ((4,),), 0.3),
+}
+
+
+def row_gather_inputs(case, device, seed=0):
+    """(idx, cotangents, table shapes) of a :data:`ROW_GATHER_CASES` case."""
+    n, rows, trailing, share = ROW_GATHER_CASES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(0, rows, (n,), generator=g, device=device)
+    on0 = torch.rand(n, generator=g, device=device) < share
+    idx = torch.where(on0, torch.zeros_like(idx), idx)
+    cots = [torch.randn((n, *s), generator=g, device=device)
+            for s in trailing]
+    return idx, cots, [(rows, *s) for s in trailing]
+
+
+def row_gather_phase(card, device):
+    """The material gathers' backward on the card: for each case of
+    :data:`ROW_GATHER_CASES`, the kernel (one launch for all the tables)
+    bit-equal over repeated launches and to ``index_put_(accumulate=True)``
+    table by table, and against its plain version (``index_add_`` into
+    zeros) within :data:`ROW_GATHER_SUM_RTOL`; at the bunny step's shape,
+    its time beside the plain version's and ``index_put_``'s (autograd's
+    backward of ``table[idx]``, the library's yardstick), its time on the
+    card, its byte bound, N (8 + 4 columns), and the bound of its chain of
+    adds, N dependent adds at :data:`ROW_GATHER_ADD_CYCLES` each at the
+    card's SM clock.  Returns the kernel's entry."""
+    from spira_tpu_torch.bench import timing
+    from spira_tpu_torch.bench.timing import cuda_ms as time_ms
+    from spira_tpu_torch.kernels import row_gather as rg
+    from spira_tpu_torch.utils import sol
+
+    def library(idx, cots, shapes):
+        return [torch.zeros(s, device=device).index_put_(
+            (idx,), c, accumulate=True) for c, s in zip(cots, shapes)]
+
+    checks = []
+    for case in ROW_GATHER_CASES:
+        idx, cots, shapes = row_gather_inputs(case, device)
+        rg.row_gather_backward.launches = 0
+        got = [rg.row_gather_backward(idx, cots, shapes) for _ in range(3)]
+        plain = rg.row_gather_plain(idx, cots, shapes)
+        mag = rg.row_gather_plain(idx, [c.abs() for c in cots], shapes)
+        lib = library(idx, cots, shapes)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for g in got[1:]
+                   for a, b in zip(got[0], g))
+        as_lib = all(torch.equal(a, b) for a, b in zip(got[0], lib))
+        err = max(float((a - p).abs().max()) for a, p in zip(got[0], plain))
+        rel = max(float(((a - p).abs() / m.clamp(min=1e-30)).max())
+                  for a, p, m in zip(got[0], plain, mag))
+        launches = rg.row_gather_backward.launches
+        log(f"[row_gather] {case}: {idx.shape[0]} rays, tables {shapes}: "
+            f"bit-equal over 3 launches {same} and to index_put_ {as_lib} "
+            f"(both required); against index_add_ max abs error {err:.3g}, "
+            f"worst error over the magnitudes summed {rel:.3g} (limit "
+            f"{ROW_GATHER_SUM_RTOL}); launches {launches}")
+        if (not same or not as_lib or rel > ROW_GATHER_SUM_RTOL
+                or launches != 3):
+            raise AssertionError(f"row_gather {case}: bit-equal {same}, to "
+                                 f"index_put_ {as_lib}, error {rel}, "
+                                 f"launches {launches}")
+        checks.append(dict(case=case, bit_equal=same, index_put_bits=as_lib,
+                           max_abs_err=err, max_rel_to_magnitude=rel))
+
+    idx, cots, shapes = row_gather_inputs("bunny_step", device)
+
+    ms = time_ms(lambda: rg.row_gather_backward(idx, cots, shapes))
+    plain_ms = time_ms(lambda: rg.row_gather_plain(idx, cots, shapes))
+    library_ms = time_ms(lambda: library(idx, cots, shapes))
+    prof = device_breakdown(lambda: rg.row_gather_backward(idx, cots,
+                                                           shapes))
+    card_ms = prof["kernels_ms_per_call"].get("spira::row_gather_backward")
+    n = idx.shape[0]
+    columns = sum(c[0].numel() for c in cots)
+    nbytes = n * (8 + 4 * columns)
+    bound_ms = nbytes / sol.HBM_BYTES_PER_S * 1e3
+    # the order kept: a chain of n dependent float adds (4 cycles each)
+    chain_ms = n * ROW_GATHER_ADD_CYCLES / timing.max_sm_clock_hz() * 1e3
+    shape = (f"bunny step gathers: {n} rays, albedo and emission (3, 3), "
+             f"{ROW_GATHER_CASES['bunny_step'][3]} on row 0")
+    log(f"[row_gather] {card}: {shape}: {ms:.4f} ms (wrapper, CUDA events), "
+        f"on the card {card_ms} ms; plain (index_add_) {plain_ms:.4f} ms; "
+        f"index_put_(accumulate=True) {library_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by bytes ({nbytes} B); the kept order's chain "
+        f"of {n} dependent adds {chain_ms:.4f} ms")
+    log_breakdown(card, "row_gather_backward bunny step", prof)
+    return {
+        "name": "row_gather_backward",
+        "route": "cuda",
+        "bound_ms": bound_ms, "bound_by": "bytes", "bound_term": "bytes",
+        "bound_terms_ms": dict(alu=0.0, special=0.0, bytes=bound_ms),
+        "datasheet_bound_ms": bound_ms,
+        "chain_ms": chain_ms,
+        "library_ms": library_ms,
+        "source": "spira_tpu_torch/csrc/row_gather.cu",
+        "replaces": "no Pallas kernel: JAX gathers material rows by one-hot "
+                    "products (spira_tpu/integrator/bsdf.py:30-47)",
+        "launches": 3 * len(checks),
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": ms,
+        "card_ms": card_ms,
+        "plain_ms": plain_ms,
+        "shape": shape,
+        "host_ms": None if card_ms is None else ms - card_ms,
+        "profile": prof,
+        "checks": checks,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save", help="also write the main paths' PNGs "
@@ -1926,6 +2067,7 @@ def main() -> int:
     from spira_tpu_torch.kernels import grad_megakernel as gk
     from spira_tpu_torch.kernels import megakernel as mk
     from spira_tpu_torch.kernels import mxu_megakernel as xk
+    from spira_tpu_torch.kernels import row_gather as rg
     from spira_tpu_torch.kernels import spectral_bvh as sb
     from spira_tpu_torch.kernels import spectral_fused as sf
     from spira_tpu_torch.render import mesh_replay_launches
@@ -1938,7 +2080,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     names = ("megakernel", "bvh_megakernel", "spectral_megakernel",
-             "grad_megakernel", "mxu_megakernel", "peak")
+             "grad_megakernel", "mxu_megakernel", "peak", "row_gather")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.load, names)))
     ptxas = {}
@@ -2344,16 +2486,25 @@ def main() -> int:
             fwd = "spectral_bvh_megakernel" if spectral else "bvh_megakernel"
             field = MESH_FIELDS[spectral][0]
             reset_counts()
+            rg.row_gather_backward.launches = 0
             loss, flat, grads = gs.mesh_step(sp, bunny, bunny_cam,
                                              spectral=spectral, shape=MAIN)
             torch.cuda.synchronize()
             got = counts()
+            # the gathers' backward (not in counts(), whose every other
+            # path launches none): one launch a bounce of each replayed
+            # sample whose gathered albedo reaches the image, so all but
+            # the last, whose albedo scales a throughput no bounce reads
+            # (a step that differentiates emission launches one a bounce)
+            got["row_gather_backward"] = rg.row_gather_backward.launches
             what = f"render_flat_hybrid_grad_mesh{' spectral' * spectral}"
             main_runs[what] = got
             want = dict.fromkeys(got, 0)
             want[fwd] = 1
             want["bvh_intersect"] = mesh_replay_launches(
                 gs.MESH_GRAD_SPP, MAIN["max_depth"])
+            want["row_gather_backward"] = gs.MESH_GRAD_SPP * (
+                MAIN["max_depth"] - 1)
             same = torch.equal(flat, sp.render_flat_engine(
                 bunny, bunny_cam, spectral=spectral, **MAIN))
             g = grads[field]
@@ -2529,6 +2680,11 @@ def main() -> int:
         examples_paths = examples_phase(sp, card, args.save or tmp,
                                         main_runs)
     log(f"[examples] phase 3e: {time.perf_counter() - t_examples:.1f} s")
+
+    # ---- 3f. the material gathers' backward (kernels/row_gather.py)
+    t_rows = time.perf_counter()
+    row_gather_entry = row_gather_phase(card, device)
+    log(f"[row_gather] phase 3f: {time.perf_counter() - t_rows:.1f} s")
 
     # ---- 4. timing
     def mrays(shape, ms):
@@ -3504,6 +3660,7 @@ def main() -> int:
             "rows": dtype_rows,
             "checks": dtype_checks,
         },
+        row_gather_entry,
     ]
     # share of the bound at the timed shape, and the redesign ranking:
     # launches in one call of a main path (the most over the paths counted
@@ -3523,7 +3680,7 @@ def main() -> int:
             k["checks"] = k["checks"] + [offset_checks[k["name"]]]
         k["share_of_bound_pct"] = sol.sol_pct(k["bound_ms"], k["ms"])
         paths = {path: got[k["name"]] for path, got in main_runs.items()
-                 if got[k["name"]]}
+                 if got.get(k["name"])}
         k["main_path_launches"] = max(paths.values(), default=0)
         k["main_paths"] = paths
         ms, bound, shape = k.pop("rank_ms_bound_ms",

@@ -14,7 +14,9 @@ models the estimator's ``semantics`` selects:
 Each draw comes from the same ``(bounce, Stream)`` key as in JAX, so the
 directions agree with the JAX package's ray for ray.  Everything is
 branch-free masked selection.  Material rows are plain gathers, where
-JAX takes one-hot matrix products (the same values: 1·x + 0·y = x).
+JAX takes one-hot matrix products (the same values: 1·x + 0·y = x); on
+the card their backward is one kernel launch
+(:mod:`spira_tpu_torch.kernels.row_gather`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from ..core import rng as srng
 from ..core import vecmath as vm
 from ..core.device import device_constant
+from ..kernels import row_gather
 
 _SKY_BLUE = np.asarray([0.5, 0.7, 1.0], np.float32)
 
@@ -36,19 +39,24 @@ def pow5(x):
 
 
 def gather_materials(materials, mat_idx):
-    """Per-ray material fields from per-ray 0-based material indices."""
+    """Per-ray material fields from per-ray 0-based material indices.
+
+    Each field is ``table[idx]``; on the card, under grad mode, the tables
+    that require grad share one :class:`spira_tpu_torch.kernels.row_gather.
+    RowGather`, whose backward is one kernel launch
+    (:func:`spira_tpu_torch.kernels.row_gather.gather_rows`)."""
     idx = mat_idx.long()
     cauchy = (materials.cauchy_b if materials.cauchy_b is not None
               else materials.ior * 0.0)
-    return {
-        "albedo": materials.albedo[idx],
-        "emission": materials.emission[idx],
-        "metallic": materials.metallic[idx],
-        "roughness": materials.roughness[idx],
-        "ior": materials.ior[idx],
-        "transmission": materials.transmission[idx],
-        "cauchy_b": cauchy[idx],
-    }
+    return row_gather.gather_rows(idx, {
+        "albedo": materials.albedo,
+        "emission": materials.emission,
+        "metallic": materials.metallic,
+        "roughness": materials.roughness,
+        "ior": materials.ior,
+        "transmission": materials.transmission,
+        "cauchy_b": cauchy,
+    })
 
 
 def schlick(cos_i, ior):

@@ -19,6 +19,7 @@ from ..core import rng as srng
 from ..core import vecmath as vm
 from ..core.device import device_constant
 from ..core.vecmath import SCATTER_EPS
+from ..kernels import row_gather
 from . import bsdf
 from .intersect import intersect_scene
 from .path_trace import russian_roulette_step
@@ -73,8 +74,10 @@ def _bounce(carry, bounce_idx, *, scene, sample_key, lam, russian_roulette,
 
     # (N, W) albedo and emission at each carried wavelength
     idx = hit.material.long()
-    alb = cl.sample_spd(materials.albedo_spd[idx], lam)
-    emi = cl.sample_spd(materials.emission_spd[idx], lam)
+    spd = row_gather.gather_rows(idx, {"albedo": materials.albedo_spd,
+                                       "emission": materials.emission_spd})
+    alb = cl.sample_spd(spd["albedo"], lam)
+    emi = cl.sample_spd(spd["emission"], lam)
 
     # sky: the RGB gradient upsampled at each ray's wavelengths
     sky_spd = _upsample_device(bsdf.sky_color(d), lam)

@@ -1415,8 +1415,9 @@ def test_mesh_backward_through_kernel_matches_plain_hook(cuda, bunny,
     """The step's backward (#3 in the hook) against the same replay's
     vector-Jacobian product with the hook over #3's plain version, the
     same cotangent, to the bit: #3 gives the plain walk's bits, and the
-    gathers' backward on the card (index_put_ with accumulate) sorts the
-    indices and sums each row in order, whatever the scheduler does."""
+    gathers' backward on the card (``kernels/row_gather.py``) sums each
+    row in an order fixed by the number of rays, whatever the scheduler
+    does."""
     from spira_tpu_torch.bench import grad_step as gs
 
     scene, cam = bunny
@@ -1431,6 +1432,125 @@ def test_mesh_backward_through_kernel_matches_plain_hook(cuda, bunny,
         g, w = got[field], want[field]
         assert float(w.abs().max()) > 0, field
         assert torch.equal(g, w), (field, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("case", ["bunny_step", "all_row0", "ragged",
+                                  "spectral_spd", "one_ray", "columns_cap",
+                                  "values_cap"])
+def test_row_gather_kernel_against_plain(cuda, case):
+    """The gathers' backward kernel (``csrc/row_gather.cu``, one launch for
+    all the tables) on chip_smoke's cases (the bunny step's 230,400 rays,
+    every ray on row 0, a ray count no multiple of the tile, the spectral
+    SPD tables, one ray, tables at the columns' and the values' caps):
+    ``index_put_(accumulate=True)``'s bits, whose order it keeps, the same
+    bits over repeated launches, and against its plain version
+    (``index_add_`` into zeros) each value within ``SUM_RTOL`` of the
+    magnitudes summed into it."""
+    import chip_smoke
+    from spira_tpu_torch.kernels import row_gather as rg
+    from tests.test_torch_row_gather import assert_sums_close
+
+    idx, cots, shapes = chip_smoke.row_gather_inputs(case, cuda, seed=4)
+    if case.endswith("_cap"):
+        cols = sum(s[1] for s in shapes)
+        assert (cols == rg.MAX_COLUMNS if case == "columns_cap"
+                else shapes[0][0] * cols == rg.MAX_SLOTS)
+    rg.row_gather_backward.launches = 0
+    got = [rg.row_gather_backward(idx, cots, shapes) for _ in range(4)]
+    assert rg.row_gather_backward.launches == 4
+    for g in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got[0], g))
+    for g, w, c, s in zip(got[0], rg.row_gather_plain(idx, cots, shapes),
+                          cots, shapes):
+        lib = torch.zeros(s, device=cuda).index_put_((idx,), c,
+                                                     accumulate=True)
+        assert torch.equal(g, lib), float((g - lib).abs().max())
+        assert_sums_close(g, w, idx, c)
+
+
+def test_row_gather_kernel_wraps_negative_indices(cuda):
+    """An index counted from the end reads the row ``table[idx]`` reads,
+    in the kernel's backward as in ``index_put_``'s."""
+    from spira_tpu_torch.kernels import row_gather as rg
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    idx = torch.randint(-4, 4, (5_000,), generator=g, device=cuda)
+    cot = torch.randn(5_000, 3, generator=g, device=cuda)
+    (got,) = rg.row_gather_backward(idx, [cot], [(4, 3)])
+    want = torch.zeros(4, 3, device=cuda).index_put_((idx,), cot,
+                                                     accumulate=True)
+    assert torch.equal(got, want)
+
+
+def _cell_fields(spectral):
+    """The bunny step cell's leaves (albedo and emission) and a 1-D table;
+    spectrally the SPD tables."""
+    return ((("materials", "albedo_spd"), ("materials", "emission_spd"))
+            if spectral else (("materials", "albedo"),
+                              ("materials", "emission"),
+                              ("materials", "roughness")))
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_mesh_backward_gathers_against_index_put(cuda, bunny, spectral,
+                                                 monkeypatch):
+    """The mesh step's backward with its material gathers through the
+    kernel against the same backward through ``table[idx]``'s own
+    (``index_put_`` with accumulate; the kernel's cap set to 0): the same
+    image and the same gradients to the bit (the kernel keeps
+    ``index_put_``'s order; the 1-D roughness keeps ``table[idx]``); the
+    kernel launched ``grad_spp x max_depth`` times, and none on the other
+    route."""
+    from spira_tpu_torch.bench import grad_step as gs
+    from spira_tpu_torch.kernels import row_gather as rg
+
+    scene, cam = bunny
+    fields = _cell_fields(spectral)
+    rg.row_gather_backward.launches = 0
+    _, img, got = gs.mesh_step(sp, scene, cam, seed=3, spectral=spectral,
+                               shape=MESH_STEP, fields=fields)
+    torch.cuda.synchronize()
+    assert rg.row_gather_backward.launches == (
+        gs.MESH_GRAD_SPP * MESH_STEP["max_depth"])
+    monkeypatch.setattr(rg, "MAX_SLOTS", 0)
+    rg.row_gather_backward.launches = 0
+    _, img0, want = gs.mesh_step(sp, scene, cam, seed=3, spectral=spectral,
+                                 shape=MESH_STEP, fields=fields)
+    torch.cuda.synchronize()
+    assert rg.row_gather_backward.launches == 0
+    assert torch.equal(img, img0)
+    for field in fields:
+        g, w = got[field], want[field]
+        if field[1] in ("albedo", "emission", "albedo_spd"):
+            assert float(w.abs().max()) > 0, field
+        assert torch.equal(g, w), (field, _rel_l2(g, w))
+
+
+def test_row_gather_launches_a_step_and_none_a_frame(cuda, bunny):
+    """The bunny step's gathers' backward: one launch a bounce of each
+    replayed sample (``grad_spp x max_depth``) for the cell's albedo and
+    emission together; a ``render()`` frame and a value-only replay
+    launch none."""
+    from spira_tpu_torch.bench import grad_step as gs
+    from spira_tpu_torch.kernels import row_gather as rg
+    from spira_tpu_torch.render import mesh_replay
+
+    scene, cam = bunny
+    rg.row_gather_backward.launches = 0
+    sp.render(scene, cam, MESH_STEP["width"], MESH_STEP["height"],
+              samples_per_pixel=2, max_depth=4, seed=3)
+    sp.render(scene, cam, MESH_STEP["width"], MESH_STEP["height"],
+              samples_per_pixel=2, max_depth=4, seed=3, engine="wavefront")
+    with torch.no_grad():
+        mesh_replay(scene, cam, width=64, height=32, grad_spp=2,
+                    max_depth=4, seed=3)
+    torch.cuda.synchronize()
+    assert rg.row_gather_backward.launches == 0
+    gs.mesh_step(sp, scene, cam, seed=3, shape=MESH_STEP,
+                 fields=_cell_fields(False)[:2])
+    torch.cuda.synchronize()
+    assert rg.row_gather_backward.launches == (
+        gs.MESH_GRAD_SPP * MESH_STEP["max_depth"])
 
 
 def test_mesh_step_does_not_sync(cuda, bunny):
